@@ -1,0 +1,15 @@
+from .trajectory import (
+    load_trajectory_kitti,
+    load_trajectory_tum,
+    save_map_ply,
+    save_trajectory_kitti,
+    save_trajectory_tum,
+)
+
+__all__ = [
+    "load_trajectory_kitti",
+    "load_trajectory_tum",
+    "save_map_ply",
+    "save_trajectory_kitti",
+    "save_trajectory_tum",
+]

@@ -1,0 +1,72 @@
+"""Checkpoint loading: safetensors -> flat dicts of torch tensors.
+
+The committed ``weights/*.safetensors`` are torch state dicts: OIHW conv
+kernels and (out, in) linear weights, stored in fp16 (written by
+``superslam_tpu/models/weights.py::save_params_torch_layout``). The port
+keeps that layout, so loading is a dtype cast and a device move. The JAX
+package holds the same parameters as HWIO convs and (in, out) linears;
+``from_jax_params`` carries its dicts over (the inverse of its
+``convert_torch_layout``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..utils.logging import get_logger
+
+Params = dict[str, torch.Tensor]
+
+
+def to_torch_layout(arr: np.ndarray) -> np.ndarray:
+    """JAX-package layout -> torch layout: HWIO -> OIHW, (in,out) -> (out,in)."""
+    if arr.ndim == 4:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if arr.ndim == 2:
+        return np.transpose(arr, (1, 0))
+    return arr
+
+
+def from_jax_params(
+    params: dict[str, np.ndarray], device="cpu", dtype=torch.float32
+) -> Params:
+    """A JAX-package parameter dict (HWIO / (in, out) arrays) -> the port's
+    torch-layout dict."""
+    return {
+        name: torch.from_numpy(
+            np.array(to_torch_layout(np.asarray(arr, np.float32)), order="C")
+        ).to(device=device, dtype=dtype)
+        for name, arr in params.items()
+    }
+
+
+def load_safetensors(path: str, device="cpu", dtype=torch.float32) -> Params:
+    """Load a torch-layout safetensors checkpoint (no transposes)."""
+    from safetensors.torch import load_file
+
+    return {
+        name: t.to(device=device, dtype=dtype)
+        for name, t in load_file(path, device="cpu").items()
+        if not name.endswith("num_batches_tracked")
+    }
+
+
+def load_params(
+    path: str | None,
+    fallback: Callable[[], Params],
+    device="cpu",
+    dtype=torch.float32,
+) -> Params:
+    """Load a safetensors checkpoint from ``path``; fall back to a random
+    init when it is missing, so the framework stays runnable weight-free."""
+    if path and os.path.exists(path):
+        if not path.endswith(".safetensors"):
+            raise ValueError(f"not a .safetensors checkpoint: {path}")
+        return load_safetensors(path, device, dtype)
+    if path:
+        get_logger().warning("weights not found at %s; using random initialization", path)
+    return {k: v.to(device=device, dtype=dtype) for k, v in fallback().items()}

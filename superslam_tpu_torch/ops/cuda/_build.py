@@ -1,0 +1,145 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All ``*.cu`` sources beside this file are compiled by ONE ``nvcc`` call
+for ``sm_90a`` into a shared library with a plain C interface, at first
+use, under ``build/superslam_tpu_torch/`` at the repository root. The
+library name carries a hash of the sources, so an edited kernel is never
+served from a stale build. It is loaded with ``ctypes``; no PyTorch header
+enters the build (that is what keeps it to seconds instead of minutes).
+
+Nothing here runs at import: the CPU tests import every kernel module on
+hosts that have neither ``nvcc`` nor a card.
+
+Each wrapper adds one to its launch count where it launches its kernel
+(``count``); ``launch_counts``/``reset_launch_counts`` let a run show that
+its main path really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(_SRC_DIR)))
+BUILD_DIR = os.path.join(_REPO, "build", "superslam_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+]
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's build, if it built
+
+KERNELS = ("conv1a1b", "conv_pair", "nms", "masked_attention")
+_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, stream
+    "ssl_conv_pair_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # s, out, B, H, W, radius, stream
+    "ssl_nms": [_P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, mask, out, B, heads, N, is_bf16, stream
+    "ssl_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def count(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the GPU host")
+
+
+def _library_path() -> str:
+    h = hashlib.sha1()
+    for path in sources() + sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libsuperslam_kernels_{h.hexdigest()[:12]}.so")
+
+
+def build() -> str:
+    """Compile every kernel source with one nvcc call (if not built yet);
+    returns the library path. nvcc's resource report (-Xptxas -v) goes to
+    nvcc.log beside the library."""
+    global build_seconds
+    out = _library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    build_seconds = time.perf_counter() - t0
+    with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on the tensor's device, as a handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

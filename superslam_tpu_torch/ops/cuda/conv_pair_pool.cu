@@ -1,0 +1,258 @@
+// conv_pair_pool: maxpool2x2(relu(conv_b(relu(conv_a(x) + ba)) + bb)).
+//
+// Replaces superslam_tpu/ops/pallas/conv.py::conv1a1b_chw and
+// ::conv_pair_chw with pool_vert=True (kernel body _conv_pair_pool_kernel)
+// plus the XLA hpool_canvas that finishes their pool. Both convs are 3x3
+// SAME with zero padding; conv_a maps CIN -> 64 channels, conv_b 64 -> 64.
+//
+// Bound on the H100: operations. SuperPoint's conv1a+conv1b pair at the
+// KITTI shape (2 x 384 x 1248) is ~71 GFLOP against ~4 MB of image in and
+// ~20 MB of pooled map out; conv2a+conv2b at half resolution is ~35 GFLOP.
+// What the design does about it:
+//   * conv_b (and conv_a when CIN = 64) run on the tensor cores as implicit
+//     GEMMs through WMMA bf16 16x16x16 fragments with f32 accumulation;
+//     no im2col is materialised anywhere.
+//   * a block owns a 16-row x 32-column conv tile. The conv_a map of the
+//     tile plus its one-pixel halo (18 x 34 x 64 bf16) lives only in shared
+//     memory, and the 2x2 pool runs in the epilogue (shared-memory atomic
+//     max of the non-negative ReLU outputs), so neither the conv_a map nor
+//     the full-resolution conv_b map ever reaches device memory.
+//   * "flat runs": a warp's 16 GEMM rows are 16 consecutive pixels of the
+//     tile stored with a fixed pixel pitch, so each 3x3 tap is one
+//     constant offset into shared memory and one fragment load. The
+//     columns that wrap past the tile edge are computed and discarded
+//     (6-7% extra work) instead of being special-cased.
+// Later work (ROADMAP queue 2): wgmma + TMA, swizzled shared memory (the
+// 128-byte pixel pitch makes the fragment loads bank-conflicted), and more
+// than one block per SM.
+//
+// Layouts: CIN = 1 takes f32 (B, 1, H, W); CIN = 64 takes bf16 NHWC
+// (a channels_last (B, 64, H, W) tensor). The output is NHWC (channels_last
+// (B, 64, H/2, W/2)) in bf16 or f32. H and W are even.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int C = 64;           // conv_a output, conv_b input and output channels
+constexpr int TH = 16;          // conv rows per block (8 pooled rows)
+constexpr int TW = 32;          // conv columns per block (16 pooled columns)
+constexpr int AP = TW + 2;      // pixel pitch of the conv_a tile
+constexpr int AR = TH + 2 + 1;  // conv_a tile rows: 18 + 1 zero row for run overrun
+constexpr int XP = TW + 4;      // pixel pitch of the input tile
+constexpr int XR = TH + 4 + 1;  // input tile rows: 20 + 1 zero row for run overrun
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int PH = TH / 2, PW = TW / 2;
+constexpr int NRUN_A = (18 * XP + 15) / 16;  // 41 runs cover the 18 x 34 conv_a tile
+constexpr int NRUN_B = TH * AP / 16;         // 34 runs cover the 16 x 32 conv_b tile
+
+constexpr size_t A_BYTES = size_t(AR) * AP * C * 2;       // 82,688
+constexpr size_t X64_BYTES = size_t(XR) * XP * C * 2;     // 96,768
+constexpr size_t POOL_BYTES = size_t(PH) * PW * C * 4;    // 32,768
+constexpr size_t STAGE_BYTES = size_t(NWARPS) * 256 * 4;  // 8,192
+
+template <int CIN>
+__host__ __device__ constexpr size_t union_bytes() {
+  return CIN == 64 ? X64_BYTES : POOL_BYTES;
+}
+template <int CIN>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return A_BYTES + union_bytes<CIN>() + STAGE_BYTES;
+}
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc[nb] += sum over 9 taps and 64 input channels of
+//   src[(base + ky*pitch + kx) * 64 + ci] * w[(tap*64 + ci)*64 + nb*16 + j].
+__device__ __forceinline__ void run_gemm(const __nv_bfloat16* src, int base, int pitch,
+                                         const __nv_bfloat16* __restrict__ w,
+                                         FragC (&acc)[4]) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) wmma::fill_fragment(acc[nb], 0.0f);
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+    const __nv_bfloat16* a = src + size_t(base + ky * pitch + kx) * C;
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) {
+      FragA fa;
+      wmma::load_matrix_sync(fa, a + cb * 16, C);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        FragB fb;
+        wmma::load_matrix_sync(fb, w + size_t(tap * C + cb * 16) * C + nb * 16, C);
+        wmma::mma_sync(acc[nb], fa, fb, acc[nb]);
+      }
+    }
+  }
+}
+
+template <int CIN, typename TOut>
+__global__ void __launch_bounds__(NTHREADS)
+    conv_pair_pool_kernel(const void* __restrict__ xv, const void* __restrict__ wav,
+                          const float* __restrict__ ba,
+                          const __nv_bfloat16* __restrict__ wb,
+                          const float* __restrict__ bb, TOut* __restrict__ out, int H,
+                          int W) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* u_s = smem + A_BYTES;  // input tile, then the pooled tile
+  float* stage_all = reinterpret_cast<float*>(smem + A_BYTES + union_bytes<CIN>());
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  float* stage = stage_all + warp * 256;
+
+  // ---- conv_a tile: a_s[(r*AP + c)*64 + co] at image (y0-1+r, x0-1+c) ----
+  if constexpr (CIN == 1) {
+    const float* x = reinterpret_cast<const float*>(xv) + size_t(b) * H * W;
+    const float* wa = reinterpret_cast<const float*>(wav);  // (64, 9)
+    float* x_s = reinterpret_cast<float*>(u_s);              // (XR, XP) f32
+    float* wa_s = x_s + XR * XP;                             // (64, 9)
+    for (int i = tid; i < XR * XP; i += NTHREADS) {
+      const int r = i / XP, c = i % XP;
+      const int gy = y0 - 2 + r, gx = x0 - 2 + c;
+      x_s[i] = (r < TH + 4 && gy >= 0 && gy < H && gx >= 0 && gx < W)
+                   ? x[size_t(gy) * W + gx]
+                   : 0.0f;
+    }
+    for (int i = tid; i < C * 9; i += NTHREADS) wa_s[i] = wa[i];
+    __syncthreads();
+    // One item = one conv_a pixel x 8 channels, written as one 16-byte store.
+    for (int i = tid; i < AR * AP * 8; i += NTHREADS) {
+      const int pix = i / 8, g = i % 8;
+      const int r = pix / AP, c = pix % AP;
+      const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+      const bool inside = r < TH + 2 && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      __align__(16) __nv_bfloat16 v8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = g * 8 + j;
+        float acc = ba[co];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          acc += x_s[(r + tap / 3) * XP + c + tap % 3] * wa_s[co * 9 + tap];
+        v8[j] = __float2bfloat16(inside ? fmaxf(acc, 0.0f) : 0.0f);
+      }
+      *reinterpret_cast<uint4*>(a_s + size_t(pix) * C + g * 8) =
+          *reinterpret_cast<const uint4*>(v8);
+    }
+  } else {
+    const __nv_bfloat16* x =
+        reinterpret_cast<const __nv_bfloat16*>(xv) + size_t(b) * H * W * C;
+    const __nv_bfloat16* wa = reinterpret_cast<const __nv_bfloat16*>(wav);
+    __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(u_s);  // (XR, XP, 64)
+    for (int i = tid; i < XR * XP * 8; i += NTHREADS) {
+      const int pix = i / 8, part = i % 8;
+      const int r = pix / XP, c = pix % XP;
+      const int gy = y0 - 2 + r, gx = x0 - 2 + c;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (r < TH + 4 && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = *reinterpret_cast<const uint4*>(x + (size_t(gy) * W + gx) * C + part * 8);
+      *reinterpret_cast<uint4*>(x_s + size_t(pix) * C + part * 8) = v;
+    }
+    // The run-overrun row of the conv_a tile is read by conv_b's discarded
+    // columns only; keep it finite.
+    for (int i = tid; i < AP * C; i += NTHREADS)
+      a_s[size_t(TH + 2) * AP * C + i] = __float2bfloat16(0.0f);
+    __syncthreads();
+    // Conv_a pixel (r, c) is flat index f = r*XP + c of the input tile's
+    // pitch: its tap (ky, kx) reads input pixel f + ky*XP + kx.
+    for (int run = warp; run < NRUN_A; run += NWARPS) {
+      FragC acc[4];
+      run_gemm(x_s, run * 16, XP, wa, acc);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        wmma::store_matrix_sync(stage, acc[nb], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int f = run * 16 + e / 16, co = nb * 16 + e % 16;
+          const int r = f / XP, c = f % XP;
+          if (r < TH + 2 && c < AP) {
+            const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            a_s[size_t(r * AP + c) * C + co] =
+                __float2bfloat16(inside ? fmaxf(stage[e] + ba[co], 0.0f) : 0.0f);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- conv_b + ReLU + 2x2 max pool into pool_s (aliases the input tile) ----
+  float* pool_s = reinterpret_cast<float*>(u_s);  // (PH, PW, 64)
+  for (int i = tid; i < PH * PW * C; i += NTHREADS) pool_s[i] = 0.0f;
+  __syncthreads();
+  for (int run = warp; run < NRUN_B; run += NWARPS) {
+    FragC acc[4];
+    run_gemm(a_s, run * 16, AP, wb, acc);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      wmma::store_matrix_sync(stage, acc[nb], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int f = run * 16 + e / 16, co = nb * 16 + e % 16;
+        const int r = f / AP, c = f % AP;
+        if (c < TW && y0 + r < H && x0 + c < W) {
+          // ReLU outputs are >= 0, so their IEEE bit patterns order as ints.
+          const float v = fmaxf(stage[e] + bb[co], 0.0f);
+          atomicMax(reinterpret_cast<int*>(pool_s) + ((r / 2) * PW + c / 2) * C + co,
+                    __float_as_int(v));
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  const int Ho = H / 2, Wo = W / 2;
+  for (int i = tid; i < PH * PW * C; i += NTHREADS) {
+    const int co = i % C, pix = i / C;
+    const int oy = y0 / 2 + pix / PW, ox = x0 / 2 + pix % PW;
+    if (oy < Ho && ox < Wo)
+      out[((size_t(b) * Ho + oy) * Wo + ox) * C + co] = ssl_from_float<TOut>(pool_s[i]);
+  }
+}
+
+template <int CIN, typename TOut>
+cudaError_t launch(const void* x, const void* wa, const float* ba, const void* wb,
+                   const float* bb, void* out, int B, int H, int W,
+                   cudaStream_t stream) {
+  auto kernel = conv_pair_pool_kernel<CIN, TOut>;
+  const size_t smem = smem_bytes<CIN>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      x, wa, ba, reinterpret_cast<const __nv_bfloat16*>(wb), bb,
+      reinterpret_cast<TOut*>(out), H, W);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: CIN = 1 -> f32 (B, H, W); CIN = 64 -> bf16 (B, H, W, 64).
+// wa: CIN = 1 -> f32 (64, 9); CIN = 64 -> bf16 (9, 64, 64) [tap][ci][co].
+// wb: bf16 (9, 64, 64) [tap][ci][co]. ba, bb: f32 (64,).
+// out: (B, H/2, W/2, 64), f32 if out_f32 else bf16.
+SSL_EXPORT int ssl_conv_pair_pool(const void* x, const void* wa, const float* ba,
+                                  const void* wb, const float* bb, void* out, int B,
+                                  int cin, int H, int W, int out_f32, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if ((cin != 1 && cin != 64) || H % 2 != 0 || W % 2 != 0 || B < 1)
+    return int(cudaErrorInvalidValue);
+  if (cin == 1)
+    return int(out_f32 ? launch<1, float>(x, wa, ba, wb, bb, out, B, H, W, s)
+                       : launch<1, __nv_bfloat16>(x, wa, ba, wb, bb, out, B, H, W, s));
+  return int(out_f32 ? launch<64, float>(x, wa, ba, wb, bb, out, B, H, W, s)
+                     : launch<64, __nv_bfloat16>(x, wa, ba, wb, bb, out, B, H, W, s));
+}

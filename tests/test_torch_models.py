@@ -1,0 +1,134 @@
+"""The port's SuperPoint and LightGlue against the JAX package's, in f32 on
+the CPU (the JAX side on its XLA route, the port on its plain versions),
+with the same parameters carried over by from_jax_params."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from superslam_tpu.models import lightglue as jlg
+from superslam_tpu.models import superpoint as jsp
+from superslam_tpu.models.weights import load_safetensors as jax_load
+from superslam_tpu_torch.models import lightglue as tlg
+from superslam_tpu_torch.models import superpoint as tsp
+from superslam_tpu_torch.models.weights import from_jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def dense_pair():
+    """Both packages' dense SuperPoint heads on the same (2, 64, 160) image."""
+    jparams = jsp.init_superpoint_params(0)
+    tparams = from_jax_params({k: np.asarray(v) for k, v in jparams.items()})
+    img = np.random.default_rng(0).uniform(0, 1, (2, 64, 160)).astype(np.float32)
+    jout = jsp.superpoint_dense(
+        jparams, jnp.asarray(img), compute_dtype=jnp.float32,
+        use_pallas_convs=False, return_pre_nms=True,
+    )
+    tout = tsp.superpoint_dense(
+        tparams, torch.from_numpy(img), compute_dtype=torch.float32, return_pre_nms=True
+    )
+    return [np.asarray(a) for a in jout], [t.numpy() for t in tout]
+
+
+def test_superpoint_dense_matches_jax(dense_pair):
+    """Scores and descriptors atol 1e-4 (f32 convs in another summation
+    order); the NMS'd peak set is identical."""
+    (js, jd, jpre), (ts, td, tpre) = dense_pair
+    assert ts.shape == js.shape == (2, 64, 160) and td.shape == jd.shape == (2, 8, 20, 256)
+    np.testing.assert_allclose(tpre, jpre, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(ts, js, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(td, jd, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(ts > 0, js > 0)
+
+
+def test_select_keypoints_matches_jax(dense_pair):
+    """Same dense inputs into both selections: identical indices and valid
+    mask, sub-pixel keypoints atol 1e-5, descriptors atol 1e-6."""
+    (js, jd, jpre), _ = dense_pair
+    kw = dict(max_keypoints=96, keypoint_threshold=0.005, remove_borders=4,
+              true_width=150, true_height=60)
+    js, jd, jpre = (np.array(a) for a in (js, jd, jpre))  # writable copies
+    jk, jsc, jv, jdd = (np.asarray(a) for a in jsp.select_keypoints(
+        jnp.asarray(js), jnp.asarray(jd), raw_scores=jnp.asarray(jpre), **kw))
+    tk, tsc, tv, tdd = (t.numpy() for t in tsp.select_keypoints(
+        torch.from_numpy(js), torch.from_numpy(jd), raw_scores=torch.from_numpy(jpre), **kw))
+    assert jv.sum() > 20  # a real selection, not an all-padding one
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tsc, jsc)
+    np.testing.assert_array_equal(np.round(tk), np.round(np.asarray(jk)))
+    np.testing.assert_allclose(tk, jk, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tdd, jdd, atol=1e-6, rtol=0)
+
+
+def _lightglue_inputs(k):
+    """Set 1 is a noisy permutation of set 0 (positions and descriptors),
+    with ragged validity masks."""
+    rng = np.random.default_rng(2)
+    b = 2
+    perm = rng.permutation(k)
+    k0 = rng.uniform(-1, 1, (b, k, 2))
+    k1 = np.clip(k0[:, perm] + rng.normal(0, 0.01, (b, k, 2)), -1, 1)
+    d0 = rng.standard_normal((b, k, 256))
+    d1 = d0[:, perm] + 0.2 * rng.standard_normal((b, k, 256))
+    d0 /= np.linalg.norm(d0, axis=-1, keepdims=True)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    m0 = np.arange(k)[None] < np.array([[50], [k]])
+    m1 = np.arange(k)[None] < np.array([[41], [k - 3]])
+    f32 = [a.astype(np.float32) for a in (k0, d0, k1, d1)]
+    return [f32[0], f32[1], f32[2], f32[3], m0, m1]
+
+
+def test_lightglue_forward_matches_jax():
+    """K=64, 9 layers, the committed lightglue_synth weights, f32 on both
+    sides (JAX fused=False). atol 1e-3 on the valid pairs with log P > -50
+    (the entries a match decision can read); rtol 1e-5 on the rest, whose
+    f32 rounding through the 9 layers scales with the logit's magnitude
+    (~800 on valid pairs, -1e9 on masked ones)."""
+    path = os.path.join(REPO, "weights", "lightglue_synth.safetensors")
+    jparams = jax_load(path)
+    tparams = from_jax_params({k: np.asarray(v) for k, v in jparams.items()})
+    ins = _lightglue_inputs(64)
+    ref = np.asarray(jlg.lightglue_forward(
+        jparams, *(jnp.asarray(a) for a in ins), compute_dtype=jnp.float32, fused=False))
+    got = tlg.lightglue_forward(
+        tparams, *(torch.from_numpy(a) for a in ins), compute_dtype=torch.float32).numpy()
+    both = ins[4][:, :, None] & ins[5][:, None, :]
+    near = both & (ref > -50)
+    assert near.sum() > 50
+    np.testing.assert_allclose(got[near], ref[near], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-5)
+
+    jm, js = jlg.extract_matches(jnp.asarray(ref), jnp.asarray(ins[4]), jnp.asarray(ins[5]))
+    tm, ts = tlg.extract_matches(torch.from_numpy(ref), torch.from_numpy(ins[4]),
+                                 torch.from_numpy(ins[5]))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=0)  # exp ulps
+    assert (tm.numpy() >= 0).sum() > 20
+
+
+def test_extract_matches_tie_safety_matches_jax():
+    """Rows 1 and 3 tie exactly on column 2: only the first row claims it
+    (first-occurrence mutual argmax), in both packages."""
+    p = np.full((1, 4, 4), -10.0, np.float32)
+    p[0, 1, 2] = np.log(0.8)
+    p[0, 3, 2] = np.log(0.8)
+    m = np.ones((1, 4), bool)
+    tm, _ = tlg.extract_matches(torch.from_numpy(p), torch.from_numpy(m), torch.from_numpy(m), 0.1)
+    jm, _ = jlg.extract_matches(jnp.asarray(p), jnp.asarray(m), jnp.asarray(m), 0.1)
+    tm = tm.numpy()
+    assert tm[0, 1] == 2 and tm[0, 3] == -1
+    np.testing.assert_array_equal(tm, np.asarray(jm))
+
+
+def test_normalize_keypoints_matches_jax():
+    k = np.random.default_rng(4).uniform(0, 300, (3, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tlg.normalize_keypoints(torch.from_numpy(k), 320, 240).numpy(),
+        np.asarray(jlg.normalize_keypoints(jnp.asarray(k), 320, 240)),
+    )
