@@ -39,7 +39,12 @@ class SuperPointExtractor:
         remove_borders: int = 4,
         nms_radius: int = 4,
         device="cuda",
+        use_kernel: bool = False,
     ):
+        """``use_kernel=True`` routes the descriptor gather through the
+        hand-written gather_normalize kernel (models/superpoint.py::
+        select_keypoints); the default is torch.gather, as the JAX
+        package's default is its XLA gather."""
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.width = int(width)
@@ -50,6 +55,7 @@ class SuperPointExtractor:
         self.keypoint_threshold = float(keypoint_threshold)
         self.remove_borders = int(remove_borders)
         self.nms_radius = int(nms_radius)
+        self.use_kernel = bool(use_kernel)
 
     def _prepare(self, images: list[np.ndarray]) -> torch.Tensor:
         batch = np.zeros((len(images), self.pad_h, self.pad_w), np.float32)
@@ -81,6 +87,7 @@ class SuperPointExtractor:
                 true_width=self.width,
                 true_height=self.height,
                 subpixel=env_flag("SUPERSLAM_SP_SUBPIXEL", True),
+                use_kernel=self.use_kernel,
             )
             kpts_h = kpts.cpu().numpy()
             scores_h = scores.cpu().numpy()

@@ -5,9 +5,8 @@ Port of ``superslam_tpu/frontend/fused.py``: wraps
 (the last keyframe's device-resident features, the program's own outputs
 from the frame that became a keyframe) and the packed-block decode. It
 produces the (StereoFrame, frame-to-keyframe MatchResult) pair the
-estimator consumes. The JAX package also permutes the LightGlue weights
-for its fused-layer kernels here; this slice runs the unfused route, so
-it only casts the compute-dtype weights once.
+estimator consumes. The LightGlue checkpoint is cast and the fused blocks'
+kernel operands are prepared once at construction.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import torch
 from ..core.frame import StereoFrame
 from ..core.interfaces import MatchResult
 from ..geometry.stereo_camera import StereoCalib
-from ..models.lightglue import cast_compute_params
+from ..models.lightglue import prepare_params
 from ..ops.frontend_step import PACK_SCALE, fused_stereo_step
 from ..utils.device import resolve_device
 from ..utils.profiler import profile_scope
@@ -79,9 +78,7 @@ class FusedStereoPipeline:
     ):
         self.device = resolve_device(device)
         self.sp_params = {k: v.to(self.device) for k, v in sp_params.items()}
-        self.lg_params = cast_compute_params(
-            {k: v.to(self.device) for k, v in lg_params.items()}
-        )
+        self.lg_params = prepare_params(lg_params, self.device)
         self.calib = calib
         self.width = int(width)
         self.height = int(height)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core.interfaces import MatchResult
-from ..models.lightglue import cast_compute_params, lightglue_match
+from ..models.lightglue import lightglue_match, prepare_params
 from ..utils.device import resolve_device
 from ..utils.profiler import profile_scope
 from .features import PaddedFeatures, host_descriptors
@@ -37,7 +37,7 @@ class LightGlueMatcher:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        self.params = cast_compute_params({k: v.to(self.device) for k, v in params.items()})
+        self.params = prepare_params(params, self.device)
         self.image_width = float(image_width)
         self.image_height = float(image_height)
         self.capacity = int(max_keypoints)

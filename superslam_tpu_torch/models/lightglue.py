@@ -1,20 +1,29 @@
-"""LightGlue feature matcher on PyTorch tensors (the unfused route).
+"""LightGlue feature matcher on PyTorch tensors.
 
-Port of ``superslam_tpu/models/lightglue.py`` with ``fused=False`` and
-Pallas attention on: 9 transformer layers over 256-d descriptors with
-learnable-Fourier rotary self-attention, bidirectional cross-attention and
-a dual-softmax + matchability assignment; early exit and pruning disabled.
+Port of ``superslam_tpu/models/lightglue.py``: 9 transformer layers over
+256-d descriptors with learnable-Fourier rotary self-attention,
+bidirectional cross-attention and a dual-softmax + matchability
+assignment; early exit and pruning disabled.
+
+Two routes through the layers, as in the JAX package:
+- fused (the default, on every device): one hand-written kernel call per
+  whole self block and per whole cross block
+  (``ops/cuda/lightglue_layer.py``; their plain versions on CPU), 18 calls
+  per forward;
+- unfused (``fused=False`` or ``SUPERSLAM_PALLAS_LG=0``): PyTorch linears
+  around the hand-written attention kernel, described below.
 
 - Both keypoint sets are padded to one K with validity masks threaded
   through attention, the assignment softmaxes and match extraction.
 - Both sides of every pair problem are interleaved on the batch axis
   (rows 2p, 2p+1), so each layer is one (2P, K, 256) call.
-- Attention goes through the hand-written kernel
+- Unfused route: attention goes through the hand-written kernel
   (``ops/cuda/attention.py``; its plain version on CPU); the cross layer is
   one call over all 2P rows against the pair-swapped keys and values.
-- Linear layers run in the compute dtype (bf16 by default); LayerNorm, the
-  rotary encoding's projection and the log-assignment run in f32; GELU is
-  the exact erf form.
+  Linear layers run in the compute dtype (bf16 by default); LayerNorm and
+  the rotary encoding's projection run in f32; GELU is the exact erf form.
+- ``input_proj`` and the f32 log-assignment are PyTorch calls on both
+  routes, as the JAX package leaves them outside its kernels.
 
 Parameters are a flat dict keyed by the cvg/LightGlue state-dict names in
 torch layout ((out, in) linear weights), including the interleaved
@@ -23,11 +32,21 @@ torch layout ((out, in) linear weights), including the interleaved
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.cuda.attention import masked_attention
+from ..ops.cuda.lightglue_layer import (
+    FUSED_KEY,
+    augment_fused_layer_params,
+    fused_cross_block,
+    fused_self_block,
+    prep_cross_weights,
+    prep_self_weights,
+)
 
 Params = dict[str, torch.Tensor]
 
@@ -52,6 +71,27 @@ def cast_compute_params(params: Params) -> Params:
         if any(stem.endswith(s) for s in _COMPUTE_LINEARS):
             out[name] = t.to(torch.bfloat16)
     return out
+
+
+def prepare_params(params: Params, device) -> Params:
+    """What a matcher or pipeline does to a checkpoint once at construction:
+    move it to ``device``, cast the compute-dtype linears
+    (``cast_compute_params``) and prepare the fused blocks' kernel operands
+    (``augment_fused_layer_params``)."""
+    moved = {k: v.to(device) for k, v in params.items() if not k.endswith(FUSED_KEY)}
+    return augment_fused_layer_params(cast_compute_params(moved))
+
+
+def _fused_layers_wanted() -> bool:
+    """Whether whole transformer blocks run as fused kernels: yes unless
+    ``SUPERSLAM_PALLAS_LG`` is 0, empty or ``false``. The JAX package's
+    force-unfused-attention knob ``SUPERSLAM_PALLAS_ATTN=0`` also selects
+    the unfused layers unless ``SUPERSLAM_PALLAS_LG`` overrides it. Read at
+    every forward."""
+    v = os.environ.get("SUPERSLAM_PALLAS_LG")
+    if v is not None:
+        return v not in ("0", "", "false")
+    return os.environ.get("SUPERSLAM_PALLAS_ATTN") not in ("0", "", "false")
 
 
 def _linear(x, params, name, dtype):
@@ -142,6 +182,22 @@ def _cross_block_paired(x, mask, params, prefix, dtype):
     return _ffn(x, msg, params, f"{prefix}.ffn", dtype)
 
 
+def _forward_fused_layers(params, x, kpts, mask, compute_dtype):
+    """All 9 self + cross layers through the fused blocks. x (2P, K, 256),
+    kpts (2P, K, 2) normalized, mask (2P, K) bool."""
+    wr = params["posenc.Wr.weight"].float()  # (32, 2)
+    proj = kpts.float() @ wr.t()  # (2P, K, 32): one frequency per rotary pair
+    cos, sin = torch.cos(proj), torch.sin(proj)
+    x = x.to(compute_dtype)
+    for i in range(NUM_LAYERS):
+        p = f"transformers.{i}"
+        ws = prep_self_weights(params, f"{p}.self_attn", compute_dtype)
+        x = fused_self_block(x, cos, sin, mask, ws)
+        wc = prep_cross_weights(params, f"{p}.cross_attn", compute_dtype)
+        x = fused_cross_block(x, mask, wc)
+    return x
+
+
 def _log_assignment(x0, x1, mask0, mask1, params, prefix):
     """Dual-softmax + matchability log-assignment (f32)."""
     f32 = torch.float32
@@ -177,11 +233,15 @@ def lightglue_forward(
     mask0: torch.Tensor,
     mask1: torch.Tensor,
     compute_dtype=torch.bfloat16,
+    fused: bool | None = None,
 ) -> torch.Tensor:
     """Run the full matcher; returns the (B, M, N) f32 log-assignment.
 
     kpts (B, K, 2) already normalized to ~[-1, 1]; desc (B, K, 256)
     L2-normalized rows; masks (B, K) bool mark real (non-padding) keypoints.
+    ``fused=None`` takes the fused layer route unless the environment
+    selects the unfused one (``_fused_layers_wanted``); ``fused=False``
+    forces the unfused layers.
     """
     b = desc0.shape[0]
     m_len, n_len = desc0.shape[1], desc1.shape[1]
@@ -195,11 +255,14 @@ def lightglue_forward(
     mask = torch.stack([mask0p, mask1p], dim=1).reshape(2 * b, K)
 
     x = _linear(x, params, "input_proj", compute_dtype)
-    enc = _rotary_encoding(kpts, params, compute_dtype)
-    for i in range(NUM_LAYERS):
-        p = f"transformers.{i}"
-        x = _self_block(x, enc, mask, params, f"{p}.self_attn", compute_dtype)
-        x = _cross_block_paired(x, mask, params, f"{p}.cross_attn", compute_dtype)
+    if _fused_layers_wanted() if fused is None else fused:
+        x = _forward_fused_layers(params, x, kpts, mask, compute_dtype)
+    else:
+        enc = _rotary_encoding(kpts, params, compute_dtype)
+        for i in range(NUM_LAYERS):
+            p = f"transformers.{i}"
+            x = _self_block(x, enc, mask, params, f"{p}.self_attn", compute_dtype)
+            x = _cross_block_paired(x, mask, params, f"{p}.cross_attn", compute_dtype)
 
     x0 = x[0::2, :m_len]
     x1 = x[1::2, :n_len]

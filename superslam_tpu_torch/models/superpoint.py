@@ -11,7 +11,10 @@ Routing, as on the TPU's default route:
   conv-pair kernel (``ops/cuda/conv.py``; its plain version on CPU);
 - conv3a..the heads are ``F.conv2d`` in the compute dtype, as the JAX
   package leaves them to XLA;
-- NMS goes through the hand-written kernel (``ops/cuda/nms.py``).
+- NMS goes through the hand-written kernel (``ops/cuda/nms.py``);
+- the descriptor gather of ``select_keypoints`` is ``torch.gather`` by
+  default and the hand-written kernel (``ops/cuda/gather.py``) with
+  ``use_kernel=True``, as the JAX package's ``use_pallas``.
 
 Parameters are a flat dict of torch-layout tensors (OIHW convs) keyed by
 the torch state-dict names. The public functions keep the JAX package's
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda.conv import conv_pair_pool
+from ..ops.cuda.gather import gather_normalize, gather_normalize_plain
 from ..ops.cuda.nms import nms_suppress
 
 Params = dict[str, torch.Tensor]
@@ -111,6 +115,7 @@ def select_keypoints(
     true_width: int | None = None,
     true_height: int | None = None,
     raw_scores: torch.Tensor | None = None,
+    use_kernel: bool = False,
 ):
     """On-device top-K keypoint selection + nearest-cell descriptor gather.
 
@@ -128,6 +133,9 @@ def select_keypoints(
         keypoint is refined to sub-pixel position by independent 1-D
         parabolic fits over the raw 3x3 neighbourhood (offsets clamped to
         +-0.5 px).
+      use_kernel: gather and renormalize the descriptor rows with the
+        hand-written kernel (one launch for the whole batch) instead of
+        torch.gather + rsqrt.
     Returns:
       kpts (B, K, 2) f32 (x, y) pixels; kp_scores (B, K) f32;
       valid (B, K) bool; desc (B, K, D) gathered rows (renormalized f32).
@@ -159,9 +167,10 @@ def select_keypoints(
     cy = torch.clamp(yy // CELL, max=gh - 1)
     cx = torch.clamp(xx // CELL, max=gw - 1)
     cell = cy * gw + cx  # (B, K)
-    grid = descriptors.reshape(b, gh * gw, -1).float()
-    desc = torch.gather(grid, 1, cell[..., None].expand(-1, -1, grid.shape[-1]))
-    desc = desc * torch.rsqrt(torch.sum(torch.square(desc), dim=-1, keepdim=True) + 1e-12)
+    grid = descriptors.reshape(b, gh * gw, -1)
+    # Gathered rows are renormalized in f32 (bf16 grid rows are only
+    # approximately unit).
+    desc = (gather_normalize if use_kernel else gather_normalize_plain)(grid, cell)
     desc = torch.where(valid[..., None], desc, torch.zeros_like(desc))
 
     kpts = torch.stack([xx, yy], dim=-1).float()
@@ -199,16 +208,19 @@ def superpoint_extract(
     true_width: int | None = None,
     true_height: int | None = None,
     subpixel: bool = False,
+    use_kernel: bool = False,
 ):
     """Full extraction: dense heads + on-device selection.
 
     image: (B, H, W) f32 in [0, 1]; the stereo path is B=2. subpixel=True
-    adds the 3x3 parabolic refinement (select_keypoints)."""
+    adds the 3x3 parabolic refinement, use_kernel=True the hand-written
+    descriptor gather (select_keypoints)."""
     with torch.no_grad():
         out = superpoint_dense(params, image, nms_radius=nms_radius, return_pre_nms=subpixel)
         return select_keypoints(
             out[0], out[1], max_keypoints, keypoint_threshold, remove_borders,
             true_width, true_height, raw_scores=out[2] if subpixel else None,
+            use_kernel=use_kernel,
         )
 
 

@@ -7,6 +7,11 @@ keeps that layout, so loading is a dtype cast and a device move. The JAX
 package holds the same parameters as HWIO convs and (in, out) linears;
 ``from_jax_params`` carries its dicts over (the inverse of its
 ``convert_torch_layout``).
+
+The fused LightGlue blocks need nothing more from a checkpoint: their
+kernel operands derive from this same flat dict
+(``ops/cuda/lightglue_layer.py::augment_fused_layer_params``, called once
+by the matcher and the pipeline).
 """
 
 from __future__ import annotations

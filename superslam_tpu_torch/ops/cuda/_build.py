@@ -45,7 +45,15 @@ _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of this process's build, if it built
 
-KERNELS = ("conv1a1b", "conv_pair", "nms", "masked_attention")
+KERNELS = (
+    "conv1a1b",
+    "conv_pair",
+    "nms",
+    "masked_attention",
+    "fused_self_block",
+    "fused_cross_block",
+    "gather_normalize",
+)
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -57,6 +65,13 @@ _SIGNATURES = {
     "ssl_nms": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, mask, out, B, heads, N, is_bf16, stream
     "ssl_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, cos, sin, mask, wqkv, bqkv, wout, bout, w0, b0, g, be, w3, b3,
+    # qkv scratch, ctx scratch, out, B, K, is_bf16, stream
+    "ssl_fused_self_block": [_P] * 17 + [_I, _I, _I, _P],
+    # the same without cos and sin
+    "ssl_fused_cross_block": [_P] * 15 + [_I, _I, _I, _P],
+    # grid, cells, out, B, G, K, D, is_bf16, stream
+    "ssl_gather_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

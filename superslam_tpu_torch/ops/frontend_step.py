@@ -19,6 +19,13 @@ Packed row layout (int16, shape (PACK_ROWS, K)):
   2: stereo disparity (uL - uR), same fixed point, <0 when the stereo
      gates failed
   3: track match index into the KF set (-1 = none; plain integer)
+
+``track_scan`` (with ``_frame_solve`` and ``_reorthonormalize``) is the
+port of the JAX package's on-device tracking chain: the prior-gated
+pose-only LM per frame with coast-on-loss. It is held against the JAX
+function and the host tracker in ``tests/test_torch_pose_solver.py`` and is
+not called by any step or by the facade yet (the device-tracked steps are
+not ported).
 """
 
 from __future__ import annotations
@@ -27,11 +34,13 @@ import torch
 
 from ..models.lightglue import extract_matches, lightglue_forward
 from ..models.superpoint import select_keypoints, superpoint_dense
-from ..utils.env import env_flag
+from ..utils.env import env_flag, env_float, env_int
+from .pose_solver import pose_only_lm_impl
 from .precision import highest_f32_matmuls
 
 PACK_ROWS = 4
 PACK_SCALE = 16.0  # 1/16 px fixed point in the int16 readback
+TRACK_COLS = 13  # R row-major (9) + t (3) + n_matches (1)
 
 
 def _superpoint_stereo_features(
@@ -201,3 +210,167 @@ def fused_stereo_step(
         sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, **kw
     )
     return packed, dl[0], kl[0], vl[0]
+
+
+# -- the tracking chain ---------------------------------------------------------
+
+
+def _reorthonormalize(R):
+    """Project a near-rotation back onto SO(3) (Gram-Schmidt). The tracking
+    carry multiplies thousands of f32 exponentials across a run; without
+    this the prior drifts off the manifold linearly in frame count."""
+    c0 = R[:, 0]
+    c0 = c0 / torch.sqrt(c0 @ c0 + 1e-20)
+    c1 = R[:, 1] - (c0 @ R[:, 1]) * c0
+    c1 = c1 / torch.sqrt(c1 @ c1 + 1e-20)
+    c2 = torch.linalg.cross(c0, c1)
+    return torch.stack([c0, c1, c2], dim=1)
+
+
+def _frame_solve(
+    R_prev,
+    t_prev,
+    R_pred,
+    t_pred,
+    kl_s,  # (K, 2) this frame's left keypoints (pixels)
+    disp_s,  # (K,)
+    ok_s,  # (K,) bool stereo-gate pass
+    tm_s,  # (K,) integer: frame keypoint matched to KF feature i, or -1
+    kf_xw,  # (K, 3) world points of the KF features
+    kf_depth_ok,  # (K,) bool
+    *,
+    calib,
+    min_matches,
+    inv_sig_uLv,
+    disp_sigma0,
+    disp_cond,
+    mono,
+    gate_px,
+    chi2_px,
+    chi2_rounds,
+    track_iters,
+):
+    """One frame's prior-gated pose solve (the solve semantics are
+    documented on track_scan). Returns (R_s, t_s, n, ok, resid): the solved
+    pose, the usable-match count, the usable-match mask, and the
+    reprojection-residual closure ``resid(R, t) -> (px_dist (K,), z_ok
+    (K,))`` for support counting."""
+    fx, fy, cx, cy, _ = calib
+    fi = torch.clamp(tm_s, min=0).to(torch.int64)
+    uL = kl_s[:, 0][fi]
+    v = kl_s[:, 1][fi]
+    d = disp_s[fi]
+    ok = (tm_s >= 0) & ok_s[fi] & kf_depth_ok
+    meas = torch.stack([uL, uL - d, v], dim=1)
+    dc = torch.clamp(d, min=1e-3)
+    ratio = disp_cond / dc
+    if mono:
+        inv_sig_uR = torch.zeros_like(dc)
+    else:
+        inv_sig_uR = 1.0 / (disp_sigma0 * torch.sqrt(1.0 + ratio * ratio))
+    uLv = torch.full_like(dc, inv_sig_uLv)
+    inv_sig = torch.stack([uLv, inv_sig_uR, uLv], dim=1)
+    n = torch.sum(ok)
+
+    def resid(R, t):
+        p = (kf_xw - t) @ R  # rows are R^T (X - t), camera frame
+        z = p[:, 2]
+        zok = z > 0.1
+        zs = torch.where(zok, z, torch.ones_like(z))
+        uL_hat = fx * p[:, 0] / zs + cx
+        v_hat = fy * p[:, 1] / zs + cy
+        return torch.hypot(uL_hat - uL, v_hat - v), zok
+
+    def solve(R, t, keep):
+        return pose_only_lm_impl(
+            R, t, kf_xw, meas, inv_sig, keep.to(torch.float32), calib, track_iters
+        )
+
+    keep = ok
+    if gate_px > 0:
+        r0, zok0 = resid(R_pred, t_pred)
+        k0 = ok & zok0 & (r0 < gate_px)
+        keep = torch.where(torch.sum(k0) >= min_matches, k0, ok)
+    R_s, t_s = solve(R_prev, t_prev, keep)
+    for _ in range(chi2_rounds):
+        r, zok = resid(R_s, t_s)
+        k2 = ok & zok & (r < chi2_px)
+        # A round without enough inliers ends the re-solves (the JAX scan
+        # body runs and discards the remaining rounds instead).
+        if int(torch.sum(k2)) < min_matches:
+            break
+        keep = k2
+        R_s, t_s = solve(R_s, t_s, keep)
+    return R_s, t_s, n, ok, resid
+
+
+@torch.no_grad()
+@highest_f32_matmuls()
+def track_scan(
+    kl,  # (S, K, 2) left keypoints (pixels)
+    disparity,  # (S, K)
+    stereo_ok,  # (S, K) bool
+    track_m,  # (S, K) integer: frame keypoint matched to KF feature i, or -1
+    kf_xw,  # (K, 3) world points of the KF features
+    kf_depth_ok,  # (K,) bool
+    carry,  # (R (3,3), t (3,), rel_R (3,3), rel_t (3,))
+    *,
+    calib: tuple,
+    min_matches: int,
+    track_sigma_px: float,
+    disp_sigma0: float,
+    disp_cond: float,
+    track_iters: int = 20,
+    mono: bool = False,
+    gate_px: float | None = None,
+    chi2_px: float | None = None,
+    chi2_rounds: int | None = None,
+):
+    """The tracking chain over S frames: the pose-only LM per frame with
+    coast-on-loss, the host estimator's solve semantics
+    (core.vo_estimator._track / core.frame_tracker); the JAX package's
+    ``lax.scan`` is a Python loop. Returns (track_out (S, TRACK_COLS) f32,
+    new carry).
+
+    The solve is prior-gated, mirroring FrameTracker.track_gated steps 1-4:
+    matches are rejected against the constant-velocity predicted pose
+    (reprojection distance > gate_px) before the LM, which still starts at
+    the PREVIOUS pose, then ``chi2_rounds`` re-solves run on shrinking chi2
+    inlier sets. gate_px / chi2_px / chi2_rounds default from
+    SUPERSLAM_TRACK_GATE{,_PX} / SUPERSLAM_TRACK_CHI2_{PX,ROUNDS};
+    gate_px=0 disables the pre-gate, chi2_rounds=0 the re-rounds.
+    min_matches doubles as the minimum kept-set size. Frames with fewer
+    than min_matches usable correspondences coast on the constant-velocity
+    carry.
+
+    mono=True zeroes the uR residual weight (an RGB-D step has no
+    frame-side depth): pass disparity=0 and stereo_ok=valid in that mode."""
+    gate_on = env_flag("SUPERSLAM_TRACK_GATE", True)
+    if gate_px is None:
+        gate_px = env_float("SUPERSLAM_TRACK_GATE_PX", 10.0) if gate_on else 0.0
+    if chi2_px is None:
+        chi2_px = env_float("SUPERSLAM_TRACK_CHI2_PX", 2.0)
+    if chi2_rounds is None:
+        chi2_rounds = env_int("SUPERSLAM_TRACK_CHI2_ROUNDS", 2) if gate_on else 0
+
+    R_prev, t_prev, Rr, tr = carry
+    rows = []
+    for s in range(kl.shape[0]):
+        # Constant-velocity prediction: the GATING pose, and the coast.
+        R_pred = R_prev @ Rr
+        t_pred = R_prev @ tr + t_prev
+        R_s, t_s, n, _ok, _resid = _frame_solve(
+            R_prev, t_prev, R_pred, t_pred, kl[s], disparity[s], stereo_ok[s], track_m[s],
+            kf_xw, kf_depth_ok,
+            calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
+            disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono, gate_px=gate_px,
+            chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+        )
+        use = n >= min_matches
+        R_new = _reorthonormalize(torch.where(use, R_s, R_pred))
+        t_new = torch.where(use, t_s, t_pred)
+        Rr = torch.where(use, R_prev.T @ R_new, Rr)
+        tr = torch.where(use, R_prev.T @ (t_new - t_prev), tr)
+        rows.append(torch.cat([R_new.reshape(9), t_new, n.to(torch.float32)[None]]))
+        R_prev, t_prev = R_new, t_new
+    return torch.stack(rows), (R_prev, t_prev, Rr, tr)

@@ -2,6 +2,10 @@
 package's, both in their default bf16, on a rendered 160x120 stereo pair
 with the committed superpoint_render + lightglue_synth weights, K=128.
 Frame 0 runs against an empty keyframe and becomes the keyframe of frame 1.
+Once with both packages on the unfused LightGlue route
+(SUPERSLAM_PALLAS_LG=0), single frames; once with both on the fused layer
+route (SUPERSLAM_PALLAS_LG=1: the JAX package's Pallas blocks in interpret
+mode, the port's plain blocks), two frames in one S = 2 step.
 
 Not exact, by design: XLA's and oneDNN's bf16 convolutions and matmuls
 round at different places, which moves sub-pixel peaks by a 1/16 px step
@@ -21,6 +25,7 @@ import jax.numpy as jnp
 
 from superslam_tpu.models.weights import load_safetensors as jax_load
 from superslam_tpu.ops.frontend_step import fused_stereo_step as jax_step
+from superslam_tpu.ops.frontend_step import fused_stereo_step_multi as jax_step_multi
 from superslam_tpu_torch.eval.synthetic_sequence import (
     circuit_trajectory,
     make_room_world,
@@ -30,7 +35,11 @@ from superslam_tpu_torch.frontend.fused import decode_packed
 from superslam_tpu_torch.frontend.features import PaddedFeatures
 from superslam_tpu_torch.geometry import StereoCalib
 from superslam_tpu_torch.models.weights import load_safetensors
-from superslam_tpu_torch.ops.frontend_step import PACK_ROWS, fused_stereo_step
+from superslam_tpu_torch.ops.frontend_step import (
+    PACK_ROWS,
+    fused_stereo_step,
+    fused_stereo_step_multi,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, PAD_H, K = 160, 120, 128, 128
@@ -54,26 +63,38 @@ def rendered_frames(n: int, width: int, height: int, fx: float):
     return frames, poses, calib
 
 
+def _weights():
+    sp = os.path.join(REPO, "weights", "superpoint_render.safetensors")
+    lg = os.path.join(REPO, "weights", "lightglue_synth.safetensors")
+    return jax_load(sp), jax_load(lg), load_safetensors(sp), load_safetensors(lg)
+
+
+def _batch(frames):
+    """Rendered (left, right) pairs -> (2S, PAD_H, W) uint8 [L0, R0, L1, ...]."""
+    batch = np.zeros((2 * len(frames), PAD_H, W), np.uint8)
+    for i, (left, right) in enumerate(frames):
+        batch[2 * i, :H], batch[2 * i + 1, :H] = left, right
+    return batch
+
+
 @pytest.fixture(scope="module")
 def packed_blocks():
     frames, _, _ = rendered_frames(2, W, H, 160.0)
-    jsp = jax_load(os.path.join(REPO, "weights", "superpoint_render.safetensors"))
-    jlg = jax_load(os.path.join(REPO, "weights", "lightglue_synth.safetensors"))
-    tsp = load_safetensors(os.path.join(REPO, "weights", "superpoint_render.safetensors"))
-    tlg = load_safetensors(os.path.join(REPO, "weights", "lightglue_synth.safetensors"))
+    jsp, jlg, tsp, tlg = _weights()
     jkf = (jnp.zeros((K, 2)), jnp.zeros((K, 256)), jnp.zeros((K,), bool))
     tkf = (torch.zeros(K, 2), torch.zeros(K, 256), torch.zeros(K, dtype=torch.bool))
     out = []
-    for left, right in frames:
-        batch = np.zeros((2, PAD_H, W), np.uint8)
-        batch[0, :H], batch[1, :H] = left, right
-        jp, jd, jk, jv = jax_step(jsp, jlg, jnp.asarray(batch), *jkf, **STEP_KW)
-        tp, td, tk, tv = fused_stereo_step(tsp, tlg, torch.from_numpy(batch), *tkf, **STEP_KW)
-        # The keyframe's valid prefix (its track matches index into it).
-        jkv = np.asarray(jkf[0])[: int(np.asarray(jkf[2]).sum())]
-        tkv = tkf[0].numpy()[: int(tkf[2].sum())]
-        out.append((np.asarray(jp), tp.numpy(), jkv, tkv))
-        jkf, tkf = (jk, jd, jv), (tk, td, tv)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SUPERSLAM_PALLAS_LG", "0")  # both packages unfused
+        for frame in frames:
+            batch = _batch([frame])
+            jp, jd, jk, jv = jax_step(jsp, jlg, jnp.asarray(batch), *jkf, **STEP_KW)
+            tp, td, tk, tv = fused_stereo_step(tsp, tlg, torch.from_numpy(batch), *tkf, **STEP_KW)
+            # The keyframe's valid prefix (its track matches index into it).
+            jkv = np.asarray(jkf[0])[: int(np.asarray(jkf[2]).sum())]
+            tkv = tkf[0].numpy()[: int(tkf[2].sum())]
+            out.append((np.asarray(jp), tp.numpy(), jkv, tkv))
+            jkf, tkf = (jk, jd, jv), (tk, td, tv)
     return out
 
 
@@ -86,7 +107,10 @@ def _nearest(a: np.ndarray, b: np.ndarray):
 
 @pytest.mark.parametrize("frame", [0, 1])
 def test_fused_step_matches_jax(packed_blocks, frame):
-    jp, tp, jkf, tkf = packed_blocks[frame]
+    _assert_blocks_agree(*packed_blocks[frame], has_keyframe=frame > 0)
+
+
+def _assert_blocks_agree(jp, tp, jkf, tkf, has_keyframe):
     assert tp.shape == jp.shape == (PACK_ROWS, K) and tp.dtype == np.int16
     feats = PaddedFeatures(kpts=None, desc=None, n=0, width=W, height=H)
     jfr, jm = decode_packed(jp, 0.0, feats)
@@ -106,7 +130,7 @@ def test_fused_step_matches_jax(packed_blocks, frame):
     assert same_stereo.mean() >= 0.90, same_stereo.mean()
     assert np.isfinite(js[:, 1]).sum() > 20
 
-    if frame == 0:  # no keyframe yet: nothing may track
+    if not has_keyframe:  # nothing may track
         assert len(jm.matches) == 0 and len(tm.matches) == 0
         return
     # Track, per keyframe keypoint the two keyframes share: the same
@@ -126,11 +150,68 @@ def test_fused_step_matches_jax(packed_blocks, frame):
     assert np.mean(same) >= 0.90, np.mean(same)
 
 
-def test_extractor_and_matcher_match_jax():
+def test_fused_step_multi_fused_route_matches_jax(monkeypatch):
+    """S = 2 (8 LightGlue rows) on the fused layer route in both packages:
+    frames 1 and 2 of the circuit in one step against frame 0 as the shared
+    keyframe (taken from the JAX package's single step and handed to both),
+    held to the same statistical contract as the single step. The port's
+    rows must have gone through the fused blocks: 9 self + 9 cross calls of
+    8 rows each."""
+    from superslam_tpu_torch.models import lightglue as tlg_mod
+
+    frames, _, _ = rendered_frames(3, W, H, 160.0)
+    jsp, jlg, tsp, tlg = _weights()
+    monkeypatch.setenv("SUPERSLAM_PALLAS_LG", "0")
+    empty = (jnp.zeros((K, 2)), jnp.zeros((K, 256)), jnp.zeros((K,), bool))
+    _, kd, kk, kv = jax_step(jsp, jlg, jnp.asarray(_batch(frames[:1])), *empty, **STEP_KW)
+    kk, kd, kv = (np.array(a) for a in (kk, kd, kv))
+    kf_valid = kk[: int(kv.sum())]
+
+    rows = []
+    for name in ("fused_self_block", "fused_cross_block"):
+        real = getattr(tlg_mod, name)
+        monkeypatch.setattr(
+            tlg_mod, name, lambda x, *a, _real=real: (rows.append(x.shape[0]), _real(x, *a))[1])
+    monkeypatch.setenv("SUPERSLAM_PALLAS_LG", "1")
+    batch = _batch(frames[1:])
+    jp = np.asarray(jax_step_multi(
+        jsp, jlg, jnp.asarray(batch), jnp.asarray(kk), jnp.asarray(kd), jnp.asarray(kv),
+        **STEP_KW)[0])
+    tp = fused_stereo_step_multi(
+        tsp, tlg, torch.from_numpy(batch), torch.from_numpy(kk), torch.from_numpy(kd),
+        torch.from_numpy(kv), **STEP_KW)[0].numpy()
+    assert rows == [8] * 18
+    assert tp.shape == jp.shape == (2 * PACK_ROWS, K)
+    for s in range(2):
+        rows_s = slice(s * PACK_ROWS, (s + 1) * PACK_ROWS)
+        _assert_blocks_agree(jp[rows_s], tp[rows_s], kf_valid, kf_valid, has_keyframe=True)
+
+
+def test_fused_step_default_route_is_fused(monkeypatch):
+    """With SUPERSLAM_PALLAS_LG and SUPERSLAM_PALLAS_ATTN unset the step
+    takes the fused layer route (fused=None), on the CPU too."""
+    from superslam_tpu_torch.models import lightglue as tlg_mod
+
+    monkeypatch.delenv("SUPERSLAM_PALLAS_LG", raising=False)
+    monkeypatch.delenv("SUPERSLAM_PALLAS_ATTN", raising=False)
+    calls = []
+    real = tlg_mod.fused_cross_block
+    monkeypatch.setattr(
+        tlg_mod, "fused_cross_block", lambda *a: (calls.append(1), real(*a))[1])
+    frames, _, _ = rendered_frames(1, W, H, 160.0)
+    _, _, tsp, tlg = _weights()
+    tkf = (torch.zeros(K, 2), torch.zeros(K, 256), torch.zeros(K, dtype=torch.bool))
+    packed = fused_stereo_step(tsp, tlg, torch.from_numpy(_batch(frames)), *tkf, **STEP_KW)[0]
+    assert packed.shape == (PACK_ROWS, K) and len(calls) == 9
+
+
+def test_extractor_and_matcher_match_jax(monkeypatch):
     """The extractor and matcher backends (VoEstimator's re-match path) on
-    one rendered pair, both packages in bf16: >= 95% of the JAX keypoints
-    within 1/16 px, and of the JAX matches between the two images whose
-    keypoints both have a counterpart, >= 90% found by the port too."""
+    one rendered pair, both packages in bf16 and on the unfused LightGlue
+    route: >= 95% of the JAX keypoints within 1/16 px, and of the JAX
+    matches between the two images whose keypoints both have a
+    counterpart, >= 90% found by the port too."""
+    monkeypatch.setenv("SUPERSLAM_PALLAS_LG", "0")
     from superslam_tpu.frontend.extractor import SuperPointExtractor as JaxExtractor
     from superslam_tpu.frontend.matcher import LightGlueMatcher as JaxMatcher
     from superslam_tpu_torch.frontend.extractor import SuperPointExtractor

@@ -5,7 +5,10 @@ JAX, so on the GPU host it runs without the JAX package's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: conv pairs within 2e-2 of max|plain| (the kernel rounds the
-conv_a tile to bf16), NMS exact, bf16 attention atol 2e-2."""
+conv_a tile to bf16), NMS exact, bf16 attention atol 2e-2, the fused
+LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
+the descriptor gather atol 1e-5. The last test runs the tracking chain
+(plain PyTorch, no kernel) on the card against its own CPU result."""
 
 import numpy as np
 import pytest
@@ -13,6 +16,9 @@ import torch
 
 from superslam_tpu_torch.ops.cuda.attention import masked_attention, masked_attention_plain
 from superslam_tpu_torch.ops.cuda.conv import conv_pair_pool, conv_pair_pool_plain
+from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
+from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
+from superslam_tpu_torch.models.lightglue import init_lightglue_params
 from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
 
 
@@ -69,3 +75,98 @@ def test_masked_attention_kernel(cuda, dtype):
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
     mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(got[1])
     assert (got[1].float() - mean_v).abs().max() <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def _block_case(cuda, dtype, k):
+    """(4, k, 256) activations, rotary angles, ragged masks with one
+    fully-masked row, and one random layer with non-trivial biases."""
+    rng = np.random.default_rng(k)
+    params = init_lightglue_params(seed=2)
+    for name in list(params):
+        if name.endswith(".bias") or ".ffn.1." in name:
+            params[name] = params[name] + torch.from_numpy(
+                rng.normal(0, 0.1, tuple(params[name].shape)).astype(np.float32))
+    params = {n: t.to(cuda) for n, t in params.items()}
+    x = torch.from_numpy(rng.standard_normal((4, k, 256)).astype(np.float32)).to(cuda, dtype)
+    proj = torch.from_numpy(rng.uniform(-3, 3, (4, k, 32)).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(4, k)) < 0.7).to(cuda)
+    mask[1] = False
+    return params, x, torch.cos(proj), torch.sin(proj), mask
+
+
+def _block_close(got, ref, dtype):
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= 2e-2 * ref.float().abs().max().item(), err
+    else:
+        assert err <= 1e-3, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [600, 77])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_self_block_kernel(cuda, dtype, k):
+    params, x, cos, sin, mask = _block_case(cuda, dtype, k)
+    w = lgl.prep_self_weights(params, "transformers.0.self_attn", dtype)
+    got = lgl.fused_self_block(x, cos, sin, mask, w)
+    _block_close(got, lgl.fused_self_block_plain(x, cos, sin, mask, w), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [600, 77])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_cross_block_kernel(cuda, dtype, k):
+    params, x, _, _, mask = _block_case(cuda, dtype, k)
+    w = lgl.prep_cross_weights(params, "transformers.0.cross_attn", dtype)
+    got = lgl.fused_cross_block(x, mask, w)
+    _block_close(got, lgl.fused_cross_block_plain(x, mask, w), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [600, 77])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_normalize_kernel(cuda, dtype, k):
+    rng = np.random.default_rng(k)
+    grid = torch.from_numpy(rng.standard_normal((2, 48 * 156, 256)).astype(np.float32))
+    grid = grid.to(cuda, dtype)
+    cells = torch.from_numpy(rng.integers(0, 48 * 156, size=(2, k))).to(cuda)
+    cells[:, :2] = torch.tensor([0, 48 * 156 - 1], device=cuda)
+    for c in (cells, cells.to(torch.int32)):
+        got = gather_normalize(grid, c)
+        assert got.shape == (2, k, 256) and got.dtype == torch.float32
+        assert (got - gather_normalize_plain(grid, c)).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_track_scan_on_the_card_matches_cpu(cuda):
+    """Two frames of exact projections of 64 landmarks: the chain on CUDA
+    tensors gives the CPU result within 1e-4 and the same match counts."""
+    from superslam_tpu_torch.ops.frontend_step import track_scan
+
+    rng = np.random.default_rng(3)
+    k, fx, cx, cy, base = 64, 80.0, 80.0, 60.0, 0.1
+    xw = rng.uniform([-4, -3, 6], [4, 3, 18], (k, 3))
+    kl, disp = [], []
+    for shift in (0.15, 0.30):
+        p = xw - np.array([shift, 0.0, 0.02])
+        kl.append(np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1))
+        disp.append(fx * base / p[:, 2])
+    args = [
+        np.stack(kl).astype(np.float32), np.stack(disp).astype(np.float32),
+        np.ones((2, k), bool), np.tile(np.arange(k, dtype=np.int32), (2, 1)),
+        xw.astype(np.float32), np.ones(k, bool),
+    ]
+    carry = [np.eye(3, dtype=np.float32), np.zeros(3, np.float32)] * 2
+    kw = dict(calib=(fx, fx, cx, cy, base), min_matches=10, track_sigma_px=10.0,
+              disp_sigma0=8.0, disp_cond=fx * base / 40.0)
+    outs = []
+    for dev in ("cpu", cuda):
+        out, _ = track_scan(
+            *(torch.from_numpy(a).to(dev) for a in args),
+            tuple(torch.from_numpy(c).to(dev) for c in carry), **kw)
+        outs.append(out.cpu().numpy())
+    assert outs[1].shape == (2, 13) and (outs[1][:, 12] == k).all()
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(outs[1][1, 9:12], [0.30, 0.0, 0.02], atol=1e-3)

@@ -22,9 +22,14 @@ from superslam_tpu.ops.pallas.conv import (
     hpool_canvas,
     to_canvas,
 )
+from superslam_tpu.ops.pallas import lightglue_layer as pallas_lg
+from superslam_tpu.ops.pallas.gather import gather_normalize as pallas_gather
 from superslam_tpu.ops.pallas.nms import nms_suppress as pallas_nms
+from superslam_tpu_torch.models.weights import from_jax_params
+from superslam_tpu_torch.ops.cuda import lightglue_layer as port_lg
 from superslam_tpu_torch.ops.cuda.attention import masked_attention
 from superslam_tpu_torch.ops.cuda.conv import conv_pair_pool
+from superslam_tpu_torch.ops.cuda.gather import gather_normalize
 from superslam_tpu_torch.ops.cuda.nms import nms_suppress
 
 
@@ -113,7 +118,109 @@ def test_masked_attention_plain_matches_pallas():
     )
 
 
-@pytest.mark.parametrize("which", ["conv", "nms", "attention"])
+def _block_inputs(k):
+    """(4, k, 256) activations, rotary angles and ragged key masks (every
+    row keeps real keys: a fully-masked row depends on the JAX route's K
+    padding), plus one random layer in both packages' layouts."""
+    rng = np.random.default_rng(k)
+    b = 4
+    x = rng.standard_normal((b, k, 256)).astype(np.float32)
+    proj = rng.uniform(-3, 3, (b, k, 32)).astype(np.float32)
+    mask = np.arange(k)[None] < np.array([[k], [k - 7], [k // 2], [k - 1]])
+    jparams = jlg.init_lightglue_params(seed=3)
+    for name in list(jparams):  # non-trivial biases and LayerNorm parameters
+        if name.endswith(".bias") or ".ffn.1." in name:
+            jparams[name] = jparams[name] + jnp.asarray(
+                rng.normal(0, 0.1, jparams[name].shape).astype(np.float32))
+    tparams = from_jax_params({n: np.asarray(v) for n, v in jparams.items()})
+    return x, proj, mask, jparams, tparams
+
+
+def _mask8(mask):
+    return jnp.broadcast_to(jnp.asarray(mask, jnp.float32)[:, None, :], (mask.shape[0], 8, mask.shape[1]))
+
+
+@pytest.mark.parametrize("k", [128, 136])
+def test_fused_self_block_plain_matches_pallas(k):
+    """(4, K, 256) f32 against the Pallas self block in interpret mode with
+    the JAX package's own weight preparation and its permuted (K, 256)
+    cos/sin tiles; the port takes (K, 32) angles and unpermuted weights.
+    atol 2e-4: f32 products of O(1) values over 256-512 terms summed in
+    different orders, erf against the kernel's polynomial (1.5e-7)."""
+    x, proj, mask, jparams, tparams = _block_inputs(k)
+    prefix = "transformers.1.self_attn"
+    cos_p = jnp.tile(jnp.concatenate([jnp.cos(proj)] * 2, -1), (1, 1, 4))
+    sin_p = jnp.tile(jnp.concatenate([jnp.sin(proj)] * 2, -1), (1, 1, 4))
+    ref = np.asarray(pallas_lg.fused_self_block(
+        jnp.asarray(x), cos_p, sin_p, _mask8(mask),
+        pallas_lg.prep_self_weights(jparams, prefix, jnp.float32), interpret=True))
+    got = port_lg.fused_self_block(
+        torch.from_numpy(x), torch.from_numpy(np.cos(proj)), torch.from_numpy(np.sin(proj)),
+        torch.from_numpy(mask), port_lg.prep_self_weights(tparams, prefix, torch.float32))
+    assert got.shape == (4, k, 256) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k", [128, 136])
+def test_fused_cross_block_plain_matches_pallas(k):
+    """(4, K, 256) f32, two pairs, against the Pallas cross block in
+    interpret mode; atol 2e-4 as for the self block."""
+    x, _, mask, jparams, tparams = _block_inputs(k)
+    prefix = "transformers.1.cross_attn"
+    ref = np.asarray(pallas_lg.fused_cross_block(
+        jnp.asarray(x), _mask8(mask),
+        pallas_lg.prep_cross_weights(jparams, prefix, jnp.float32), interpret=True))
+    got = port_lg.fused_cross_block(
+        torch.from_numpy(x), torch.from_numpy(mask),
+        port_lg.prep_cross_weights(tparams, prefix, torch.float32))
+    assert got.shape == (4, k, 256) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=0)
+
+
+def test_augment_fused_layer_params_serves_the_prepared_operands():
+    """The operands cached at construction are the ones a forward gets, for
+    the dtype they were prepared in; another dtype is prepared afresh."""
+    tparams = from_jax_params(
+        {n: np.asarray(v) for n, v in jlg.init_lightglue_params(seed=1).items()})
+    aug = port_lg.augment_fused_layer_params(tparams, torch.bfloat16)
+    for kind, prep in (("self_attn", port_lg.prep_self_weights),
+                       ("cross_attn", port_lg.prep_cross_weights)):
+        prefix = f"transformers.8.{kind}"
+        cached = prep(aug, prefix, torch.bfloat16)
+        assert cached is aug[f"{prefix}.__fused"] and cached[0].dtype == torch.bfloat16
+        fresh = prep(aug, prefix, torch.float32)
+        assert fresh[0].dtype == torch.float32
+        for a, b in zip(cached, prep(tparams, prefix, torch.bfloat16)):
+            assert torch.equal(a, b)
+    assert port_lg.augment_fused_layer_params({"x": torch.zeros(1)}).keys() == {"x"}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_gather_normalize_plain_matches_pallas(dtype):
+    """(2, 12*16, 256) grids, 64 cells per image with repeats and both
+    corners, against the Pallas gather in interpret mode (one image per
+    call there); atol 1e-6, unit rows."""
+    rng = np.random.default_rng(0)
+    grid = rng.standard_normal((2, 12, 16, 256)).astype(np.float32)
+    cells = rng.integers(0, 12 * 16, size=(2, 64))
+    cells[:, :4] = [0, 0, 191, 191]
+    tgrid = torch.from_numpy(grid).reshape(2, 192, 256)
+    if dtype == "bfloat16":
+        tgrid = tgrid.to(torch.bfloat16)
+        grid = tgrid.float().numpy().reshape(grid.shape)
+    ref = np.stack([
+        np.asarray(pallas_gather(jnp.asarray(grid[i]), jnp.asarray(cells[i], jnp.int32), interpret=True))
+        for i in range(2)
+    ])
+    got = gather_normalize(tgrid, torch.from_numpy(cells)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "which", ["conv", "nms", "attention", "fused_self_block", "fused_cross_block", "gather"]
+)
 def test_wrappers_do_not_fall_back_off_cpu(which):
     """Only a CPU tensor takes the plain version; any other device launches
     the kernel or raises (here: the meta device raises)."""
@@ -125,6 +232,19 @@ def test_wrappers_do_not_fall_back_off_cpu(which):
             conv_pair_pool(torch.empty(1, 64, 8, 8, device=meta), w, bias, w, bias)
         elif which == "nms":
             nms_suppress(torch.empty(1, 8, 8, device=meta))
-        else:
+        elif which == "attention":
             t = torch.empty(1, 4, 8, 64, device=meta)
             masked_attention(t, t, t, torch.ones(1, 8, dtype=torch.bool, device=meta))
+        elif which == "gather":
+            gather_normalize(
+                torch.empty(1, 16, 256, device=meta),
+                torch.zeros(1, 4, dtype=torch.int64, device=meta),
+            )
+        else:
+            x = torch.empty(2, 8, 256, device=meta)
+            mask = torch.ones(2, 8, dtype=torch.bool, device=meta)
+            angle = torch.empty(2, 8, 32, device=meta)
+            if which == "fused_self_block":
+                port_lg.fused_self_block(x, angle, angle, mask, [])
+            else:
+                port_lg.fused_cross_block(x, mask, [])

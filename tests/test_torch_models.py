@@ -1,6 +1,7 @@
 """The port's SuperPoint and LightGlue against the JAX package's, in f32 on
-the CPU (the JAX side on its XLA route, the port on its plain versions),
-with the same parameters carried over by from_jax_params."""
+the CPU (the JAX side on its XLA route or, for the fused layer route and
+the kernel gather, its Pallas kernels in interpret mode; the port on its
+plain versions), with the same parameters carried over by from_jax_params."""
 
 import os
 
@@ -86,7 +87,7 @@ def _lightglue_inputs(k):
 
 def test_lightglue_forward_matches_jax():
     """K=64, 9 layers, the committed lightglue_synth weights, f32 on both
-    sides (JAX fused=False). atol 1e-3 on the valid pairs with log P > -50
+    sides, both on the unfused route (fused=False). atol 1e-3 on the valid pairs with log P > -50
     (the entries a match decision can read); rtol 1e-5 on the rest, whose
     f32 rounding through the 9 layers scales with the logit's magnitude
     (~800 on valid pairs, -1e9 on masked ones)."""
@@ -97,7 +98,8 @@ def test_lightglue_forward_matches_jax():
     ref = np.asarray(jlg.lightglue_forward(
         jparams, *(jnp.asarray(a) for a in ins), compute_dtype=jnp.float32, fused=False))
     got = tlg.lightglue_forward(
-        tparams, *(torch.from_numpy(a) for a in ins), compute_dtype=torch.float32).numpy()
+        tparams, *(torch.from_numpy(a) for a in ins), compute_dtype=torch.float32,
+        fused=False).numpy()
     both = ins[4][:, :, None] & ins[5][:, None, :]
     near = both & (ref > -50)
     assert near.sum() > 50
@@ -110,6 +112,105 @@ def test_lightglue_forward_matches_jax():
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=0)  # exp ulps
     assert (tm.numpy() >= 0).sum() > 20
+
+
+def _padded_inputs(n0, n1, pad_to):
+    """tests/test_lightglue.py's fused-route case: random unit descriptors,
+    n0 / n1 real keypoints, both sets zero-padded to pad_to with masks."""
+    rng = np.random.default_rng(5)
+    k0 = rng.uniform(-1, 1, (1, n0, 2)).astype(np.float32)
+    k1 = rng.uniform(-1, 1, (1, n1, 2)).astype(np.float32)
+    d0 = rng.standard_normal((1, n0, 256)).astype(np.float32)
+    d1 = rng.standard_normal((1, n1, 256)).astype(np.float32)
+    d0 /= np.linalg.norm(d0, axis=-1, keepdims=True)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+
+    def pad(a, n):
+        return np.pad(a, [(0, 0), (0, pad_to - n)] + [(0, 0)] * (a.ndim - 2))
+
+    m0, m1 = np.ones((1, n0), bool), np.ones((1, n1), bool)
+    return [pad(k0, n0), pad(d0, n0), pad(k1, n1), pad(d1, n1), pad(m0, n0), pad(m1, n1)]
+
+
+@pytest.mark.parametrize("pad_to", [48, 44])
+def test_lightglue_forward_fused_matches_jax_fused(monkeypatch, pad_to):
+    """40 / 36 keypoints padded to 48 (and to 44, not a multiple of 8),
+    random-init weights, f32: the port's fused layer route (plain blocks on
+    the CPU) against the JAX package under SUPERSLAM_PALLAS_LG=1 (its
+    Pallas blocks in interpret mode, K padded to 128 there; the port takes
+    K as it is). On the valid 40 x 36 block: |exp diff| < 1e-3 and the same
+    row argmax on >= 0.99 of the rows."""
+    jparams = jlg.init_lightglue_params(seed=0)
+    tparams = from_jax_params({k: np.asarray(v) for k, v in jparams.items()})
+    ins = _padded_inputs(40, 36, pad_to)
+    monkeypatch.setenv("SUPERSLAM_PALLAS_LG", "1")
+    ref = np.asarray(jlg.lightglue_forward(
+        jparams, *(jnp.asarray(a) for a in ins), compute_dtype=jnp.float32))
+    got = tlg.lightglue_forward(
+        tparams, *(torch.from_numpy(a) for a in ins), compute_dtype=torch.float32,
+        fused=True).numpy()
+    assert got.shape == ref.shape == (1, pad_to, pad_to)
+    v, g = ref[:, :40, :36], got[:, :40, :36]
+    assert np.abs(np.exp(v) - np.exp(g)).max() < 1e-3
+    assert (np.argmax(v, axis=2) == np.argmax(g, axis=2)).mean() >= 0.99
+
+
+@pytest.mark.parametrize(
+    "env,fused,want",
+    [
+        ({}, None, True),
+        ({"SUPERSLAM_PALLAS_LG": "0"}, None, False),
+        ({"SUPERSLAM_PALLAS_LG": "false"}, None, False),
+        ({"SUPERSLAM_PALLAS_LG": ""}, None, False),
+        ({"SUPERSLAM_PALLAS_ATTN": "0"}, None, False),
+        ({"SUPERSLAM_PALLAS_ATTN": "0", "SUPERSLAM_PALLAS_LG": "1"}, None, True),
+        ({"SUPERSLAM_PALLAS_LG": "0"}, True, True),
+        ({}, False, False),
+    ],
+)
+def test_lightglue_route_selection(monkeypatch, env, fused, want):
+    """The default route is fused on every device; SUPERSLAM_PALLAS_LG and
+    SUPERSLAM_PALLAS_ATTN select as in the JAX package; an explicit
+    argument wins. Counted by the calls that reach the fused blocks."""
+    for name in ("SUPERSLAM_PALLAS_LG", "SUPERSLAM_PALLAS_ATTN"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    calls = []
+    real = tlg.fused_self_block
+    monkeypatch.setattr(
+        tlg, "fused_self_block", lambda *a: (calls.append(1), real(*a))[1])
+    tparams = tlg.init_lightglue_params(seed=0)
+    ins = [torch.from_numpy(a) for a in _padded_inputs(6, 5, 8)]
+    out = tlg.lightglue_forward(tparams, *ins, fused=fused)
+    assert out.shape == (1, 8, 8) and torch.isfinite(out[:, :6, :5]).all()
+    assert len(calls) == (tlg.NUM_LAYERS if want else 0)
+
+
+def test_select_keypoints_kernel_route_matches_jax(dense_pair, monkeypatch):
+    """use_kernel=True (the plain gather on the CPU) against the JAX
+    package's use_pallas=True (its Pallas gather, in interpret mode, once
+    per image): the same rows within 1e-6, and the port's default route
+    within 1e-6 of its kernel route."""
+    (js, jd, jpre), _ = dense_pair
+    kw = dict(max_keypoints=96, keypoint_threshold=0.005, remove_borders=4,
+              true_width=150, true_height=60)
+    js, jd = np.array(js), np.array(jd)
+    import superslam_tpu.ops.pallas.gather as pallas_gather_mod
+
+    # select_keypoints offers no interpret switch: bind it for this test.
+    real = pallas_gather_mod.gather_normalize
+    monkeypatch.setattr(
+        pallas_gather_mod, "gather_normalize", lambda g, c: real(g, c, interpret=True))
+    jv, jdd = (np.asarray(a) for a in jsp.select_keypoints(
+        jnp.asarray(js), jnp.asarray(jd), use_pallas=True, **kw)[2:])
+    tv, tdd = (t.numpy() for t in tsp.select_keypoints(
+        torch.from_numpy(js), torch.from_numpy(jd), use_kernel=True, **kw)[2:])
+    tdd_default = tsp.select_keypoints(torch.from_numpy(js), torch.from_numpy(jd), **kw)[3].numpy()
+    assert jv.sum() > 20
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(tdd, jdd, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tdd, tdd_default, atol=1e-6, rtol=0)
 
 
 def test_extract_matches_tie_safety_matches_jax():
