@@ -17,9 +17,13 @@ In order, any failure exiting non-zero:
    max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
    2e-2, plus the fully-masked row against the mean of v; the fused
    LightGlue self and cross blocks: max error over max |plain| <= 2e-2 in
-   bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5), timing
-   kernel, plain version and, where one exists, a library call as a
-   yardstick (CUDA events, median of 20 after 3 warm-ups);
+   bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5; the
+   unpooled conv pairs and the single conv: 2e-2 of max |plain|; the
+   attention backward at the training shape (16, 4, 256, 64) f32 with
+   ragged masks and one fully-masked batch row: dq, dk, dv within 1e-4 of
+   max |plain|), timing kernel, plain version and, where one exists, a
+   library call as a yardstick (CUDA events, median of 20 after 3
+   warm-ups);
 4. runs the port's ``SuperSLAM`` facade on 30 rendered frames at the KITTI
    00 geometry (1241x376, padded to 1248x384; 600 keypoints; the committed
    render-trained SuperPoint and synthetic LightGlue weights) on the
@@ -37,9 +41,22 @@ In order, any failure exiting non-zero:
 6. extracts one rendered stereo pair with
    ``SuperPointExtractor(use_kernel=True)``: descriptors within 1e-5 of
    the default route's, and the gather_normalize kernel launched;
-7. prints one ``{"kernels": [...]}`` line (each kernel's launches are
-   those of the phase that drives it: 4, 5 or 6), then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+7. trains the matcher at full width (9 layers, 256 wide, 4 heads, f32,
+   batch 8 pairs, cap 256): the gradient of ``matching_loss`` through the
+   kernels against the plain versions (every parameter within 1e-3 of that
+   tensor's largest plain gradient); ``train_step`` on one fixed synthetic
+   batch at lr 3e-4 for FIXED_BATCH_STEPS steps, the last loss below 0.7 x
+   the first, with exactly 18 masked_attention and 18
+   masked_attention_bwd launches per step and no fused block; then
+   ``scripts/train_lightglue_synth_torch.py`` in-process on 24 harvested
+   pairs for 20 steps (finite losses, precision and recall printed, the
+   checkpoint written and loaded back); and one step under torch.profiler
+   for the forward / backward / optimizer split;
+8. runs every stage of ``scripts/profile_stages_torch.py`` and checks that
+   conv1a1b_full, conv_pair_full and conv3x3 were launched there;
+9. prints one ``{"kernels": [...]}`` line (each kernel's launches are
+   those of the phase that drives it: 4, 5, 6, 7 or 8), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -67,6 +84,14 @@ N_FRAMES_UNFUSED = 10
 MAX_KP = 600
 KP_THRESHOLD = 0.010
 ATE_LIMIT_M = 0.5
+# Training phase: the script's defaults (batch 8 pairs, cap 256), the
+# reference's functional test (lr 3e-4, last loss < 0.7 x first).
+TRAIN_BATCH, TRAIN_CAP, TRAIN_LR = 8, 256, 3e-4
+# The first run on the card (30 steps, H100) fell below 0.7 x the start
+# after 2 steps and went 6.3808 -> 0.0019; 6 is the reference test's count.
+FIXED_BATCH_STEPS = 6
+SCRIPT_PAIRS, SCRIPT_STEPS = 24, 20
+ATTENTION_PER_STEP = 18  # 9 layers x (self + cross), forward and backward each
 # Launches per frame on the default (fused) LightGlue route and on the
 # unfused one (SUPERSLAM_PALLAS_LG=0).
 PER_FRAME_FUSED = {
@@ -111,6 +136,22 @@ KERNEL_INFO = {
     "gather_normalize": (
         "superslam_tpu_torch/ops/cuda/gather.cu",
         "superslam_tpu/ops/pallas/gather.py:69",
+    ),
+    "masked_attention_bwd": (
+        "superslam_tpu_torch/ops/cuda/attention_bwd.cu",
+        "superslam_tpu/ops/pallas/attention.py:103",
+    ),
+    "conv_pair_full": (
+        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu/ops/pallas/conv.py:461",
+    ),
+    "conv1a1b_full": (
+        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu/ops/pallas/conv.py:580",
+    ),
+    "conv3x3": (
+        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu/ops/pallas/conv.py:640",
     ),
 }
 
@@ -157,6 +198,18 @@ def attention_ops(kv_mask, heads: int = 4, dim: int = 64) -> tuple[float, float]
     return 4.0 * heads * k * keys * dim, 5.0 * heads * k * keys
 
 
+def attention_bwd_ops(kv_mask, heads: int = 4, dim: int = 64) -> float:
+    """f32 operations of the attention backward over (B, K) key masks: five
+    products (s, dp, dv, dq, dk) of 2 K x keys x dim each over the real keys
+    of a row's key set, and ~8 per logit for p and ds. A row with no real
+    key has p uniform over all K keys and only the dv product."""
+    k = kv_mask.shape[1]
+    real = kv_mask.sum(dim=1).double()
+    with_keys = 5.0 * 2 * k * real * dim + 8.0 * k * real
+    no_keys = 2.0 * k * k * dim + 3.0 * k * k
+    return float(heads * (with_keys + (real == 0) * no_keys).sum().item())
+
+
 def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     """Each kernel against its plain version at the main path's shapes."""
     import torch.nn.functional as F
@@ -165,9 +218,18 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
     from superslam_tpu_torch.ops.cuda.attention import (
         masked_attention,
+        masked_attention_backward,
+        masked_attention_backward_plain,
         masked_attention_plain,
     )
-    from superslam_tpu_torch.ops.cuda.conv import conv_pair_pool, conv_pair_pool_plain
+    from superslam_tpu_torch.ops.cuda.conv import (
+        conv3x3,
+        conv3x3_plain,
+        conv_pair,
+        conv_pair_plain,
+        conv_pair_pool,
+        conv_pair_pool_plain,
+    )
     from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
     from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
 
@@ -197,9 +259,22 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
             flush=True,
         )
 
-    def library_conv_pool(x, wa, ba, wb, bb):
-        y = F.relu(F.conv2d(x, wa, ba, padding=1))
-        return F.max_pool2d(F.relu(F.conv2d(y, wb, bb, padding=1)), 2)
+    def conv_case(name, kernel, plain, library, out_shape, bnd_of):
+        """One conv kernel against its plain version (2e-2 of max |plain|,
+        the kernel rounds its conv_a tile to bf16), timed beside the plain
+        version and the cuDNN call; returns the kernel's output."""
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if got.shape != out_shape or got.dtype != bf16:
+            fail(f"{name}: output {tuple(got.shape)} {got.dtype}")
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / max(ref.float().abs().max().item(), 1e-12)
+        print(f"kernel {name}: max error / max |plain| = {rel:.3g} (limit 2e-2)")
+        if not rel <= 2e-2:
+            fail(f"{name}: relative error {rel} > 2e-2")
+        record(name, err, time_ms(torch, kernel), time_ms(torch, plain),
+               time_ms(torch, library), bnd_of(got))
+        return got
 
     x = None
     for name, cin, h, w in (("conv1a1b", 1, 384, 1248), ("conv_pair", 64, 192, 624)):
@@ -208,29 +283,39 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         wb, bb = sp_params[f"{pre[1]}.weight"], sp_params[f"{pre[1]}.bias"]
         if cin == 1:
             x = torch.from_numpy(rng.uniform(0, 1, (2, 1, h, w)).astype(np.float32)).to(dev)
-        got = conv_pair_pool(x, wa, ba, wb, bb)
-        ref = conv_pair_pool_plain(x, wa, ba, wb, bb)
-        torch.cuda.synchronize()
-        if got.shape != (2, 64, h // 2, w // 2) or got.dtype != bf16:
-            fail(f"{name}: output {tuple(got.shape)} {got.dtype}")
-        err = (got.float() - ref.float()).abs().max().item()
-        rel = err / max(ref.float().abs().max().item(), 1e-12)
-        print(f"kernel {name}: max error / max |plain| = {rel:.3g} (limit 2e-2)")
-        if not rel <= 2e-2:
-            fail(f"{name}: relative error {rel} > 2e-2")
-        ms = time_ms(torch, lambda: conv_pair_pool(x, wa, ba, wb, bb))
-        plain_ms = time_ms(torch, lambda: conv_pair_pool_plain(x, wa, ba, wb, bb))
         xl = x.to(bf16).contiguous(memory_format=torch.channels_last)
-        wl = [t.to(bf16) for t in (wa, ba, wb, bb)]
-        lib_ms = time_ms(torch, lambda: library_conv_pool(xl, *wl))
+        wal, bal, wbl, bbl = (t.to(bf16) for t in (wa, ba, wb, bb))
         px = 2 * h * w
-        bnd = bound(
-            nbytes(x, wa, ba, wb, bb, got),
-            f32_ops=2 * px * 64 * 9 if cin == 1 else 0,
-            bf16_ops=2 * px * 64 * 64 * 9 * (1 if cin == 1 else 2),
+
+        def pair_bound(out):
+            return bound(
+                nbytes(x, wa, ba, wb, bb, out),
+                f32_ops=2 * px * 64 * 9 if cin == 1 else 0,
+                bf16_ops=2 * px * 64 * 64 * 9 * (1 if cin == 1 else 2),
+            )
+
+        def library_pair():
+            y = F.relu(F.conv2d(xl, wal, bal, padding=1))
+            return F.relu(F.conv2d(y, wbl, bbl, padding=1))
+
+        pooled = conv_case(
+            name, lambda: conv_pair_pool(x, wa, ba, wb, bb),
+            lambda: conv_pair_pool_plain(x, wa, ba, wb, bb),
+            lambda: F.max_pool2d(library_pair(), 2), (2, 64, h // 2, w // 2), pair_bound,
         )
-        record(name, err, ms, plain_ms, lib_ms, bnd)
-        x = got  # the next pair's input, as on the main path
+        # The same pair without the pool, and (at conv2a) one conv alone, on
+        # the same input: what the stage profiler times.
+        conv_case(
+            name + "_full", lambda: conv_pair(x, wa, ba, wb, bb),
+            lambda: conv_pair_plain(x, wa, ba, wb, bb), library_pair, (2, 64, h, w), pair_bound,
+        )
+        if cin == 64:
+            conv_case(
+                "conv3x3", lambda: conv3x3(x, wa, ba), lambda: conv3x3_plain(x, wa, ba),
+                lambda: F.relu(F.conv2d(xl, wal, bal, padding=1)), (2, 64, h, w),
+                lambda out: bound(nbytes(x, wa, ba, out), bf16_ops=2 * px * 64 * 64 * 9),
+            )
+        x = pooled  # the next pair's input, as on the main path
 
     # NMS on a (2, 384, 1248) score map with ties and exact zeros.
     s = rng.uniform(0, 1, (2, 384, 1248)) ** 6
@@ -276,6 +361,79 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         "masked_attention", err, ms, plain_ms, lib_ms,
         bound(nbytes(q, k, v, mask, got), bf16_ops=a_bf16, f32_ops=a_f32),
     )
+
+    # Attention forward (f32) and backward at the training shape: 8 pairs x
+    # 2 sides, 4 heads, cap 256, ragged masks as harvested pairs have them,
+    # one fully-masked batch row.
+    tshape = (2 * TRAIN_BATCH, 4, TRAIN_CAP, 64)
+    tq, tk, tv, tg = (
+        torch.from_numpy(rng.standard_normal(tshape).astype(np.float32)).to(dev)
+        for _ in range(4)
+    )
+    n_real = rng.integers(TRAIN_CAP // 2, TRAIN_CAP + 1, size=2 * TRAIN_BATCH)
+    tmask = torch.from_numpy(np.arange(TRAIN_CAP)[None] < n_real[:, None]).to(dev)
+    tmask[3] = False
+    got3 = masked_attention_backward(tq, tk, tv, tmask, tg)
+    ref3 = masked_attention_backward_plain(tq, tk, tv, tmask, tg)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for label, a, b in zip(("dq", "dk", "dv"), got3, ref3):
+        if a.shape != tshape or a.dtype != torch.float32 or not torch.isfinite(a).all().item():
+            fail(f"masked_attention_bwd: {label} {tuple(a.shape)} {a.dtype}")
+        e = (a - b).abs().max().item()
+        rel = e / max(b.abs().max().item(), 1e-12)
+        print(f"kernel masked_attention_bwd: {label} max error / max |plain| = {rel:.3g} (limit 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"masked_attention_bwd: {label} relative error {rel} > 1e-4")
+        worst = max(worst, e)
+    if got3[0][3].abs().max().item() != 0 or got3[1][3].abs().max().item() != 0:
+        fail("masked_attention_bwd: dq, dk of the fully-masked batch row are not zero")
+    # The Function: a result on the card carries a grad_fn and its gradient
+    # is the backward kernel's.
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out_t = masked_attention(*leaves, tmask)
+    if out_t.grad_fn is None:
+        fail("masked_attention: no grad_fn on a CUDA tensor that requires grad")
+    out_t.backward(tg)
+    if not all(torch.equal(leaf.grad, g3) for leaf, g3 in zip(leaves, got3)):
+        fail("masked_attention: autograd's gradients differ from masked_attention_backward's")
+    ms = time_ms(torch, lambda: masked_attention_backward(tq, tk, tv, tmask, tg))
+    plain_ms = time_ms(torch, lambda: masked_attention_backward_plain(tq, tk, tv, tmask, tg))
+    sdpa_tmask = tmask[:, None, None, :].clone()
+    sdpa_tmask[3] = True  # the library has no replaced-logit row; any mask times the same
+
+    def library_bwd():
+        for t in leaves:
+            t.grad = None
+        F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_tmask).backward(tg)
+
+    # Autograd through the library's attention: forward + backward, less the
+    # forward alone.
+    lib_ms = time_ms(torch, library_bwd)
+    with torch.no_grad():
+        lib_ms -= time_ms(
+            torch, lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_tmask)
+        )
+    record(
+        "masked_attention_bwd", worst, ms, plain_ms, lib_ms,
+        bound(nbytes(tq, tk, tv, tg, tmask, *got3), f32_ops=attention_bwd_ops(tmask)),
+    )
+    with torch.no_grad():
+        f32_fwd_ms = time_ms(torch, lambda: masked_attention(tq, tk, tv, tmask))
+    print(f"kernel masked_attention (f32, the training shape {tshape}): {f32_fwd_ms:.4f} ms")
+    del got3, ref3, leaves, out_t
+
+    # The forward's library time is taken twice, before and after the
+    # backward check, and the smaller kept: a first reading at a new shape
+    # can include the library's own choice of kernel.
+    lib_again = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+    )
+    print(
+        f"kernel masked_attention: library time re-taken {lib_again:.4f} ms "
+        f"(first reading {out['masked_attention']['library_ms']:.4f} ms; the smaller is kept)"
+    )
+    out["masked_attention"]["library_ms"] = min(out["masked_attention"]["library_ms"], lib_again)
 
     # The fused LightGlue blocks at (2 pair problems x 2 sides, K=600, 256)
     # with the committed checkpoint's layer 0, ragged masks and the
@@ -523,16 +681,25 @@ def check_extractor_kernel_route(torch, sp_params, left, right) -> int:
 
 def profile_facade(torch, slam, n: int) -> None:
     """Track the next n frames of the lap under torch.profiler and print
-    where the device time goes: busy share of the window, and the kernels
-    by device time per frame."""
+    where the device time goes."""
+    frames, _ = render_sequence(n, WIDTH, HEIGHT, start=N_FRAMES)
+
+    def track():
+        for i, (left, right) in enumerate(frames):
+            slam.track_stereo(left, right, 0.1 * (N_FRAMES + i))
+
+    profile_device(torch, track, n, "frame", "frames")
+
+
+def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> None:
+    """Run fn (n units of work) under torch.profiler and print the busy
+    share of the window and the kernels by device time per unit."""
     from torch.profiler import ProfilerActivity, profile
 
-    frames, _ = render_sequence(n, WIDTH, HEIGHT, start=N_FRAMES)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i, (left, right) in enumerate(frames):
-            slam.track_stereo(left, right, 0.1 * (N_FRAMES + i))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -551,15 +718,190 @@ def profile_facade(torch, slam, n: int) -> None:
     )
     busy_ms = sum(device_us(e) for e in rows) / 1e3
     print(
-        f"profile: {n} frames, wall under the profiler {wall_ms / n:.3f} ms/frame, "
-        f"device busy {busy_ms / n:.3f} ms/frame ({100 * busy_ms / wall_ms:.1f}% of "
-        f"that wall), {sum(e.count for e in rows) / n:.0f} device events/frame"
+        f"profile: {n} {label}, wall under the profiler {wall_ms / n:.3f} ms/{unit}, "
+        f"device busy {busy_ms / n:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}% of "
+        f"that wall), {sum(e.count for e in rows) / n:.0f} device events/{unit}"
     )
-    for e in rows[:25]:
+    for e in rows[:top]:
         print(
-            f"profile:   {device_us(e) / 1e3 / n:8.4f} ms/frame  "
-            f"{e.count / n:6.1f} calls/frame  {e.key[:90]}"
+            f"profile:   {device_us(e) / 1e3 / n:8.4f} ms/{unit}  "
+            f"{e.count / n:6.1f} calls/{unit}  {e.key[:90]}"
         )
+
+
+_BATCH_KEYS = ("kpts0", "desc0", "kpts1", "desc1", "mask0", "mask1", "gt_indices")
+
+
+def check_training(torch) -> int:
+    """The matcher's training at full width on the card (phase 7 of the
+    module docstring). Returns the masked_attention_bwd launches of the
+    fixed-batch steps."""
+    from scripts import train_lightglue_synth_torch as train_script
+    from superslam_tpu_torch.models import lightglue as lgm
+    from superslam_tpu_torch.models.weights import load_safetensors
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.ops.cuda.attention import masked_attention_plain
+    from superslam_tpu_torch.parallel.training import (
+        make_optimizer,
+        matching_loss,
+        synthetic_matching_batch,
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    batch_np = synthetic_matching_batch(np.random.default_rng(5), TRAIN_BATCH, TRAIN_CAP)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+
+    # 1. The whole step's gradient through the kernels against the same
+    # graph with attention's plain version (autograd through its einsums).
+    def gradients(plain: bool):
+        params = lgm.init_lightglue_params(1, device=dev)
+        for p in params.values():
+            p.requires_grad_(True)
+        kernel_route = lgm.masked_attention
+        if plain:
+            lgm.masked_attention = masked_attention_plain
+        try:
+            loss = matching_loss(params, *(batch[k] for k in _BATCH_KEYS))
+            loss.backward()
+        finally:
+            lgm.masked_attention = kernel_route
+        return loss.item(), {k: p.grad for k, p in params.items()}
+
+    _build.reset_launch_counts()
+    loss_k, grads_k = gradients(plain=False)
+    counts = _build.launch_counts()
+    loss_p, grads_p = gradients(plain=True)
+    torch.cuda.synchronize()
+    worst, worst_name, n_checked = 0.0, "", 0
+    for name, ref in grads_p.items():
+        got = grads_k[name]
+        if (ref is None) != (got is None):
+            fail(f"train: gradient of {name} exists on one route only")
+        if ref is None:
+            continue
+        if not torch.isfinite(got).all().item():
+            fail(f"train: gradient of {name} is not finite")
+        rel = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        n_checked += 1
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(
+        f"train: gradient of matching_loss (batch {TRAIN_BATCH}, cap {TRAIN_CAP}, f32) through "
+        f"the kernels vs the plain versions: loss {loss_k:.6f} vs {loss_p:.6f}, {n_checked} "
+        f"tensors, worst max error / max |plain| {worst:.3g} at {worst_name} (limit 1e-3)"
+    )
+    if not worst <= 1e-3 or not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+        fail(f"train: gradient check: {worst} at {worst_name}, loss {loss_k} vs {loss_p}")
+    for k in ("masked_attention", "masked_attention_bwd"):
+        if counts[k] != ATTENTION_PER_STEP:
+            fail(f"train: {k}: {counts[k]} launches in one gradient, want {ATTENTION_PER_STEP}")
+
+    # 2. train_step on that fixed batch: the reference's functional test.
+    params = lgm.init_lightglue_params(1, device=dev)
+    optimizer = make_optimizer(params, TRAIN_LR)
+    train_step(params, optimizer, batch)  # warm-up: cuBLAS handles, optimizer state
+    params = lgm.init_lightglue_params(1, device=dev)
+    optimizer = make_optimizer(params, TRAIN_LR)
+    losses, step_ms = [], []
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FIXED_BATCH_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = train_step(params, optimizer, batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    wall_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    first_below = next((i + 1 for i, v in enumerate(losses) if v < 0.7 * losses[0]), None)
+    print(
+        f"train: {FIXED_BATCH_STEPS} steps on the fixed batch at lr {TRAIN_LR}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first below 0.7 x start after {first_below} "
+        f"steps), step median {statistics.median(step_ms):.3f} ms, "
+        f"{FIXED_BATCH_STEPS / wall_s:.2f} steps/s, launches {counts}"
+    )
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.7 * losses[0]:
+        fail(f"train: the loss did not fall below 0.7 x its start: {losses}")
+    for k, per in (("masked_attention", ATTENTION_PER_STEP),
+                   ("masked_attention_bwd", ATTENTION_PER_STEP),
+                   ("fused_self_block", 0), ("fused_cross_block", 0)):
+        if counts[k] != per * FIXED_BATCH_STEPS:
+            fail(f"train: {k}: {counts[k]} launches in {FIXED_BATCH_STEPS} steps, want {per} per step")
+    bwd_launches = counts["masked_attention_bwd"]
+
+    # One more step in its three parts (CUDA events), then under the profiler.
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss = matching_loss(params, *(batch[k] for k in _BATCH_KEYS))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    optimizer.step()
+    ev[3].record()
+    ev[3].synchronize()
+    print(
+        f"train: one step in parts (CUDA events): forward {ev[0].elapsed_time(ev[1]):.3f} ms, "
+        f"backward {ev[1].elapsed_time(ev[2]):.3f} ms, optimizer {ev[2].elapsed_time(ev[3]):.3f} ms"
+    )
+    profile_device(torch, lambda: train_step(params, optimizer, batch), 1, "step", "train step", top=15)
+
+    # 3. The training script, in-process, on harvested data.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "lightglue_smoke.safetensors")
+        t0 = time.perf_counter()
+        meta = train_script.main([
+            "--pairs", str(SCRIPT_PAIRS), "--steps", str(SCRIPT_STEPS),
+            "--batch", str(TRAIN_BATCH), "--cap", str(TRAIN_CAP), "--out", out,
+            "--sp-weights", os.path.join(REPO, "weights", "superpoint_render.safetensors"),
+        ])
+        script_s = time.perf_counter() - t0
+        loaded = load_safetensors(out, "cuda")
+    if len(meta["losses"]) != SCRIPT_STEPS or not all(np.isfinite(meta["losses"])):
+        fail(f"train script: losses {meta['losses']}")
+    reference = lgm.init_lightglue_params(0)
+    if loaded.keys() != reference.keys():
+        fail("train script: the checkpoint's names differ from the model's")
+    for name, t in loaded.items():
+        if t.shape != reference[name].shape or not torch.isfinite(t).all().item():
+            fail(f"train script: checkpoint tensor {name} {tuple(t.shape)}")
+    print(
+        f"train script: {SCRIPT_PAIRS} pairs, {SCRIPT_STEPS} steps in {script_s:.1f} s, loss "
+        f"{meta['losses'][0]:.4f} -> {meta['losses'][-1]:.4f}, P/R init "
+        f"{meta['precision_init']:.3f}/{meta['recall_init']:.3f} trained "
+        f"{meta['precision']:.3f}/{meta['recall']:.3f}, checkpoint of {len(loaded)} tensors loaded back"
+    )
+    return bwd_launches
+
+
+def check_profiler(torch) -> dict[str, int]:
+    """Every stage of scripts/profile_stages_torch.py at the KITTI shape;
+    returns the launches of the three conv kernels only it drives."""
+    from scripts import profile_stages_torch as prof
+    from superslam_tpu_torch.ops.cuda import _build
+
+    _build.reset_launch_counts()
+    results = prof.run_stages(None, "cuda")
+    counts = _build.launch_counts()
+    if list(results) != list(prof.STAGES):
+        fail(f"profiler: stages {list(results)}")
+    print("profiler: stage times at 2 x 384 x 1248, 600 keypoints (CUDA events, median of 20):")
+    for name, ms in results.items():
+        print(f"profiler:   {name:16s} {ms:9.4f} ms")
+        if not np.isfinite(ms) or ms <= 0:
+            fail(f"profiler: stage {name}: {ms}")
+    only_here = {k: counts[k] for k in ("conv1a1b_full", "conv_pair_full", "conv3x3")}
+    for k, n in only_here.items():
+        if n < 1:
+            fail(f"profiler: {k} was not launched")
+    return only_here
 
 
 def main() -> int:
@@ -627,10 +969,15 @@ def main() -> int:
 
     gather_launches = check_extractor_kernel_route(torch, sp, *frames[0])
 
+    bwd_launches = check_training(torch)
+    profiler_launches = check_profiler(torch)
+
     # Each kernel's launches are those of the phase that drives it.
     launches = {k: counts[k] for k, per in PER_FRAME_FUSED.items() if per}
     launches["masked_attention"] = counts_u["masked_attention"]
     launches["gather_normalize"] = gather_launches
+    launches["masked_attention_bwd"] = bwd_launches
+    launches.update(profiler_launches)
     rows = []
     for k in KERNEL_INFO:
         if launches[k] < 1:

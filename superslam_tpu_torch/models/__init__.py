@@ -11,7 +11,13 @@ from .superpoint import (
     superpoint_dense,
     superpoint_extract,
 )
-from .weights import from_jax_params, load_params, load_safetensors
+from .weights import (
+    from_jax_params,
+    load_params,
+    load_safetensors,
+    save_params,
+    to_jax_params,
+)
 
 __all__ = [
     "extract_matches",
@@ -26,4 +32,6 @@ __all__ = [
     "from_jax_params",
     "load_params",
     "load_safetensors",
+    "save_params",
+    "to_jax_params",
 ]

@@ -9,9 +9,12 @@ Two routes through the layers, as in the JAX package:
 - fused (the default, on every device): one hand-written kernel call per
   whole self block and per whole cross block
   (``ops/cuda/lightglue_layer.py``; their plain versions on CPU), 18 calls
-  per forward;
+  per forward; inference-only: it raises on tensors that require grad;
 - unfused (``fused=False`` or ``SUPERSLAM_PALLAS_LG=0``): PyTorch linears
-  around the hand-written attention kernel, described below.
+  around the hand-written attention kernel, described below;
+  differentiable end to end with respect to every parameter it reads
+  (attention through its hand-written backward), which is what
+  ``parallel/training.py`` trains through in f32.
 
 - Both keypoint sets are padded to one K with validity masks threaded
   through attention, the assignment softmaxes and match extraction.

@@ -45,20 +45,13 @@ def _conv(x: torch.Tensor, params: Params, name: str, dtype) -> torch.Tensor:
     return F.conv2d(x.to(dtype), w, padding=w.shape[-1] // 2) + b[:, None, None]
 
 
-def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
-    """VGG encoder + both heads at descriptor-grid resolution.
+def _tail(params: Params, x: torch.Tensor, compute_dtype):
+    """conv3a..both heads from the quarter-resolution (B, 64, H/4, W/4) map:
+    cuDNN convs, as the JAX package leaves them to XLA.
 
     Returns (logits (B, 65, H/8, W/8) f32, desc_raw (B, 256, H/8, W/8)
     unnormalized in compute_dtype)."""
     p = params
-    x = conv_pair_pool(
-        image[:, None], p["conv1a.weight"], p["conv1a.bias"], p["conv1b.weight"],
-        p["conv1b.bias"], compute_dtype=compute_dtype,
-    )
-    x = conv_pair_pool(
-        x, p["conv2a.weight"], p["conv2a.bias"], p["conv2b.weight"], p["conv2b.bias"],
-        compute_dtype=compute_dtype,
-    )
     x = F.relu(_conv(x, p, "conv3a", compute_dtype))
     x = F.relu(_conv(x, p, "conv3b", compute_dtype))
     x = F.max_pool2d(x, 2)
@@ -69,6 +62,43 @@ def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
     c_da = F.relu(_conv(x, p, "convDa", compute_dtype))
     desc = _conv(c_da, p, "convDb", compute_dtype)
     return logits, desc
+
+
+def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
+    """VGG encoder + both heads at descriptor-grid resolution: the two conv
+    pairs through the hand-written kernel, then ``_tail``."""
+    p = params
+    x = conv_pair_pool(
+        image[:, None], p["conv1a.weight"], p["conv1a.bias"], p["conv1b.weight"],
+        p["conv1b.bias"], compute_dtype=compute_dtype,
+    )
+    x = conv_pair_pool(
+        x, p["conv2a.weight"], p["conv2a.bias"], p["conv2b.weight"], p["conv2b.bias"],
+        compute_dtype=compute_dtype,
+    )
+    return _tail(params, x, compute_dtype)
+
+
+def _scores_and_descriptors(
+    logits, desc, nms_radius: int, compute_dtype, return_pre_nms: bool, nms=nms_suppress
+):
+    """The heads' outputs -> (NMS'd heatmap, normalized NHWC descriptor grid
+    [, pre-NMS heatmap]): softmax, depth-to-space, ``nms`` and the
+    channel-wise L2 normalization."""
+    scores = torch.softmax(logits, dim=1)[:, :-1]  # (B, 64, h, w)
+    b, _, h, w = scores.shape
+    # Depth-to-space: channel c = cy*8 + cx -> (B, h*8, w*8).
+    scores = scores.reshape(b, CELL, CELL, h, w).permute(0, 3, 1, 4, 2)
+    scores = scores.reshape(b, h * CELL, w * CELL).contiguous()
+    pre_nms = scores
+    if nms_radius > 0:
+        scores = nms(scores, nms_radius)
+    sq = torch.sum(torch.square(desc.float()), dim=1, keepdim=True)
+    desc = desc * torch.rsqrt(sq + 1e-12).to(compute_dtype)
+    desc = desc.permute(0, 2, 3, 1).contiguous()  # NHWC
+    if return_pre_nms:
+        return scores, desc, pre_nms
+    return scores, desc
 
 
 def superpoint_dense(
@@ -90,20 +120,7 @@ def superpoint_dense(
       [pre_nms (B, H, W) f32 when return_pre_nms].
     """
     logits, desc = _encoder_and_heads(params, image, compute_dtype)
-    scores = torch.softmax(logits, dim=1)[:, :-1]  # (B, 64, h, w)
-    b, _, h, w = scores.shape
-    # Depth-to-space: channel c = cy*8 + cx -> (B, h*8, w*8).
-    scores = scores.reshape(b, CELL, CELL, h, w).permute(0, 3, 1, 4, 2)
-    scores = scores.reshape(b, h * CELL, w * CELL).contiguous()
-    pre_nms = scores
-    if nms_radius > 0:
-        scores = nms_suppress(scores, nms_radius)
-    sq = torch.sum(torch.square(desc.float()), dim=1, keepdim=True)
-    desc = desc * torch.rsqrt(sq + 1e-12).to(compute_dtype)
-    desc = desc.permute(0, 2, 3, 1).contiguous()  # NHWC
-    if return_pre_nms:
-        return scores, desc, pre_nms
-    return scores, desc
+    return _scores_and_descriptors(logits, desc, nms_radius, compute_dtype, return_pre_nms)
 
 
 def select_keypoints(

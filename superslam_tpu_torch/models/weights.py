@@ -6,7 +6,9 @@ kernels and (out, in) linear weights, stored in fp16 (written by
 keeps that layout, so loading is a dtype cast and a device move. The JAX
 package holds the same parameters as HWIO convs and (in, out) linears;
 ``from_jax_params`` carries its dicts over (the inverse of its
-``convert_torch_layout``).
+``convert_torch_layout``) and ``to_jax_params`` carries the port's back;
+``save_params`` writes the committed format, so a checkpoint trained by
+either package loads in the other.
 
 The fused LightGlue blocks need nothing more from a checkpoint: their
 kernel operands derive from this same flat dict
@@ -47,6 +49,40 @@ def from_jax_params(
         ).to(device=device, dtype=dtype)
         for name, arr in params.items()
     }
+
+
+def to_jax_params(params: Params) -> dict[str, np.ndarray]:
+    """The port's torch-layout dict -> a JAX-package parameter dict of f32
+    numpy arrays (OIHW -> HWIO, (out, in) -> (in, out)): the inverse of
+    ``from_jax_params``. The prepared operands of the fused LightGlue blocks
+    (``__fused`` keys) are derived, not parameters, and are left out."""
+    out: dict[str, np.ndarray] = {}
+    for name, t in params.items():
+        if not isinstance(t, torch.Tensor):
+            continue
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if arr.ndim == 4:
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        elif arr.ndim == 2:
+            arr = np.transpose(arr, (1, 0))
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def save_params(params: Params, path: str, dtype: torch.dtype = torch.float16) -> None:
+    """Write the port's dict as a torch-layout safetensors checkpoint (no
+    transposes; fp16 by default, as the committed checkpoints and the JAX
+    package's ``save_params_torch_layout``)."""
+    from safetensors.torch import save_file
+
+    save_file(
+        {
+            name: t.detach().to("cpu", dtype).contiguous()
+            for name, t in params.items()
+            if isinstance(t, torch.Tensor)
+        },
+        path,
+    )
 
 
 def load_safetensors(path: str, device="cpu", dtype=torch.float32) -> Params:

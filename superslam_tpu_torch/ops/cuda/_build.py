@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``*.cu`` sources beside this file are compiled by ONE ``nvcc`` call
-for ``sm_90a`` into a shared library with a plain C interface, at first
-use, under ``build/superslam_tpu_torch/`` at the repository root. The
-library name carries a hash of the sources, so an edited kernel is never
-served from a stale build. It is loaded with ``ctypes``; no PyTorch header
-enters the build (that is what keeps it to seconds instead of minutes).
+All ``*.cu`` sources beside this file are compiled for ``sm_90a``, one
+``nvcc`` process per source and all of them at once, and linked into one
+shared library with a plain C interface, at first use, under
+``build/superslam_tpu_torch/`` at the repository root. The library name
+carries a hash of the sources, so an edited kernel is never served from a
+stale build. It is loaded with ``ctypes``; no PyTorch header enters the
+build (that is what keeps it to seconds instead of minutes).
 
 Nothing here runs at import: the CPU tests import every kernel module on
 hosts that have neither ``nvcc`` nor a card.
@@ -34,7 +35,6 @@ NVCC_FLAGS = [
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -50,9 +50,13 @@ KERNELS = (
     "conv_pair",
     "nms",
     "masked_attention",
+    "masked_attention_bwd",
     "fused_self_block",
     "fused_cross_block",
     "gather_normalize",
+    "conv_pair_full",
+    "conv1a1b_full",
+    "conv3x3",
 )
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -61,10 +65,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, stream
     "ssl_conv_pair_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same arguments, no pool: out is (B, H, W, 64)
+    "ssl_conv_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, B, cin, cout, H, W, relu, out_f32, stream
+    "ssl_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # s, out, B, H, W, radius, stream
     "ssl_nms": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, mask, out, B, heads, N, is_bf16, stream
     "ssl_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, mask, dout, dq, dk, dv, stats scratch, B, heads, N, is_bf16, stream
+    "ssl_masked_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
     # x, cos, sin, mask, wqkv, bqkv, wout, bout, w0, b0, g, be, w3, b3,
     # qkv scratch, ctx scratch, out, B, K, is_bf16, stream
     "ssl_fused_self_block": [_P] * 17 + [_I, _I, _I, _P],
@@ -112,23 +122,50 @@ def _library_path() -> str:
 
 
 def build() -> str:
-    """Compile every kernel source with one nvcc call (if not built yet);
-    returns the library path. nvcc's resource report (-Xptxas -v) goes to
-    nvcc.log beside the library."""
+    """Compile every kernel source (if not built yet): one nvcc process per
+    source, started together, then one link; returns the library path.
+    nvcc's resource reports (-Xptxas -v) go to nvcc.log beside the library."""
     global build_seconds
     out = _library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = _nvcc()
+    stem = f"{out}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    jobs = []
+    for src in sources():
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        try:
+            text, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            text += "\nnvcc: killed after 900 s"
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    objects = [obj for _, obj, _ in jobs]
+    tmp = f"{stem}.tmp"
+    if not failed:
+        link = [nvcc, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=900)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
     build_seconds = time.perf_counter() - t0
     with open(os.path.join(BUILD_DIR, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(t[-4000:] for t in failed))
     os.replace(tmp, out)
     return out
 

@@ -1,17 +1,28 @@
-"""SuperPoint's conv pairs with the 2x2 max-pool folded in.
+"""SuperPoint's first convs as hand-written kernels.
 
 ``conv_pair_pool`` computes maxpool2x2(relu(conv_b(relu(conv_a(x) + ba)) +
 bb)) with two 3x3 SAME convs. It is the port of
 ``superslam_tpu/ops/pallas/conv.py::conv1a1b_chw`` (CIN = 1, the gray
 image) and ``::conv_pair_chw`` (CIN = 64), both with ``pool_vert=True``
-plus the XLA ``hpool_canvas`` that finishes their pool. The kernel is
-``conv_pair_pool.cu``; its header says what bounds it on the H100 and how
-the design answers that.
+plus the XLA ``hpool_canvas`` that finishes their pool. ``conv_pair`` is
+the same two convs without the pool (the same two JAX functions without
+``pool_vert``), and ``conv3x3`` one 3x3 SAME conv + bias + optional ReLU
+(``::conv3x3_chw``); the stage profiler and the tests call these two. All
+kernels are in ``conv_pair_pool.cu``; its header says what bounds them on
+the H100 and how the design answers that.
+
+The TPU kernels work on a padded "canvas" (PAD_ROWS zero rows, lanes
+padded to 128, the image width passed beside it): that is its compiler's
+layout, not the function. Here every function takes (B, CIN, H, W) and
+returns (B, COUT, H, W) or its pooled half.
 
 A CUDA tensor always goes through the kernel (or raises); a CPU tensor
-goes through ``conv_pair_pool_plain``, the same function in plain PyTorch.
-On CUDA the convs compute in bf16 with f32 accumulation: the conv_a map
-is rounded to bf16 in shared memory, as the TPU kernel rounds it in VMEM.
+goes through the ``*_plain`` function beside each wrapper, the same
+function in plain PyTorch. On CUDA the convs compute in bf16 with f32
+accumulation: the conv_a map is rounded to bf16 in shared memory, as the
+TPU kernel rounds it in VMEM. Launches count as ``conv1a1b`` / ``conv_pair``
+(pooled, CIN 1 / 64), ``conv1a1b_full`` / ``conv_pair_full`` (unpooled) and
+``conv3x3``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,63 @@ def conv_pair_pool_plain(
     return F.max_pool2d(y, 2).to(out_dtype or cdt)
 
 
+def conv_pair_plain(
+    x: torch.Tensor,
+    wa: torch.Tensor,
+    ba: torch.Tensor,
+    wb: torch.Tensor,
+    bb: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``conv_pair_pool_plain`` without the pool."""
+    cdt = compute_dtype
+    y = F.relu(F.conv2d(x.to(cdt), wa.to(cdt), padding=1) + ba.to(cdt)[:, None, None])
+    y = F.relu(F.conv2d(y, wb.to(cdt), padding=1) + bb.to(cdt)[:, None, None])
+    return y.to(out_dtype or cdt)
+
+
+def conv3x3_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    relu: bool = True,
+    out_dtype: torch.dtype | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """F.conv2d (+ ReLU) in compute_dtype (NCHW, OIHW weights); the bias is
+    added after the conv's rounding to compute_dtype, as in
+    ``conv_pair_pool_plain``."""
+    cdt = compute_dtype
+    y = F.conv2d(x.to(cdt), w.to(cdt), padding=1) + b.to(cdt)[:, None, None]
+    return (F.relu(y) if relu else y).to(out_dtype or cdt)
+
+
+def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype):
+    """Checks shared by the two conv pairs; returns the kernel's operands
+    (input, conv_a weights, f32 biases, tap-major conv_b weights) and the
+    output type."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel computes in bf16")
+    out_dtype = out_dtype or compute_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: unsupported out_dtype {out_dtype}")
+    cin = x.shape[1] if x.dim() == 4 else None
+    if cin not in (1, C):
+        raise ValueError(f"{name}: unsupported input shape {tuple(x.shape)}")
+    if tuple(wa.shape) != (C, cin, 3, 3) or tuple(wb.shape) != (C, C, 3, 3):
+        raise ValueError(f"{name}: weights {tuple(wa.shape)}, {tuple(wb.shape)}")
+    if cin == 1:
+        xk = x.float().contiguous()
+        wak = wa.float().reshape(C, 9).contiguous()
+    else:
+        xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wak = _tap_major(wa)
+    return xk, wak, ba.float().contiguous(), _tap_major(wb), bb.float().contiguous(), out_dtype
+
+
 def conv_pair_pool(
     x: torch.Tensor,
     wa: torch.Tensor,
@@ -58,43 +126,103 @@ def conv_pair_pool(
     f32; default compute_dtype), ready for the next conv."""
     if x.device.type == "cpu":
         return conv_pair_pool_plain(x, wa, ba, wb, bb, out_dtype, compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_pair_pool: unsupported device {x.device}")
-    if compute_dtype != torch.bfloat16:
-        raise ValueError("conv_pair_pool: the CUDA kernel computes in bf16")
-    out_dtype = out_dtype or compute_dtype
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"conv_pair_pool: unsupported out_dtype {out_dtype}")
+    xk, wak, bak, wbk, bbk, out_dtype = _pair_operands(
+        "conv_pair_pool", x, wa, ba, wb, bb, out_dtype, compute_dtype
+    )
     b, cin, h, w = x.shape
-    if cin not in (1, C) or h % 2 or w % 2:
+    if h % 2 or w % 2:
         raise ValueError(f"conv_pair_pool: unsupported input shape {tuple(x.shape)}")
-    if tuple(wa.shape) != (C, cin, 3, 3) or tuple(wb.shape) != (C, C, 3, 3):
-        raise ValueError(
-            f"conv_pair_pool: weights {tuple(wa.shape)}, {tuple(wb.shape)}"
-        )
-    if cin == 1:
-        xk = x.float().contiguous()
-        wak = wa.float().reshape(C, 9).contiguous()
-    else:
-        xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        wak = _tap_major(wa)
-    wbk = _tap_major(wb)
-    bak = ba.float().contiguous()
-    bbk = bb.float().contiguous()
     out = torch.empty(
         (b, C, h // 2, w // 2),
         dtype=out_dtype,
         device=x.device,
         memory_format=torch.channels_last,
     )
-    lib = _build.library()
-    err = lib.ssl_conv_pair_pool(
+    err = _build.library().ssl_conv_pair_pool(
         xk.data_ptr(), wak.data_ptr(), bak.data_ptr(), wbk.data_ptr(),
         bbk.data_ptr(), out.data_ptr(), b, cin, h, w,
         int(out_dtype == torch.float32), _build.stream_of(x),
     )
     _build.check(err, "conv_pair_pool")
     _build.count("conv1a1b" if cin == 1 else "conv_pair")
+    return out
+
+
+def conv_pair(
+    x: torch.Tensor,
+    wa: torch.Tensor,
+    ba: torch.Tensor,
+    wb: torch.Tensor,
+    bb: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """relu(conv_b(relu(conv_a(x) + ba)) + bb), no pool: (B, CIN, H, W) ->
+    (B, 64, H, W); CIN in {1, 64}. Operands and output as ``conv_pair_pool``."""
+    if x.device.type == "cpu":
+        return conv_pair_plain(x, wa, ba, wb, bb, out_dtype, compute_dtype)
+    xk, wak, bak, wbk, bbk, out_dtype = _pair_operands(
+        "conv_pair", x, wa, ba, wb, bb, out_dtype, compute_dtype
+    )
+    b, cin, h, w = x.shape
+    out = torch.empty(
+        (b, C, h, w), dtype=out_dtype, device=x.device, memory_format=torch.channels_last
+    )
+    err = _build.library().ssl_conv_pair(
+        xk.data_ptr(), wak.data_ptr(), bak.data_ptr(), wbk.data_ptr(),
+        bbk.data_ptr(), out.data_ptr(), b, cin, h, w,
+        int(out_dtype == torch.float32), _build.stream_of(x),
+    )
+    _build.check(err, "conv_pair")
+    _build.count("conv1a1b_full" if cin == 1 else "conv_pair_full")
+    return out
+
+
+def conv3x3(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    relu: bool = True,
+    out_dtype: torch.dtype | None = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """One 3x3 SAME conv + bias (+ ReLU): (B, CIN, H, W) -> (B, COUT, H, W);
+    CIN in {1, 64}, COUT in {64, 128}, OIHW weights. On CUDA the output is a
+    channels_last tensor in ``out_dtype`` (bf16 or f32; default
+    compute_dtype)."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w, b, relu, out_dtype, compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3: unsupported device {x.device}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("conv3x3: the CUDA kernel computes in bf16")
+    out_dtype = out_dtype or compute_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv3x3: unsupported out_dtype {out_dtype}")
+    cin = x.shape[1] if x.dim() == 4 else None
+    cout = w.shape[0]
+    if cin not in (1, C) or cout not in (C, 2 * C) or tuple(w.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"conv3x3: input {tuple(x.shape)}, weights {tuple(w.shape)}")
+    if tuple(b.shape) != (cout,):
+        raise ValueError(f"conv3x3: bias {tuple(b.shape)}")
+    if cin == 1:
+        xk = x.float().contiguous()
+        wk = w.float().reshape(cout, 9).contiguous()
+    else:
+        xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wk = _tap_major(w)
+    bk = b.float().contiguous()
+    bsz, _, h, wd = x.shape
+    out = torch.empty(
+        (bsz, cout, h, wd), dtype=out_dtype, device=x.device,
+        memory_format=torch.channels_last,
+    )
+    err = _build.library().ssl_conv3x3(
+        xk.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), bsz, cin, cout, h, wd,
+        int(relu), int(out_dtype == torch.float32), _build.stream_of(x),
+    )
+    _build.check(err, "conv3x3")
+    _build.count("conv3x3")
     return out
 
 

@@ -26,9 +26,27 @@
 // 128-byte pixel pitch makes the fragment loads bank-conflicted), and more
 // than one block per SM.
 //
+// The same file holds the three conv kernels that only the stage profiler
+// and the tests call:
+//   * conv_pair (POOL = false): the unpooled conv1a1b_chw and conv_pair_chw
+//     (kernel bodies _conv1a1b_kernel and _conv_pair_kernel). The same
+//     kernel with the pool epilogue replaced by stores of the conv_b tile
+//     to device memory, 16 channels (32 bytes in bf16) at a time. Bound:
+//     operations, as the pooled pair (the full-resolution output is 61 MB
+//     at (2, 64, 192, 624) bf16, 0.018 ms of bytes under 0.036 ms of
+//     operations).
+//   * conv3x3: conv3x3_chw (_conv_kernel), one 3x3 SAME conv + f32 bias +
+//     optional ReLU, CIN 1 or 64, COUT 64 or 128. CIN = 64 loads the input
+//     tile with its halo where the pair kernel keeps its conv_a tile and
+//     runs the conv_b stage on it; CIN = 1 is nine FMAs per output. Bound at
+//     conv2a's shape (2, 64, 192, 624) bf16: bytes, 61 MB in and out =
+//     0.0183 ms against 17.7 GFLOP = 0.0179 ms; the only conv here that
+//     device memory, not the tensor cores, limits.
+//
 // Layouts: CIN = 1 takes f32 (B, 1, H, W); CIN = 64 takes bf16 NHWC
 // (a channels_last (B, 64, H, W) tensor). The output is NHWC (channels_last
-// (B, 64, H/2, W/2)) in bf16 or f32. H and W are even.
+// (B, 64, H/2, W/2) pooled, (B, COUT, H, W) unpooled) in bf16 or f32. H and
+// W are even where the pool runs.
 #include <mma.h>
 
 #include "common.cuh"
@@ -69,10 +87,10 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::ro
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // acc[nb] += sum over 9 taps and 64 input channels of
-//   src[(base + ky*pitch + kx) * 64 + ci] * w[(tap*64 + ci)*64 + nb*16 + j].
+//   src[(base + ky*pitch + kx) * 64 + ci] * w[(tap*64 + ci)*ldw + nb*16 + j].
 __device__ __forceinline__ void run_gemm(const __nv_bfloat16* src, int base, int pitch,
                                          const __nv_bfloat16* __restrict__ w,
-                                         FragC (&acc)[4]) {
+                                         FragC (&acc)[4], int ldw = C) {
 #pragma unroll
   for (int nb = 0; nb < 4; ++nb) wmma::fill_fragment(acc[nb], 0.0f);
   for (int tap = 0; tap < 9; ++tap) {
@@ -85,14 +103,16 @@ __device__ __forceinline__ void run_gemm(const __nv_bfloat16* src, int base, int
 #pragma unroll
       for (int nb = 0; nb < 4; ++nb) {
         FragB fb;
-        wmma::load_matrix_sync(fb, w + size_t(tap * C + cb * 16) * C + nb * 16, C);
+        wmma::load_matrix_sync(fb, w + size_t(tap * C + cb * 16) * ldw + nb * 16, ldw);
         wmma::mma_sync(acc[nb], fa, fb, acc[nb]);
       }
     }
   }
 }
 
-template <int CIN, typename TOut>
+// POOL: the 2x2 max pool in the epilogue, out (B, H/2, W/2, 64); else the
+// conv_b tile itself, out (B, H, W, 64).
+template <int CIN, typename TOut, bool POOL>
 __global__ void __launch_bounds__(NTHREADS)
     conv_pair_pool_kernel(const void* __restrict__ xv, const void* __restrict__ wav,
                           const float* __restrict__ ba,
@@ -187,10 +207,12 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   __syncthreads();
 
-  // ---- conv_b + ReLU + 2x2 max pool into pool_s (aliases the input tile) ----
+  // ---- conv_b + ReLU (+ 2x2 max pool into pool_s, which aliases the input tile) ----
   float* pool_s = reinterpret_cast<float*>(u_s);  // (PH, PW, 64)
-  for (int i = tid; i < PH * PW * C; i += NTHREADS) pool_s[i] = 0.0f;
-  __syncthreads();
+  if constexpr (POOL) {
+    for (int i = tid; i < PH * PW * C; i += NTHREADS) pool_s[i] = 0.0f;
+    __syncthreads();
+  }
   for (int run = warp; run < NRUN_B; run += NWARPS) {
     FragC acc[4];
     run_gemm(a_s, run * 16, AP, wb, acc);
@@ -202,15 +224,20 @@ __global__ void __launch_bounds__(NTHREADS)
         const int f = run * 16 + e / 16, co = nb * 16 + e % 16;
         const int r = f / AP, c = f % AP;
         if (c < TW && y0 + r < H && x0 + c < W) {
-          // ReLU outputs are >= 0, so their IEEE bit patterns order as ints.
           const float v = fmaxf(stage[e] + bb[co], 0.0f);
-          atomicMax(reinterpret_cast<int*>(pool_s) + ((r / 2) * PW + c / 2) * C + co,
-                    __float_as_int(v));
+          if constexpr (POOL) {
+            // ReLU outputs are >= 0, so their IEEE bit patterns order as ints.
+            atomicMax(reinterpret_cast<int*>(pool_s) + ((r / 2) * PW + c / 2) * C + co,
+                      __float_as_int(v));
+          } else {
+            out[((size_t(b) * H + y0 + r) * W + x0 + c) * C + co] = ssl_from_float<TOut>(v);
+          }
         }
       }
       __syncwarp();
     }
   }
+  if constexpr (!POOL) return;
   __syncthreads();
 
   const int Ho = H / 2, Wo = W / 2;
@@ -222,11 +249,11 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int CIN, typename TOut>
+template <int CIN, typename TOut, bool POOL>
 cudaError_t launch(const void* x, const void* wa, const float* ba, const void* wb,
                    const float* bb, void* out, int B, int H, int W,
                    cudaStream_t stream) {
-  auto kernel = conv_pair_pool_kernel<CIN, TOut>;
+  auto kernel = conv_pair_pool_kernel<CIN, TOut, POOL>;
   const size_t smem = smem_bytes<CIN>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -235,6 +262,116 @@ cudaError_t launch(const void* x, const void* wa, const float* ba, const void* w
   kernel<<<grid, NTHREADS, smem, stream>>>(
       x, wa, ba, reinterpret_cast<const __nv_bfloat16*>(wb), bb,
       reinterpret_cast<TOut*>(out), H, W);
+  return cudaGetLastError();
+}
+
+template <bool POOL>
+cudaError_t dispatch(const void* x, const void* wa, const float* ba, const void* wb,
+                     const float* bb, void* out, int B, int cin, int H, int W, int out_f32,
+                     cudaStream_t s) {
+  if (cin == 1)
+    return out_f32 ? launch<1, float, POOL>(x, wa, ba, wb, bb, out, B, H, W, s)
+                   : launch<1, __nv_bfloat16, POOL>(x, wa, ba, wb, bb, out, B, H, W, s);
+  return out_f32 ? launch<64, float, POOL>(x, wa, ba, wb, bb, out, B, H, W, s)
+                 : launch<64, __nv_bfloat16, POOL>(x, wa, ba, wb, bb, out, B, H, W, s);
+}
+
+// ---- conv3x3: one 3x3 SAME conv + bias (+ ReLU) to device memory ----
+
+constexpr int MAX_COUT = 128;
+
+template <int CIN, typename TOut>
+__global__ void __launch_bounds__(NTHREADS)
+    conv3x3_kernel(const void* __restrict__ xv, const void* __restrict__ wv,
+                   const float* __restrict__ bias, TOut* __restrict__ out, int H, int W,
+                   int cout, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+  if constexpr (CIN == 1) {
+    // x_s[(r, c)] at image (y0-1+r, x0-1+c); nine FMAs per output value.
+    const float* x = reinterpret_cast<const float*>(xv) + size_t(b) * H * W;
+    const float* w = reinterpret_cast<const float*>(wv);  // (cout, 9)
+    float* x_s = reinterpret_cast<float*>(smem);           // (TH + 2, AP)
+    float* w_s = x_s + (TH + 2) * AP;                      // (cout, 9)
+    for (int i = tid; i < (TH + 2) * AP; i += NTHREADS) {
+      const int gy = y0 - 1 + i / AP, gx = x0 - 1 + i % AP;
+      x_s[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? x[size_t(gy) * W + gx] : 0.0f;
+    }
+    for (int i = tid; i < cout * 9; i += NTHREADS) w_s[i] = w[i];
+    __syncthreads();
+    const int groups = cout / 8;  // one item = one pixel x 8 channels
+    for (int i = tid; i < TH * TW * groups; i += NTHREADS) {
+      const int pix = i / groups, g = i % groups;
+      const int r = pix / TW, c = pix % TW;
+      if (y0 + r >= H || x0 + c >= W) continue;
+      TOut* o = out + ((size_t(b) * H + y0 + r) * W + x0 + c) * cout + g * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = g * 8 + j;
+        float acc = bias[co];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+          acc += x_s[(r + tap / 3) * AP + c + tap % 3] * w_s[co * 9 + tap];
+        o[j] = ssl_from_float<TOut>(relu ? fmaxf(acc, 0.0f) : acc);
+      }
+    }
+  } else {
+    // The input tile with its one-pixel halo, laid out as the pair kernel's
+    // conv_a tile: a_s[(r*AP + c)*64 + ci] at image (y0-1+r, x0-1+c).
+    const __nv_bfloat16* x =
+        reinterpret_cast<const __nv_bfloat16*>(xv) + size_t(b) * H * W * C;
+    const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(wv);  // (9, 64, cout)
+    __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);
+    float* stage = reinterpret_cast<float*>(smem + A_BYTES) + warp * 256;
+    for (int i = tid; i < AR * AP * 8; i += NTHREADS) {
+      const int pix = i / 8, part = i % 8;
+      const int r = pix / AP, c = pix % AP;
+      const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (r < TH + 2 && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = *reinterpret_cast<const uint4*>(x + (size_t(gy) * W + gx) * C + part * 8);
+      *reinterpret_cast<uint4*>(a_s + size_t(pix) * C + part * 8) = v;
+    }
+    __syncthreads();
+    for (int half = 0; half < cout / C; ++half) {  // 64 output channels at a time
+      for (int run = warp; run < NRUN_B; run += NWARPS) {
+        FragC acc[4];
+        run_gemm(a_s, run * 16, AP, w + half * C, acc, cout);
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          wmma::store_matrix_sync(stage, acc[nb], 16, wmma::mem_row_major);
+          __syncwarp();
+          for (int e = lane; e < 256; e += 32) {
+            const int f = run * 16 + e / 16, co = half * C + nb * 16 + e % 16;
+            const int r = f / AP, c = f % AP;
+            if (c < TW && y0 + r < H && x0 + c < W) {
+              const float v = stage[e] + bias[co];
+              out[((size_t(b) * H + y0 + r) * W + x0 + c) * cout + co] =
+                  ssl_from_float<TOut>(relu ? fmaxf(v, 0.0f) : v);
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
+}
+
+template <int CIN, typename TOut>
+cudaError_t launch_conv3x3(const void* x, const void* w, const float* bias, void* out, int B,
+                           int H, int W, int cout, int relu, cudaStream_t stream) {
+  auto kernel = conv3x3_kernel<CIN, TOut>;
+  const size_t smem = CIN == 1 ? size_t((TH + 2) * AP + MAX_COUT * 9) * 4
+                               : A_BYTES + STAGE_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(x, w, bias, reinterpret_cast<TOut*>(out), H, W,
+                                           cout, relu);
   return cudaGetLastError();
 }
 
@@ -250,9 +387,33 @@ SSL_EXPORT int ssl_conv_pair_pool(const void* x, const void* wa, const float* ba
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if ((cin != 1 && cin != 64) || H % 2 != 0 || W % 2 != 0 || B < 1)
     return int(cudaErrorInvalidValue);
+  return int(dispatch<true>(x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, s));
+}
+
+// The same operands, no pool: out is (B, H, W, 64); H and W >= 1.
+SSL_EXPORT int ssl_conv_pair(const void* x, const void* wa, const float* ba, const void* wb,
+                             const float* bb, void* out, int B, int cin, int H, int W,
+                             int out_f32, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if ((cin != 1 && cin != 64) || H < 1 || W < 1 || B < 1) return int(cudaErrorInvalidValue);
+  return int(dispatch<false>(x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, s));
+}
+
+// x: CIN = 1 -> f32 (B, H, W); CIN = 64 -> bf16 (B, H, W, 64).
+// w: CIN = 1 -> f32 (cout, 9); CIN = 64 -> bf16 (9, 64, cout) [tap][ci][co].
+// bias: f32 (cout,); cout is 64 or 128. out: (B, H, W, cout), f32 if out_f32
+// else bf16.
+SSL_EXPORT int ssl_conv3x3(const void* x, const void* w, const float* bias, void* out, int B,
+                           int cin, int cout, int H, int W, int relu, int out_f32,
+                           void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if ((cin != 1 && cin != 64) || (cout != 64 && cout != MAX_COUT) || H < 1 || W < 1 || B < 1)
+    return int(cudaErrorInvalidValue);
   if (cin == 1)
-    return int(out_f32 ? launch<1, float>(x, wa, ba, wb, bb, out, B, H, W, s)
-                       : launch<1, __nv_bfloat16>(x, wa, ba, wb, bb, out, B, H, W, s));
-  return int(out_f32 ? launch<64, float>(x, wa, ba, wb, bb, out, B, H, W, s)
-                     : launch<64, __nv_bfloat16>(x, wa, ba, wb, bb, out, B, H, W, s));
+    return int(out_f32
+                   ? launch_conv3x3<1, float>(x, w, bias, out, B, H, W, cout, relu, s)
+                   : launch_conv3x3<1, __nv_bfloat16>(x, w, bias, out, B, H, W, cout, relu, s));
+  return int(out_f32
+                 ? launch_conv3x3<64, float>(x, w, bias, out, B, H, W, cout, relu, s)
+                 : launch_conv3x3<64, __nv_bfloat16>(x, w, bias, out, B, H, W, cout, relu, s));
 }

@@ -32,6 +32,11 @@ with masked keys; the only observable difference is a query row whose keys
 are all masked (the keyframe side before the first keyframe), which here
 is uniform over K instead of over the padded K. No output reads such a
 row: its matches are masked.
+
+The fused blocks are inference-only (they have no backward kernel): called
+with autograd recording on an input or a weight that requires grad, they
+raise instead of returning a result cut off from the graph. Training goes
+through the unfused route (``models/lightglue.py``, ``fused=False``).
 """
 
 from __future__ import annotations
@@ -191,6 +196,15 @@ def fused_cross_block_plain(x, mask, weights) -> torch.Tensor:
 # -- kernel wrappers ----------------------------------------------------------
 
 
+def _refuse_grad(name: str, x, weights) -> None:
+    if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
+        raise RuntimeError(
+            f"{name}: the fused blocks are inference-only and got a tensor that "
+            "requires grad; call under torch.no_grad(), or train through the "
+            "unfused route (lightglue_forward(..., fused=False))"
+        )
+
+
 def _check(name: str, x, mask, weights, groups: int) -> None:
     if x.dim() != 3 or x.shape[-1] != DIM or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"{name}: x {tuple(x.shape)}")
@@ -219,6 +233,7 @@ def fused_self_block(x, cos, sin, mask, weights) -> torch.Tensor:
     """One self-attention block. x (B, K, 256) bf16 or f32; cos, sin
     (B, K, 32) f32; mask (B, K) bool (real keys); weights from
     ``prep_self_weights`` in x's type. Returns (B, K, 256) in x's type."""
+    _refuse_grad("fused_self_block", x, weights)
     if x.device.type == "cpu":
         return fused_self_block_plain(x, cos, sin, mask, weights)
     if x.device.type != "cuda":
@@ -247,6 +262,7 @@ def fused_cross_block(x, mask, weights) -> torch.Tensor:
     """One bidirectional cross-attention block over pair rows. x (2P, K, 256)
     bf16 or f32; mask (2P, K) bool; weights from ``prep_cross_weights`` in
     x's type. Returns (2P, K, 256) in x's type."""
+    _refuse_grad("fused_cross_block", x, weights)
     if x.device.type == "cpu":
         return fused_cross_block_plain(x, mask, weights)
     if x.device.type != "cuda":

@@ -22,10 +22,15 @@ Packed row layout (int16, shape (PACK_ROWS, K)):
 
 ``track_scan`` (with ``_frame_solve`` and ``_reorthonormalize``) is the
 port of the JAX package's on-device tracking chain: the prior-gated
-pose-only LM per frame with coast-on-loss. It is held against the JAX
-function and the host tracker in ``tests/test_torch_pose_solver.py`` and is
-not called by any step or by the facade yet (the device-tracked steps are
-not ported).
+pose-only LM per frame with coast-on-loss, held against the JAX function
+and the host tracker in ``tests/test_torch_pose_solver.py``.
+``track_kf_scan`` is its zero-lag form with the keyframe in the carry, and
+``fused_stereo_track_step_multi`` / ``fused_stereo_track_kf_step_multi`` are
+the device-tracked steps built on the two (extraction + matching + pose in
+one call), held against the JAX functions in
+``tests/test_torch_frontend_step.py``. No pipeline and no facade path calls
+the device-tracked steps yet: the pipelined tracker that dispatches them is
+not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .precision import highest_f32_matmuls
 PACK_ROWS = 4
 PACK_SCALE = 16.0  # 1/16 px fixed point in the int16 readback
 TRACK_COLS = 13  # R row-major (9) + t (3) + n_matches (1)
+TRACK_KF_COLS = 16  # R row-major (9) + t (3) + n + support + accept + promo
 
 
 def _superpoint_stereo_features(
@@ -107,18 +113,23 @@ def _frontend_core(
     true_height: int,
     min_disparity: float,
     match_threshold: float,
+    kf_prenormalized: bool = False,
 ):
     """Extraction + stereo/track matching + stereo gates.
 
     Returns (kl (S,K,2), nkl (S,K,2), dl (S,K,D), vl (S,K), disparity (S,K),
-    stereo_ok (S,K), track_m (S,K))."""
+    stereo_ok (S,K), track_m (S,K)).
+
+    kf_prenormalized=True means kf_kpts is already in the LightGlue
+    normalized frame (the device keyframe carry stores normalized
+    coordinates)."""
     S = images_u8.shape[0] // 2
     kl, kr, dl, dr, vl, vr, nkl, nkr = _superpoint_stereo_features(
         sp_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
         nms_radius, true_width, true_height,
     )
     center, scale = _norm_frame(true_width, true_height, kl.device)
-    nkf = (kf_kpts - center) / scale
+    nkf = kf_kpts if kf_prenormalized else (kf_kpts - center) / scale
 
     # 2S pair problems in one LightGlue forward: S stereo matches (L_s, R_s)
     # and S track matches (KF, L_s). kf_* may be shared (K, ...) or
@@ -345,13 +356,7 @@ def track_scan(
 
     mono=True zeroes the uR residual weight (an RGB-D step has no
     frame-side depth): pass disparity=0 and stereo_ok=valid in that mode."""
-    gate_on = env_flag("SUPERSLAM_TRACK_GATE", True)
-    if gate_px is None:
-        gate_px = env_float("SUPERSLAM_TRACK_GATE_PX", 10.0) if gate_on else 0.0
-    if chi2_px is None:
-        chi2_px = env_float("SUPERSLAM_TRACK_CHI2_PX", 2.0)
-    if chi2_rounds is None:
-        chi2_rounds = env_int("SUPERSLAM_TRACK_CHI2_ROUNDS", 2) if gate_on else 0
+    gate_px, chi2_px, chi2_rounds = _track_gate_defaults(gate_px, chi2_px, chi2_rounds)
 
     R_prev, t_prev, Rr, tr = carry
     rows = []
@@ -374,3 +379,304 @@ def track_scan(
         rows.append(torch.cat([R_new.reshape(9), t_new, n.to(torch.float32)[None]]))
         R_prev, t_prev = R_new, t_new
     return torch.stack(rows), (R_prev, t_prev, Rr, tr)
+
+
+def _track_gate_defaults(gate_px, chi2_px, chi2_rounds):
+    """The prior gate's settings from SUPERSLAM_TRACK_GATE{,_PX} and
+    SUPERSLAM_TRACK_CHI2_{PX,ROUNDS} where the caller gave none."""
+    gate_on = env_flag("SUPERSLAM_TRACK_GATE", True)
+    if gate_px is None:
+        gate_px = env_float("SUPERSLAM_TRACK_GATE_PX", 10.0) if gate_on else 0.0
+    if chi2_px is None:
+        chi2_px = env_float("SUPERSLAM_TRACK_CHI2_PX", 2.0)
+    if chi2_rounds is None:
+        chi2_rounds = env_int("SUPERSLAM_TRACK_CHI2_ROUNDS", 2) if gate_on else 0
+    return gate_px, chi2_px, chi2_rounds
+
+
+@torch.no_grad()
+@highest_f32_matmuls()
+def fused_stereo_track_step_multi(
+    sp_params,
+    lg_params,
+    images_u8: torch.Tensor,  # (2S, H, W) uint8 [L0, R0, ...], padded
+    kf_kpts: torch.Tensor,  # (K, 2) f32 pixel coords of the last keyframe
+    kf_desc: torch.Tensor,  # (K, D)
+    kf_valid: torch.Tensor,  # (K,) bool
+    kf_xw: torch.Tensor,  # (K, 3) f32 WORLD points of the KF's stereo features
+    kf_depth_ok: torch.Tensor,  # (K,) bool: the KF feature has stereo depth
+    carry_R: torch.Tensor,  # (3,3) previous frame pose Twc (device-resident)
+    carry_t: torch.Tensor,  # (3,)
+    rel_R: torch.Tensor,  # (3,3) constant-velocity model (prev.between(cur))
+    rel_t: torch.Tensor,  # (3,)
+    max_keypoints: int,
+    keypoint_threshold: float,
+    remove_borders: int,
+    nms_radius: int,
+    true_width: int,
+    true_height: int,
+    min_disparity: float,
+    match_threshold: float,
+    calib: tuple,  # (fx, fy, cx, cy, baseline)
+    min_matches: int,
+    track_sigma_px: float,
+    disp_sigma0: float,
+    disp_cond: float,
+    track_iters: int = 20,
+):
+    """The per-frame step with the pose in it: everything
+    fused_stereo_step_multi does, plus ``track_scan`` over the S frames on
+    the KF->frame track matches, so tracking never leaves the device.
+    Correspondences: track_m[i] = frame keypoint matched to KF feature i;
+    Xw = kf_xw[i]; meas = the frame keypoint's (uL, uR, v) from the stereo
+    gate. Frames with fewer than ``min_matches`` usable correspondences
+    coast on the constant-velocity carry.
+
+    Returns (packed, dl, kl, vl, track_out (S, TRACK_COLS) f32,
+    (carry_R, carry_t, rel_R, rel_t)): the carry stays on the device and
+    feeds the next call; only ``packed`` and ``track_out`` are read back."""
+    if kf_kpts.dim() != 2:
+        raise ValueError(
+            "device tracking is single-sequence: the pose chain carry and the (K, 3) "
+            "keyframe world points have no per-sequence axis"
+        )
+    kl, _nkl, dl, vl, disparity, stereo_ok, track_m = _frontend_core(
+        sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, max_keypoints,
+        keypoint_threshold, remove_borders, nms_radius, true_width, true_height,
+        min_disparity, match_threshold,
+    )
+    track_out, carry = track_scan(
+        kl, disparity, stereo_ok, track_m, kf_xw, kf_depth_ok,
+        (carry_R, carry_t, rel_R, rel_t),
+        calib=calib, min_matches=min_matches, track_sigma_px=track_sigma_px,
+        disp_sigma0=disp_sigma0, disp_cond=disp_cond, track_iters=track_iters,
+    )
+    return _pack(kl, vl, disparity, stereo_ok, track_m), dl, kl, vl, track_out, carry
+
+
+def _extract_stereo(
+    sp_params,
+    lg_params,
+    images_u8: torch.Tensor,  # (2S, H, W) uint8 [L0, R0, ...], padded
+    max_keypoints: int,
+    keypoint_threshold: float,
+    remove_borders: int,
+    nms_radius: int,
+    true_width: int,
+    true_height: int,
+    min_disparity: float,
+    match_threshold: float,
+):
+    """Extraction + stereo matching WITHOUT the keyframe track match: the
+    front half of _frontend_core for steps that match against a keyframe
+    carried inside their own loop (track_kf_scan). Returns
+    (kl (S,K,2) px, nkl (S,K,2) normalized, dl (S,K,D), vl (S,K),
+    disparity (S,K), stereo_ok (S,K))."""
+    kl, kr, dl, dr, vl, vr, nkl, nkr = _superpoint_stereo_features(
+        sp_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
+        nms_radius, true_width, true_height,
+    )
+    la = lightglue_forward(lg_params, nkl, dl, nkr, dr, vl, vr)
+    stereo_m, _ = extract_matches(la, vl, vr, match_threshold)
+    disparity, stereo_ok = _stereo_gates(kl, kr, vl, stereo_m, min_disparity)
+    return kl, nkl, dl, vl, disparity, stereo_ok
+
+
+@torch.no_grad()
+@highest_f32_matmuls()
+def track_kf_scan(
+    lg_params,
+    kl,  # (S, K, 2) left keypoints (pixels)
+    nkl,  # (S, K, 2) normalized left keypoints (LightGlue frame)
+    dl,  # (S, K, D) left descriptors
+    vl,  # (S, K) bool
+    disparity,  # (S, K)
+    stereo_ok,  # (S, K) bool
+    kf_state,  # (kf_nk (K,2), kf_desc (K,D), kf_valid (K,), kf_xw (K,3),
+    #             kf_depth_ok (K,), since (int32 scalar))
+    pose_carry,  # (R (3,3), t (3,), rel_R (3,3), rel_t (3,))
+    *,
+    calib: tuple,
+    min_matches: int,
+    track_sigma_px: float,
+    disp_sigma0: float,
+    disp_cond: float,
+    match_threshold: float,
+    accept_frac: float,
+    support_px: float,
+    kf_min_frames: int,
+    kf_max_frames: int,
+    kf_min_matches: int,
+    covis_ratio: float,
+    track_iters: int = 20,
+    gate_px: float | None = None,
+    chi2_px: float | None = None,
+    chi2_rounds: int | None = None,
+    track_m0=None,  # (S, K) integer batched matches vs the ENTRY keyframe
+):
+    """Zero-lag on-device tracking: the keyframe lives in the loop's carry.
+
+    track_scan matches every frame of a call against the keyframe state
+    frozen when the call was made. Here each frame matches the CARRIED
+    keyframe, solves, and, when the keyframe gate fires, promotes itself to
+    be the keyframe for the very next frame. The host follows the readback's
+    promo bit, so its map bookkeeping stays in lockstep and the keyframe
+    never leaves the device.
+
+    Gate semantics mirror core.keyframe_gate.should_insert_keyframe with
+    reference_features = the carried keyframe's depth-valid count; solve
+    acceptance mirrors VoEstimator's support-based rule (support and accept
+    ride the readback row so the host adopts the same decision). Promotion
+    grounds the new keyframe's world points through the ACCEPTED device
+    solve. Stereo-only.
+
+    Speculative hybrid (track_m0 is not None): the caller already matched
+    every frame against the ENTRY keyframe in one batched LightGlue forward.
+    Those matches are exact until the first promotion inside this call; only
+    frames after one re-run the pair-batch-1 forward. The JAX package
+    selects with ``lax.cond`` on a carried flag; here the promotion bit is
+    read from the device once per frame and the choice is a Python ``if``.
+
+    Returns (track_out (S, TRACK_KF_COLS) f32, track_m (S, K) int32,
+    new_kf_state, new_pose_carry)."""
+    gate_px, chi2_px, chi2_rounds = _track_gate_defaults(gate_px, chi2_px, chi2_rounds)
+    fx, fy, cx, cy, baseline = calib
+    R_prev, t_prev, Rr, tr = pose_carry
+    kf_nk, kf_d, kf_v, kf_xw, kf_dok, since = kf_state
+    hybrid = track_m0 is not None
+    fresh = True  # the carried keyframe is still the one track_m0 was matched against
+    rows, matches = [], []
+    for s in range(kl.shape[0]):
+        if hybrid and fresh:
+            tm_s = track_m0[s].to(torch.int32)
+        else:
+            la = lightglue_forward(
+                lg_params, kf_nk[None], kf_d[None], nkl[s][None], dl[s][None], kf_v[None],
+                vl[s][None],
+            )
+            tm_s = extract_matches(la, kf_v[None], vl[s][None], match_threshold)[0][0]
+
+        R_pred = R_prev @ Rr
+        t_pred = R_prev @ tr + t_prev
+        R_s, t_s, n, ok, resid = _frame_solve(
+            R_prev, t_prev, R_pred, t_pred, kl[s], disparity[s], stereo_ok[s], tm_s, kf_xw,
+            kf_dok,
+            calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
+            disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=False, gate_px=gate_px,
+            chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+        )
+
+        # Support-based acceptance: VoEstimator._attempt's rule.
+        r, zok = resid(R_s, t_s)
+        support = torch.sum(ok & zok & (r < support_px))
+        finite = torch.isfinite(t_s).all() & torch.isfinite(R_s).all()
+        accept = (n >= min_matches) & finite
+        if accept_frac > 0:
+            floor = torch.clamp(accept_frac * n.float(), min=float(min_matches))
+            accept = accept & (support.float() >= floor)
+
+        R_new = _reorthonormalize(torch.where(accept, R_s, R_pred))
+        t_new = torch.where(accept, t_s, t_pred)
+        Rr = torch.where(accept, R_prev.T @ R_new, Rr)
+        tr = torch.where(accept, R_prev.T @ (t_new - t_prev), tr)
+
+        # Keyframe gate (should_insert_keyframe, exact semantics).
+        since1 = since + 1
+        nref = torch.clamp(torch.sum(kf_dok), min=1)
+        ratio_low = n.float() < covis_ratio * nref.float()
+        gate = (since1 >= kf_min_frames) & (
+            (since1 >= kf_max_frames) | (n < kf_min_matches) | ratio_low
+        )
+        promo = accept & gate
+        rows.append(
+            torch.cat(
+                [R_new.reshape(9), t_new,
+                 torch.stack([n.float(), support.float(), accept.float(), promo.float()])]
+            )
+        )
+        matches.append(tm_s)
+
+        # Promotion: this frame's features become the keyframe; world points
+        # ground through the accepted solve (Xw = R Xc + t). The one read of
+        # the device per frame.
+        if bool(promo):
+            z = (fx * baseline) / torch.clamp(disparity[s], min=1e-3)
+            x = (kl[s][:, 0] - cx) * z / fx
+            y = (kl[s][:, 1] - cy) * z / fy
+            kf_xw = torch.stack([x, y, z], dim=1) @ R_new.T + t_new
+            kf_nk, kf_d, kf_v, kf_dok = nkl[s], dl[s], vl[s], stereo_ok[s]
+            since = torch.zeros_like(since1)
+            fresh = False
+        else:
+            since = since1
+        R_prev, t_prev = R_new, t_new
+
+    new_kf_state = (kf_nk, kf_d, kf_v, kf_xw, kf_dok, since)
+    return torch.stack(rows), torch.stack(matches), new_kf_state, (R_prev, t_prev, Rr, tr)
+
+
+@torch.no_grad()
+@highest_f32_matmuls()
+def fused_stereo_track_kf_step_multi(
+    sp_params,
+    lg_params,
+    images_u8: torch.Tensor,  # (2S, H, W) uint8 [L0, R0, ...], padded
+    kf_state: tuple,  # see track_kf_scan
+    pose_carry: tuple,  # (R, t, rel_R, rel_t)
+    max_keypoints: int,
+    keypoint_threshold: float,
+    remove_borders: int,
+    nms_radius: int,
+    true_width: int,
+    true_height: int,
+    min_disparity: float,
+    match_threshold: float,
+    calib: tuple,
+    min_matches: int,
+    track_sigma_px: float,
+    disp_sigma0: float,
+    disp_cond: float,
+    accept_frac: float,
+    support_px: float,
+    kf_min_frames: int,
+    kf_max_frames: int,
+    kf_min_matches: int,
+    covis_ratio: float,
+    track_iters: int = 20,
+    hybrid: bool | None = None,
+):
+    """fused_stereo_track_step_multi with zero-lag keyframe promotion: the
+    keyframe state rides the carry (track_kf_scan docstring).
+
+    hybrid=True (the default, SUPERSLAM_DEVICE_KF_HYBRID): the KF<->frame
+    match runs batched with the stereo match in one 2S-pair LightGlue
+    forward against the entry keyframe, and the pair-batch-1 forward runs
+    only for frames that follow a promotion inside this call (never at
+    S = 1). hybrid=False: every frame re-matches inside the loop.
+
+    Returns (packed, dl, kl, vl, track_out (S, TRACK_KF_COLS),
+    new_kf_state, new_pose_carry)."""
+    if hybrid is None:
+        hybrid = env_flag("SUPERSLAM_DEVICE_KF_HYBRID", True)
+    front = (
+        sp_params, lg_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
+        nms_radius, true_width, true_height, min_disparity, match_threshold,
+    )
+    if hybrid:
+        kl, nkl, dl, vl, disparity, stereo_ok, track_m0 = _frontend_core(
+            *front[:3], kf_state[0], kf_state[1], kf_state[2], *front[3:],
+            kf_prenormalized=True,
+        )
+    else:
+        kl, nkl, dl, vl, disparity, stereo_ok = _extract_stereo(*front)
+        track_m0 = None
+    track_out, track_m, kf_state2, pose_carry2 = track_kf_scan(
+        lg_params, kl, nkl, dl, vl, disparity, stereo_ok, kf_state, pose_carry,
+        track_m0=track_m0, calib=calib, min_matches=min_matches,
+        track_sigma_px=track_sigma_px, disp_sigma0=disp_sigma0, disp_cond=disp_cond,
+        match_threshold=match_threshold, accept_frac=accept_frac, support_px=support_px,
+        kf_min_frames=kf_min_frames, kf_max_frames=kf_max_frames,
+        kf_min_matches=kf_min_matches, covis_ratio=covis_ratio, track_iters=track_iters,
+    )
+    packed = _pack(kl, vl, disparity, stereo_ok, track_m)
+    return packed, dl, kl, vl, track_out, kf_state2, pose_carry2

@@ -1,0 +1,156 @@
+"""Self-supervised fine-tuning step for the matcher, on one device.
+
+Port of ``superslam_tpu/parallel/training.py``: ``matching_loss`` (the
+negative log-likelihood of a ground-truth assignment under LightGlue's
+log-assignment), ``train_step`` (one AdamW step on it) and
+``synthetic_matching_batch`` (i <-> i self-supervision from numpy). The
+forward is the unfused LightGlue route in f32, so every attention call goes
+through ``ops/cuda/attention.py::masked_attention`` and is differentiated by
+its hand-written backward: 18 forward and 18 backward launches per step.
+
+The JAX package shards the step over a (data, model) mesh; this is the
+single-device step. Parameters are a flat dict of leaf tensors that require
+grad, updated in place by the optimizer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..models.lightglue import lightglue_forward
+
+Params = dict[str, torch.Tensor]
+
+
+def matching_loss(
+    params: Params,
+    kpts0: torch.Tensor,
+    desc0: torch.Tensor,
+    kpts1: torch.Tensor,
+    desc1: torch.Tensor,
+    mask0: torch.Tensor,
+    mask1: torch.Tensor,
+    gt_indices: torch.Tensor,  # (B, K) index into set1, -1 = unmatched
+) -> torch.Tensor:
+    """Negative log-likelihood of the ground-truth assignment.
+
+    Matched rows: -log P(i -> gt_i). Unmatched rows: -log(1 - sum_j P(i,j))
+    (the dual-softmax 'dustbin' mass), clamped for stability.
+    """
+    la = lightglue_forward(
+        params, kpts0, desc0, kpts1, desc1, mask0, mask1,
+        compute_dtype=torch.float32, fused=False,
+    )
+    matched = gt_indices >= 0
+    safe_idx = torch.where(matched, gt_indices, 0).to(torch.int64)
+    picked = torch.gather(la, 2, safe_idx[..., None])[..., 0]
+    zero = torch.zeros_like(picked)
+    pos_nll = -torch.where(matched & mask0, picked, zero)
+
+    row_mass = torch.sum(torch.exp(la), dim=2)  # (B, K)
+    neg_nll = -torch.where(
+        (~matched) & mask0, torch.log1p(-torch.clamp(row_mass, 0.0, 1.0 - 1e-6)), zero
+    )
+    denom = torch.clamp(mask0.sum().to(la.dtype), min=1.0)
+    return (pos_nll.sum() + neg_nll.sum()) / denom
+
+
+def make_optimizer(params: Params, lr: float = 1e-4) -> torch.optim.Optimizer:
+    """AdamW as the JAX package's ``optax.adamw(lr)``: betas (0.9, 0.999),
+    eps 1e-8, weight decay 1e-4 on every parameter (PyTorch's own default
+    decay is 1e-2). Marks the parameters as requiring grad."""
+    for p in params.values():
+        p.requires_grad_(True)
+    return torch.optim.AdamW(
+        list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
+    )
+
+
+def train_step(
+    params: Params,
+    optimizer: torch.optim.Optimizer,
+    batch: dict[str, torch.Tensor],
+    lr: float | None = None,
+) -> torch.Tensor:
+    """One optimizer step; returns the loss before the step (a 0-d tensor on
+    the parameters' device). ``batch`` keys: kpts0, desc0, kpts1, desc1,
+    mask0, mask1, gt_indices, all with a leading batch dim. ``lr``, when
+    given, is this step's learning rate (a schedule's value).
+
+    A parameter the loss does not read (the assignment heads of layers
+    0..7) gets a zero gradient, not none, so AdamW still decays it as the
+    JAX package's step does."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = matching_loss(
+        params,
+        batch["kpts0"], batch["desc0"], batch["kpts1"], batch["desc1"],
+        batch["mask0"], batch["mask1"], batch["gt_indices"],
+    )
+    loss.backward()
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if lr is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+    optimizer.step()
+    return loss.detach()
+
+
+def warmup_cosine_schedule(
+    init_value: float,
+    peak_value: float,
+    warmup_steps: int,
+    decay_steps: int,
+    end_value: float,
+) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule`` as a function of the step
+    (0 for the first update): linear from init_value to peak_value over
+    warmup_steps, then a cosine from peak_value to end_value that ends at
+    decay_steps (warm-up included) and stays there."""
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return init_value + (peak_value - init_value) * step / warmup_steps
+        span = max(decay_steps - warmup_steps, 1)
+        frac = min(step - warmup_steps, span) / span
+        cosine = 0.5 * (1.0 + math.cos(math.pi * frac))
+        return end_value + (peak_value - end_value) * cosine
+
+    return schedule
+
+
+def synthetic_matching_batch(
+    rng: np.random.Generator,
+    batch: int,
+    k: int,
+    dim: int = 256,
+    kpt_jitter: float = 0.01,
+) -> dict[str, np.ndarray]:
+    """Self-supervision: set1 is a noised permutation-free copy of set0 with
+    a random keypoint jitter; ground truth is i <-> i for the valid prefix.
+    `kpt_jitter` (normalized units) controls the simulated motion scale."""
+    n_valid = k * 3 // 4
+    kpts0 = rng.uniform(-1, 1, (batch, k, 2)).astype(np.float32)
+    jitter = rng.normal(0, kpt_jitter, (batch, k, 2)).astype(np.float32)
+    kpts1 = kpts0 + jitter
+    desc0 = rng.standard_normal((batch, k, dim)).astype(np.float32)
+    desc0 /= np.linalg.norm(desc0, axis=-1, keepdims=True)
+    noise = rng.normal(0, 0.05, (batch, k, dim)).astype(np.float32)
+    desc1 = desc0 + noise
+    desc1 /= np.linalg.norm(desc1, axis=-1, keepdims=True)
+    mask = (np.arange(k) < n_valid)[None].repeat(batch, 0)
+    gt = np.where(mask, np.arange(k)[None], -1).astype(np.int32)
+    return {
+        "kpts0": kpts0,
+        "desc0": desc0,
+        "kpts1": kpts1,
+        "desc1": desc1,
+        "mask0": mask,
+        "mask1": mask,
+        "gt_indices": gt,
+    }

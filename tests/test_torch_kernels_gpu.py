@@ -7,15 +7,29 @@ JAX, so on the GPU host it runs without the JAX package's conftest:
 Tolerances: conv pairs within 2e-2 of max|plain| (the kernel rounds the
 conv_a tile to bf16), NMS exact, bf16 attention atol 2e-2, the fused
 LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
-the descriptor gather atol 1e-5. The last test runs the tracking chain
-(plain PyTorch, no kernel) on the card against its own CPU result."""
+the descriptor gather atol 1e-5, the attention backward within 1e-4 of
+max|plain| in f32 (2e-2 in bf16). The last two tests run the tracking
+chains (track_scan, track_kf_scan: plain PyTorch, no kernel of their own)
+on the card against their own CPU results."""
 
 import numpy as np
 import pytest
 import torch
 
-from superslam_tpu_torch.ops.cuda.attention import masked_attention, masked_attention_plain
-from superslam_tpu_torch.ops.cuda.conv import conv_pair_pool, conv_pair_pool_plain
+from superslam_tpu_torch.ops.cuda.attention import (
+    masked_attention,
+    masked_attention_backward,
+    masked_attention_backward_plain,
+    masked_attention_plain,
+)
+from superslam_tpu_torch.ops.cuda.conv import (
+    conv3x3,
+    conv3x3_plain,
+    conv_pair,
+    conv_pair_plain,
+    conv_pair_pool,
+    conv_pair_pool_plain,
+)
 from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
 from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
 from superslam_tpu_torch.models.lightglue import init_lightglue_params
@@ -50,6 +64,43 @@ def test_conv_pair_pool_kernel(cuda, cin, h, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cin,h,w", [(1, 32, 96), (64, 32, 96), (64, 17, 71)])
+def test_conv_pair_kernel(cuda, cin, h, w):
+    """The unpooled pair; includes odd sizes off the 16 x 32 tile."""
+    rng = np.random.default_rng(cin + h)
+    if cin == 1:
+        x = rng.uniform(0, 1, (2, 1, h, w))
+    else:
+        x = np.maximum(rng.normal(size=(2, cin, h, w)), 0)
+    wa = rng.normal(size=(64, cin, 3, 3)) * (0.3 if cin == 1 else 0.1)
+    ba, bb = rng.normal(size=(64,)) * 0.1, rng.normal(size=(64,)) * 0.1
+    wb = rng.normal(size=(64, 64, 3, 3)) * 0.1
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wa, ba, wb, bb)]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = conv_pair(*args, out_dtype=out_dtype)
+        ref = conv_pair_plain(*args, out_dtype=out_dtype)
+        assert got.shape == ref.shape == (2, 64, h, w) and got.dtype == out_dtype
+        assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("cin,cout,h,w", [(64, 64, 32, 96), (1, 64, 17, 71), (64, 128, 17, 71)])
+def test_conv3x3_kernel(cuda, cin, cout, h, w, relu):
+    rng = np.random.default_rng(cin + cout + h)
+    x = rng.normal(size=(2, cin, h, w))
+    wt = rng.normal(size=(cout, cin, 3, 3)) * (0.3 if cin == 1 else 0.1)
+    bias = rng.normal(size=(cout,)) * 0.1
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wt, bias)]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = conv3x3(*args, relu=relu, out_dtype=out_dtype)
+        ref = conv3x3_plain(*args, relu=relu, out_dtype=out_dtype)
+        assert got.shape == ref.shape == (2, cout, h, w) and got.dtype == out_dtype
+        assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+        assert relu == bool((got.float() >= 0).all())
+
+
+@pytest.mark.gpu
 def test_nms_kernel(cuda):
     rng = np.random.default_rng(3)
     s = np.abs(rng.normal(size=(2, 40, 72))).astype(np.float32)
@@ -75,6 +126,39 @@ def test_masked_attention_kernel(cuda, dtype):
     assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
     mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(got[1])
     assert (got[1].float() - mean_v).abs().max() <= (2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_attention_backward_kernel(cuda, dtype, n):
+    """dq, dk, dv against the plain version and, through the Function,
+    against autograd through the plain forward; ragged masks and one
+    fully-masked batch row (only dv is non-zero there)."""
+    rng = np.random.default_rng(n)
+    q, k, v, g = (
+        torch.from_numpy(rng.standard_normal((3, 4, n, 64)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(4)
+    )
+    mask = torch.from_numpy(rng.uniform(size=(3, n)) > 0.3).to(cuda)
+    mask[1] = False
+    mask[2, n // 2 :] = False  # a ragged prefix
+    got = masked_attention_backward(q, k, v, mask, g)
+    ref = masked_attention_backward_plain(q, k, v, mask, g)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        assert (a.float() - b.float()).abs().max() <= tol * b.float().abs().max()
+    assert got[0][1].abs().max() == 0 and got[1][1].abs().max() == 0
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = masked_attention(*leaves, mask)
+    assert out.grad_fn is not None
+    out.backward(g)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    masked_attention_plain(*plain, mask).backward(g)
+    for a, b in zip(leaves, plain):
+        assert (a.grad.float() - b.grad.float()).abs().max() <= tol * b.grad.float().abs().max()
 
 
 def _block_case(cuda, dtype, k):
@@ -170,3 +254,52 @@ def test_track_scan_on_the_card_matches_cpu(cuda):
     assert outs[1].shape == (2, 13) and (outs[1][:, 12] == k).all()
     np.testing.assert_allclose(outs[1], outs[0], atol=1e-4, rtol=0)
     np.testing.assert_allclose(outs[1][1, 9:12], [0.30, 0.0, 0.02], atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_track_kf_scan_on_the_card_matches_cpu(cuda):
+    """Three frames of exact projections of 64 landmarks with the keyframe
+    in the carry and the passthrough matcher: the chain on CUDA tensors
+    gives the CPU result within 1e-4, the same counts and decision bits
+    (frame 2 promotes itself) and the same matches."""
+    from superslam_tpu_torch.ops.frontend_step import track_kf_scan
+
+    rng = np.random.default_rng(3)
+    k, fx, cx, cy, base, wd, hd = 64, 100.0, 64.0, 48.0, 0.3, 128, 96
+    z0 = rng.uniform(4.0, 10.0, k)
+    xw = np.stack([(rng.uniform(10, wd - 10, k) - cx) * z0 / fx,
+                   (rng.uniform(10, hd - 10, k) - cy) * z0 / fx, z0], axis=1)
+    center, scale = np.array([wd / 2.0, hd / 2.0]), max(wd, hd) / 2.0
+
+    def project(shift):
+        p = xw - np.array([shift, 0.0, 0.6 * shift])
+        return np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1), fx * base / p[:, 2]
+
+    views = [project(0.05 * (s + 1)) for s in range(3)]
+    kl = np.stack([v[0] for v in views]).astype(np.float32)
+    desc = rng.normal(0, 1, (k, 256)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    frames = [
+        kl, ((kl - center) / scale).astype(np.float32), np.tile(desc, (3, 1, 1)),
+        np.ones((3, k), bool), np.stack([v[1] for v in views]).astype(np.float32),
+        np.ones((3, k), bool),
+    ]
+    state = [((project(0.0)[0] - center) / scale).astype(np.float32), desc, np.ones(k, bool),
+             xw.astype(np.float32), np.ones(k, bool), np.zeros((), np.int32)]
+    carry = [np.eye(3, dtype=np.float32), np.zeros(3, np.float32)] * 2
+    kw = dict(calib=(fx, fx, cx, cy, base), min_matches=10, track_sigma_px=10.0, disp_sigma0=8.0,
+              disp_cond=fx * base / 40.0, match_threshold=0.1, accept_frac=0.4, support_px=4.0,
+              kf_min_frames=2, kf_max_frames=99, kf_min_matches=30, covis_ratio=2.0)
+    outs = []
+    for dev in ("cpu", cuda):
+        params = init_lightglue_params(0, passthrough=True, device=dev)
+        out, tm, _, _ = track_kf_scan(
+            params, *(torch.from_numpy(a).to(dev) for a in frames),
+            tuple(torch.from_numpy(a).to(dev) for a in state),
+            tuple(torch.from_numpy(a).to(dev) for a in carry), **kw)
+        outs.append((out.cpu().numpy(), tm.cpu().numpy()))
+    (ref, ref_m), (got, got_m) = outs
+    assert got.shape == (3, 16) and list(got[:, 15]) == [0.0, 1.0, 0.0]
+    np.testing.assert_allclose(got[:, :12], ref[:, :12], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got[:, 12:], ref[:, 12:])
+    np.testing.assert_array_equal(got_m, ref_m)

@@ -18,6 +18,7 @@ from superslam_tpu.ops.pallas.attention import masked_attention as pallas_attent
 from superslam_tpu.ops.pallas.conv import (
     PAD_ROWS,
     conv1a1b_chw,
+    conv3x3_chw,
     conv_pair_chw,
     hpool_canvas,
     to_canvas,
@@ -27,8 +28,8 @@ from superslam_tpu.ops.pallas.gather import gather_normalize as pallas_gather
 from superslam_tpu.ops.pallas.nms import nms_suppress as pallas_nms
 from superslam_tpu_torch.models.weights import from_jax_params
 from superslam_tpu_torch.ops.cuda import lightglue_layer as port_lg
-from superslam_tpu_torch.ops.cuda.attention import masked_attention
-from superslam_tpu_torch.ops.cuda.conv import conv_pair_pool
+from superslam_tpu_torch.ops.cuda.attention import masked_attention, masked_attention_backward
+from superslam_tpu_torch.ops.cuda.conv import conv3x3, conv_pair, conv_pair_pool
 from superslam_tpu_torch.ops.cuda.gather import gather_normalize
 from superslam_tpu_torch.ops.cuda.nms import nms_suppress
 
@@ -76,6 +77,66 @@ def test_conv_pair_pool_plain_matches_pallas(cin):
         out_dtype=torch.float32, compute_dtype=torch.float32,
     )
     assert got.shape == (b, 64, h // 2, w // 2)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def _rel_err(got, ref):
+    return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9)
+
+
+@pytest.mark.parametrize("cin", [1, 64])
+def test_conv_pair_plain_matches_pallas(cin):
+    """(2, CIN, 16, 256) with image width 250: the plain unpooled conv pair
+    against conv1a1b_chw / conv_pair_chw without pool_vert, the canvas cut
+    to the image interior; relative error <= 2e-2 (the limit of
+    tests/test_pallas_conv.py; measured ~1e-6, both sides f32)."""
+    rng = np.random.default_rng(10 + cin)
+    b, h, w, wimg = 2, 16, 256, 250
+    x, wa, ba, wb, bb = _conv_inputs(rng, cin, b, h, w)
+    x[..., wimg:] = 0.0
+    canvas = jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (PAD_ROWS, PAD_ROWS), (0, 0)))
+    fn = conv1a1b_chw if cin == 1 else conv_pair_chw
+    out = fn(
+        canvas, jnp.asarray(_hwio(wa)), jnp.asarray(ba), jnp.asarray(_hwio(wb)),
+        jnp.asarray(bb), w_img=wimg, interpret=True, out_dtype=jnp.float32,
+    )
+    ref = np.asarray(out)[:, :, PAD_ROWS : PAD_ROWS + h, :wimg]
+    got = conv_pair(
+        *(torch.from_numpy(a) for a in (x[..., :wimg], wa, ba, wb, bb)),
+        out_dtype=torch.float32, compute_dtype=torch.float32,
+    )
+    assert got.shape == (b, 64, h, wimg)
+    assert _rel_err(got.numpy(), ref) <= 2e-2
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "b,cin,h,w,cout,wimg,relu",
+    [(2, 64, 16, 256, 64, 250, True), (1, 1, 8, 128, 64, 120, True),
+     (2, 64, 16, 256, 128, 256, True), (1, 64, 8, 128, 64, 128, False)],
+)
+def test_conv3x3_plain_matches_pallas(b, cin, h, w, cout, wimg, relu):
+    """The shapes of tests/test_pallas_conv.py::test_conv3x3_matches_xla
+    (and one without ReLU) against conv3x3_chw in interpret mode, the canvas
+    cut to the image interior; relative error <= 2e-2."""
+    rng = np.random.default_rng(cin + cout + wimg)
+    x = rng.normal(size=(b, cin, h, w)).astype(np.float32)
+    x[..., wimg:] = 0.0
+    wt = (rng.normal(size=(cout, cin, 3, 3)) * 0.1).astype(np.float32)
+    bias = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    canvas = jnp.pad(jnp.asarray(x), ((0, 0), (0, 0), (PAD_ROWS, PAD_ROWS), (0, 0)))
+    out = conv3x3_chw(
+        canvas, jnp.asarray(_hwio(wt)), jnp.asarray(bias), relu=relu, w_img=wimg,
+        interpret=True, out_dtype=jnp.float32,
+    )
+    ref = np.asarray(out)[:, :, PAD_ROWS : PAD_ROWS + h, :wimg]
+    got = conv3x3(
+        *(torch.from_numpy(a) for a in (x[..., :wimg], wt, bias)), relu=relu,
+        out_dtype=torch.float32, compute_dtype=torch.float32,
+    )
+    assert got.shape == (b, cout, h, wimg)
+    assert relu == bool((got >= 0).all())
+    assert _rel_err(got.numpy(), ref) <= 2e-2
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=0)
 
 
@@ -219,7 +280,9 @@ def test_gather_normalize_plain_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize(
-    "which", ["conv", "nms", "attention", "fused_self_block", "fused_cross_block", "gather"]
+    "which",
+    ["conv", "conv_pair", "conv3x3", "nms", "attention", "attention_backward",
+     "fused_self_block", "fused_cross_block", "gather"],
 )
 def test_wrappers_do_not_fall_back_off_cpu(which):
     """Only a CPU tensor takes the plain version; any other device launches
@@ -230,11 +293,25 @@ def test_wrappers_do_not_fall_back_off_cpu(which):
             w = torch.empty(64, 64, 3, 3, device=meta)
             bias = torch.empty(64, device=meta)
             conv_pair_pool(torch.empty(1, 64, 8, 8, device=meta), w, bias, w, bias)
+        elif which == "conv_pair":
+            w = torch.empty(64, 64, 3, 3, device=meta)
+            bias = torch.empty(64, device=meta)
+            conv_pair(torch.empty(1, 64, 8, 8, device=meta), w, bias, w, bias)
+        elif which == "conv3x3":
+            conv3x3(
+                torch.empty(1, 64, 8, 8, device=meta),
+                torch.empty(64, 64, 3, 3, device=meta),
+                torch.empty(64, device=meta),
+            )
         elif which == "nms":
             nms_suppress(torch.empty(1, 8, 8, device=meta))
         elif which == "attention":
             t = torch.empty(1, 4, 8, 64, device=meta)
             masked_attention(t, t, t, torch.ones(1, 8, dtype=torch.bool, device=meta))
+        elif which == "attention_backward":
+            t = torch.empty(1, 4, 8, 64, device=meta)
+            mask = torch.ones(1, 8, dtype=torch.bool, device=meta)
+            masked_attention_backward(t, t, t, mask, t)
         elif which == "gather":
             gather_normalize(
                 torch.empty(1, 16, 256, device=meta),
