@@ -11,7 +11,9 @@ In order, any failure exiting non-zero:
    ``torch.cuda.get_device_name``);
 2. builds the hand-written kernels from the sources in the checkout
    (``superslam_tpu_torch/ops/cuda/_build.py``) and the host estimator's
-   C++ core (``csrc/``), and prints the build times;
+   C++ core (``csrc/``), prints the build times and the mma.sync conv pair
+   kernel's registers, shared memory and spills from nvcc's report (any
+   spill fails);
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
@@ -66,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -114,7 +117,7 @@ KERNEL_INFO = {
         "superslam_tpu/ops/pallas/conv.py:558",
     ),
     "conv_pair": (
-        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu_torch/ops/cuda/conv_pair_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:439",
     ),
     "nms": (
@@ -142,7 +145,7 @@ KERNEL_INFO = {
         "superslam_tpu/ops/pallas/attention.py:103",
     ),
     "conv_pair_full": (
-        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu_torch/ops/cuda/conv_pair_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:461",
     ),
     "conv1a1b_full": (
@@ -158,6 +161,42 @@ KERNEL_INFO = {
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def report_mma_build(build_dir: str) -> None:
+    """Print registers, shared memory and spills of each instantiation of
+    the mma.sync conv pair kernel from nvcc's -Xptxas -v report; fail on
+    any spill (the kernel keeps its accumulators in registers)."""
+    from superslam_tpu_torch.ops.cuda.conv import mma_layout
+
+    with open(os.path.join(build_dir, "nvcc.log")) as f:
+        lines = f.read().splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or "conv_pair_mma_kernel" not in line:
+            continue
+        block = []
+        for nxt in lines[i + 1 : i + 8]:
+            if "Compiling entry function" in nxt:
+                break
+            block.append(nxt)
+        text = " ".join(block)
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        static = re.search(r"(\d+) bytes smem", text)
+        if not regs or not spill:
+            fail(f"nvcc.log: no resource report after {line.strip()}")
+        found += 1
+        entry = line.split("'")[1]
+        print(
+            f"build conv_pair_mma: {entry}: {regs.group(1)} registers, spill "
+            f"stores {spill.group(1)} B, spill loads {spill.group(2)} B, shared memory "
+            f"{mma_layout('x')['smem_bytes']} B dynamic + {static.group(1) if static else 0} B static"
+        )
+        if int(spill.group(1)) or int(spill.group(2)):
+            fail("conv_pair_mma: the kernel spills registers")
+    if found != 4:
+        fail(f"nvcc.log: {found} conv_pair_mma_kernel instantiations reported, want 4")
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
@@ -934,6 +973,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s)")
+    report_mma_build(_build.BUILD_DIR)
     # The host estimator's C++ core (csrc/, built with make at first use):
     # build it here so the build is set-up, not part of the timed loop.
     from superslam_tpu_torch import native

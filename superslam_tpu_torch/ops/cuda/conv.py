@@ -7,9 +7,12 @@ image) and ``::conv_pair_chw`` (CIN = 64), both with ``pool_vert=True``
 plus the XLA ``hpool_canvas`` that finishes their pool. ``conv_pair`` is
 the same two convs without the pool (the same two JAX functions without
 ``pool_vert``), and ``conv3x3`` one 3x3 SAME conv + bias + optional ReLU
-(``::conv3x3_chw``); the stage profiler and the tests call these two. All
-kernels are in ``conv_pair_pool.cu``; its header says what bounds them on
-the H100 and how the design answers that.
+(``::conv3x3_chw``); the stage profiler and the tests call these two. The
+64-channel pair (pooled and not) is ``conv_pair_mma.cu``, on the mma.sync
+engine of ``conv_mma.cuh`` whose shared-memory address model
+``mma_layout`` below mirrors; the gray-image pair and ``conv3x3`` are in
+``conv_pair_pool.cu``. Each header says what bounds its kernels on the H100
+and how the design answers that.
 
 The TPU kernels work on a padded "canvas" (PAD_ROWS zero rows, lanes
 padded to 128, the image width passed beside it): that is its compiler's
@@ -88,7 +91,8 @@ def conv3x3_plain(
 def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype):
     """Checks shared by the two conv pairs; returns the kernel's operands
     (input, conv_a weights, f32 biases, tap-major conv_b weights) and the
-    output type."""
+    output type. CIN = 64 takes both weights as (tap, co, ci) and every
+    operand its cp.async copies read 16-byte aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if compute_dtype != torch.bfloat16:
@@ -104,10 +108,14 @@ def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype):
     if cin == 1:
         xk = x.float().contiguous()
         wak = wa.float().reshape(C, 9).contiguous()
+        wbk = _tap_major(wb)
     else:
         xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        wak = _tap_major(wa)
-    return xk, wak, ba.float().contiguous(), _tap_major(wb), bb.float().contiguous(), out_dtype
+        wak, wbk = _tap_out_in(wa), _tap_out_in(wb)
+        if xk.data_ptr() % 16:
+            raise ValueError(f"{name}: the input must be 16-byte aligned (storage offset "
+                             f"{xk.storage_offset()})")
+    return xk, wak, ba.float().contiguous(), wbk, bb.float().contiguous(), out_dtype
 
 
 def conv_pair_pool(
@@ -227,7 +235,57 @@ def conv3x3(
 
 
 def _tap_major(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, ci, co), the kernel's GEMM B
-    operand (K = tap x ci rows, N = co columns)."""
+    """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, ci, co), the WMMA kernels'
+    GEMM B operand (K = tap x ci rows, N = co columns)."""
     co, ci = w.shape[0], w.shape[1]
     return w.permute(2, 3, 1, 0).reshape(9, ci, co).to(torch.bfloat16).contiguous()
+
+
+def _tap_out_in(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, co, ci), the mma.sync
+    kernel's B operand: one 128-byte row of input channels per output
+    channel, as ldmatrix loads it without transposing."""
+    co, ci = w.shape[0], w.shape[1]
+    return w.permute(2, 3, 0, 1).reshape(9, co, ci).to(torch.bfloat16).contiguous()
+
+
+def mma_layout(tile: str) -> dict:
+    """The shared-memory address model of ``conv_pair_mma.cu`` (engine in
+    ``conv_mma.cuh``), for one of its three swizzled regions:
+
+    - ``"x"``: the input tile (20 + 1 overrun rows of pitch 36 pixels) that
+      conv_a's 41 runs read;
+    - ``"a"``: the conv_a tile (18 + 1 rows of pitch 34) that conv_b's 34
+      runs read;
+    - ``"w"``: the weight ring, 3 slots ("rows") of 32 output-channel rows
+      ("pitch"); it has no runs or taps.
+
+    Keys: ``offset`` and ``nbytes`` (the region in the block's dynamic
+    shared memory), ``pitch`` and ``rows`` (pixels), ``run_starts`` (first
+    pixel of each 16-pixel run), ``tap_offsets`` (pixel offset of tap ky*3+kx),
+    ``valid`` (rows x columns of the tile its stage's epilogue keeps; the
+    conv_a tile's for ``"x"``, the output tile's for ``"a"``),
+    ``smem_bytes`` (the whole block's); ``address(p, j)``: the byte offset
+    in the region of 16-byte chunk ``j`` (channels 8j..8j+7) of pixel or
+    weight row ``p``, stored at chunk ``j ^ (p & 7)`` of a 128-byte row; and
+    ``lane(l, ks)``: the (row, chunk) that lane ``l`` hands ``ldmatrix.x4``
+    at k-step ``ks`` (A: row of the run; B: weight row of the 16-row half).
+    """
+    th, tw, pix = 16, 32, 128
+    x_bytes, a_bytes, slot = 21 * (tw + 4) * pix, 19 * (tw + 2) * pix, 32 * pix
+    regions = {
+        "x": dict(offset=0, pitch=tw + 4, rows=21, runs=41, valid=(th + 2, tw + 2)),
+        "a": dict(offset=x_bytes, pitch=tw + 2, rows=19, runs=34, valid=(th, tw)),
+        "w": dict(offset=x_bytes + a_bytes, pitch=slot // pix, rows=3, runs=0, valid=None),
+    }
+    r = dict(regions[tile])
+    r["nbytes"] = r["pitch"] * r["rows"] * pix
+    r["run_starts"] = [16 * k for k in range(r.pop("runs"))]
+    r["tap_offsets"] = [] if tile == "w" else [ky * r["pitch"] + kx for ky in range(3) for kx in range(3)]
+    r["smem_bytes"] = x_bytes + a_bytes + 3 * slot
+    r["address"] = lambda p, j: p * pix + ((j ^ p) & 7) * 16
+    if tile == "w":
+        r["lane"] = lambda l, ks: (8 * (l >> 4) + (l & 7), 2 * ks + ((l >> 3) & 1))
+    else:
+        r["lane"] = lambda l, ks: (l & 15, 2 * ks + (l >> 4))
+    return r

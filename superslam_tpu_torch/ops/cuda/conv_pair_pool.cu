@@ -1,17 +1,20 @@
-// conv_pair_pool: maxpool2x2(relu(conv_b(relu(conv_a(x) + ba)) + bb)).
+// conv_pair_pool: maxpool2x2(relu(conv_b(relu(conv_a(x) + ba)) + bb)) for
+// the gray image (CIN = 1).
 //
-// Replaces superslam_tpu/ops/pallas/conv.py::conv1a1b_chw and
-// ::conv_pair_chw with pool_vert=True (kernel body _conv_pair_pool_kernel)
-// plus the XLA hpool_canvas that finishes their pool. Both convs are 3x3
-// SAME with zero padding; conv_a maps CIN -> 64 channels, conv_b 64 -> 64.
+// Replaces superslam_tpu/ops/pallas/conv.py::conv1a1b_chw with
+// pool_vert=True (kernel body _conv_pair_pool_kernel) plus the XLA
+// hpool_canvas that finishes its pool. Both convs are 3x3 SAME with zero
+// padding; conv_a maps 1 -> 64 channels, conv_b 64 -> 64. The 64-channel
+// pair (conv_pair_chw) runs on the mma.sync engine in conv_pair_mma.cu; the
+// exported entry points below send cin == 64 there.
 //
 // Bound on the H100: operations. SuperPoint's conv1a+conv1b pair at the
 // KITTI shape (2 x 384 x 1248) is ~71 GFLOP against ~4 MB of image in and
-// ~20 MB of pooled map out; conv2a+conv2b at half resolution is ~35 GFLOP.
+// ~20 MB of pooled map out.
 // What the design does about it:
-//   * conv_b (and conv_a when CIN = 64) run on the tensor cores as implicit
-//     GEMMs through WMMA bf16 16x16x16 fragments with f32 accumulation;
-//     no im2col is materialised anywhere.
+//   * conv_b runs on the tensor cores as an implicit GEMM through WMMA bf16
+//     16x16x16 fragments with f32 accumulation; no im2col is materialised
+//     anywhere. conv_a (one input channel) is nine FMAs per output.
 //   * a block owns a 16-row x 32-column conv tile. The conv_a map of the
 //     tile plus its one-pixel halo (18 x 34 x 64 bf16) lives only in shared
 //     memory, and the 2x2 pool runs in the epilogue (shared-memory atomic
@@ -22,19 +25,16 @@
 //     constant offset into shared memory and one fragment load. The
 //     columns that wrap past the tile edge are computed and discarded
 //     (6-7% extra work) instead of being special-cased.
-// Later work (ROADMAP queue 2): wgmma + TMA, swizzled shared memory (the
-// 128-byte pixel pitch makes the fragment loads bank-conflicted), and more
-// than one block per SM.
+// Later work (ROADMAP queue 2): move conv_b onto conv_mma.cuh's engine
+// (swizzled tile, mma.sync, cp.async weight ring), as conv_pair_mma.cu did
+// for the 64-channel pair.
 //
-// The same file holds the three conv kernels that only the stage profiler
+// The same file holds the two conv kernels that only the stage profiler
 // and the tests call:
-//   * conv_pair (POOL = false): the unpooled conv1a1b_chw and conv_pair_chw
-//     (kernel bodies _conv1a1b_kernel and _conv_pair_kernel). The same
-//     kernel with the pool epilogue replaced by stores of the conv_b tile
-//     to device memory, 16 channels (32 bytes in bf16) at a time. Bound:
-//     operations, as the pooled pair (the full-resolution output is 61 MB
-//     at (2, 64, 192, 624) bf16, 0.018 ms of bytes under 0.036 ms of
-//     operations).
+//   * conv_pair (POOL = false): the unpooled conv1a1b_chw (kernel body
+//     _conv1a1b_kernel). The same kernel with the pool epilogue replaced by
+//     stores of the conv_b tile to device memory, 16 channels (32 bytes in
+//     bf16) at a time. Bound: operations, as the pooled pair.
 //   * conv3x3: conv3x3_chw (_conv_kernel), one 3x3 SAME conv + f32 bias +
 //     optional ReLU, CIN 1 or 64, COUT 64 or 128. CIN = 64 loads the input
 //     tile with its halo where the pair kernel keeps its conv_a tile and
@@ -43,13 +43,14 @@
 //     0.0183 ms against 17.7 GFLOP = 0.0179 ms; the only conv here that
 //     device memory, not the tensor cores, limits.
 //
-// Layouts: CIN = 1 takes f32 (B, 1, H, W); CIN = 64 takes bf16 NHWC
-// (a channels_last (B, 64, H, W) tensor). The output is NHWC (channels_last
-// (B, 64, H/2, W/2) pooled, (B, COUT, H, W) unpooled) in bf16 or f32. H and
-// W are even where the pool runs.
+// Layouts: CIN = 1 takes f32 (B, 1, H, W); conv3x3 with CIN = 64 takes bf16
+// NHWC (a channels_last (B, 64, H, W) tensor). The output is NHWC
+// (channels_last (B, 64, H/2, W/2) pooled, (B, COUT, H, W) unpooled) in bf16
+// or f32. H and W are even where the pool runs.
 #include <mma.h>
 
 #include "common.cuh"
+#include "conv_mma.cuh"
 
 using namespace nvcuda;
 
@@ -65,22 +66,12 @@ constexpr int XR = TH + 4 + 1;  // input tile rows: 20 + 1 zero row for run over
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int PH = TH / 2, PW = TW / 2;
-constexpr int NRUN_A = (18 * XP + 15) / 16;  // 41 runs cover the 18 x 34 conv_a tile
-constexpr int NRUN_B = TH * AP / 16;         // 34 runs cover the 16 x 32 conv_b tile
+constexpr int NRUN_B = TH * AP / 16;  // 34 runs cover the 16 x 32 conv_b tile
 
 constexpr size_t A_BYTES = size_t(AR) * AP * C * 2;       // 82,688
-constexpr size_t X64_BYTES = size_t(XR) * XP * C * 2;     // 96,768
-constexpr size_t POOL_BYTES = size_t(PH) * PW * C * 4;    // 32,768
+constexpr size_t POOL_BYTES = size_t(PH) * PW * C * 4;    // 32,768 (first the f32 image tile)
 constexpr size_t STAGE_BYTES = size_t(NWARPS) * 256 * 4;  // 8,192
-
-template <int CIN>
-__host__ __device__ constexpr size_t union_bytes() {
-  return CIN == 64 ? X64_BYTES : POOL_BYTES;
-}
-template <int CIN>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return A_BYTES + union_bytes<CIN>() + STAGE_BYTES;
-}
+constexpr size_t PAIR_SMEM_BYTES = A_BYTES + POOL_BYTES + STAGE_BYTES;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
@@ -112,9 +103,9 @@ __device__ __forceinline__ void run_gemm(const __nv_bfloat16* src, int base, int
 
 // POOL: the 2x2 max pool in the epilogue, out (B, H/2, W/2, 64); else the
 // conv_b tile itself, out (B, H, W, 64).
-template <int CIN, typename TOut, bool POOL>
+template <typename TOut, bool POOL>
 __global__ void __launch_bounds__(NTHREADS)
-    conv_pair_pool_kernel(const void* __restrict__ xv, const void* __restrict__ wav,
+    conv_pair_pool_kernel(const float* __restrict__ x, const float* __restrict__ wa,
                           const float* __restrict__ ba,
                           const __nv_bfloat16* __restrict__ wb,
                           const float* __restrict__ bb, TOut* __restrict__ out, int H,
@@ -122,7 +113,7 @@ __global__ void __launch_bounds__(NTHREADS)
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);
   unsigned char* u_s = smem + A_BYTES;  // input tile, then the pooled tile
-  float* stage_all = reinterpret_cast<float*>(smem + A_BYTES + union_bytes<CIN>());
+  float* stage_all = reinterpret_cast<float*>(smem + A_BYTES + POOL_BYTES);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.z;
@@ -130,11 +121,10 @@ __global__ void __launch_bounds__(NTHREADS)
   float* stage = stage_all + warp * 256;
 
   // ---- conv_a tile: a_s[(r*AP + c)*64 + co] at image (y0-1+r, x0-1+c) ----
-  if constexpr (CIN == 1) {
-    const float* x = reinterpret_cast<const float*>(xv) + size_t(b) * H * W;
-    const float* wa = reinterpret_cast<const float*>(wav);  // (64, 9)
-    float* x_s = reinterpret_cast<float*>(u_s);              // (XR, XP) f32
-    float* wa_s = x_s + XR * XP;                             // (64, 9)
+  {
+    x += size_t(b) * H * W;
+    float* x_s = reinterpret_cast<float*>(u_s);  // (XR, XP) f32
+    float* wa_s = x_s + XR * XP;                 // (64, 9)
     for (int i = tid; i < XR * XP; i += NTHREADS) {
       const int r = i / XP, c = i % XP;
       const int gy = y0 - 2 + r, gx = x0 - 2 + c;
@@ -162,47 +152,6 @@ __global__ void __launch_bounds__(NTHREADS)
       }
       *reinterpret_cast<uint4*>(a_s + size_t(pix) * C + g * 8) =
           *reinterpret_cast<const uint4*>(v8);
-    }
-  } else {
-    const __nv_bfloat16* x =
-        reinterpret_cast<const __nv_bfloat16*>(xv) + size_t(b) * H * W * C;
-    const __nv_bfloat16* wa = reinterpret_cast<const __nv_bfloat16*>(wav);
-    __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(u_s);  // (XR, XP, 64)
-    for (int i = tid; i < XR * XP * 8; i += NTHREADS) {
-      const int pix = i / 8, part = i % 8;
-      const int r = pix / XP, c = pix % XP;
-      const int gy = y0 - 2 + r, gx = x0 - 2 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < TH + 4 && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = *reinterpret_cast<const uint4*>(x + (size_t(gy) * W + gx) * C + part * 8);
-      *reinterpret_cast<uint4*>(x_s + size_t(pix) * C + part * 8) = v;
-    }
-    // The run-overrun row of the conv_a tile is read by conv_b's discarded
-    // columns only; keep it finite.
-    for (int i = tid; i < AP * C; i += NTHREADS)
-      a_s[size_t(TH + 2) * AP * C + i] = __float2bfloat16(0.0f);
-    __syncthreads();
-    // Conv_a pixel (r, c) is flat index f = r*XP + c of the input tile's
-    // pitch: its tap (ky, kx) reads input pixel f + ky*XP + kx.
-    for (int run = warp; run < NRUN_A; run += NWARPS) {
-      FragC acc[4];
-      run_gemm(x_s, run * 16, XP, wa, acc);
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        wmma::store_matrix_sync(stage, acc[nb], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int f = run * 16 + e / 16, co = nb * 16 + e % 16;
-          const int r = f / XP, c = f % XP;
-          if (r < TH + 2 && c < AP) {
-            const int gy = y0 - 1 + r, gx = x0 - 1 + c;
-            const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-            a_s[size_t(r * AP + c) * C + co] =
-                __float2bfloat16(inside ? fmaxf(stage[e] + ba[co], 0.0f) : 0.0f);
-          }
-        }
-        __syncwarp();
-      }
     }
   }
   __syncthreads();
@@ -249,19 +198,18 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int CIN, typename TOut, bool POOL>
+template <typename TOut, bool POOL>
 cudaError_t launch(const void* x, const void* wa, const float* ba, const void* wb,
                    const float* bb, void* out, int B, int H, int W,
                    cudaStream_t stream) {
-  auto kernel = conv_pair_pool_kernel<CIN, TOut, POOL>;
-  const size_t smem = smem_bytes<CIN>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = conv_pair_pool_kernel<TOut, POOL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(PAIR_SMEM_BYTES));
   if (err != cudaSuccess) return err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      x, wa, ba, reinterpret_cast<const __nv_bfloat16*>(wb), bb,
-      reinterpret_cast<TOut*>(out), H, W);
+  kernel<<<grid, NTHREADS, PAIR_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wa), ba,
+      static_cast<const __nv_bfloat16*>(wb), bb, static_cast<TOut*>(out), H, W);
   return cudaGetLastError();
 }
 
@@ -269,11 +217,9 @@ template <bool POOL>
 cudaError_t dispatch(const void* x, const void* wa, const float* ba, const void* wb,
                      const float* bb, void* out, int B, int cin, int H, int W, int out_f32,
                      cudaStream_t s) {
-  if (cin == 1)
-    return out_f32 ? launch<1, float, POOL>(x, wa, ba, wb, bb, out, B, H, W, s)
-                   : launch<1, __nv_bfloat16, POOL>(x, wa, ba, wb, bb, out, B, H, W, s);
-  return out_f32 ? launch<64, float, POOL>(x, wa, ba, wb, bb, out, B, H, W, s)
-                 : launch<64, __nv_bfloat16, POOL>(x, wa, ba, wb, bb, out, B, H, W, s);
+  if (cin == 64) return conv_pair_mma(x, wa, ba, wb, bb, out, B, H, W, out_f32, POOL, s);
+  return out_f32 ? launch<float, POOL>(x, wa, ba, wb, bb, out, B, H, W, s)
+                 : launch<__nv_bfloat16, POOL>(x, wa, ba, wb, bb, out, B, H, W, s);
 }
 
 // ---- conv3x3: one 3x3 SAME conv + bias (+ ReLU) to device memory ----
@@ -378,9 +324,10 @@ cudaError_t launch_conv3x3(const void* x, const void* w, const float* bias, void
 }  // namespace
 
 // x: CIN = 1 -> f32 (B, H, W); CIN = 64 -> bf16 (B, H, W, 64).
-// wa: CIN = 1 -> f32 (64, 9); CIN = 64 -> bf16 (9, 64, 64) [tap][ci][co].
-// wb: bf16 (9, 64, 64) [tap][ci][co]. ba, bb: f32 (64,).
-// out: (B, H/2, W/2, 64), f32 if out_f32 else bf16.
+// wa: CIN = 1 -> f32 (64, 9); CIN = 64 -> bf16 (9, 64, 64) [tap][co][ci].
+// wb: CIN = 1 -> bf16 (9, 64, 64) [tap][ci][co]; CIN = 64 -> [tap][co][ci].
+// ba, bb: f32 (64,). out: (B, H/2, W/2, 64), f32 if out_f32 else bf16.
+// CIN = 64 needs x, wa, wb and out 16-byte aligned (cudaErrorMisalignedAddress).
 SSL_EXPORT int ssl_conv_pair_pool(const void* x, const void* wa, const float* ba,
                                   const void* wb, const float* bb, void* out, int B,
                                   int cin, int H, int W, int out_f32, void* stream) {

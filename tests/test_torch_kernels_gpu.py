@@ -31,6 +31,7 @@ from superslam_tpu_torch.ops.cuda.conv import (
     conv_pair_pool_plain,
 )
 from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
+from superslam_tpu_torch.ops.cuda import _build
 from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
 from superslam_tpu_torch.models.lightglue import init_lightglue_params
 from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
@@ -43,44 +44,66 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("cin,h,w", [(1, 32, 96), (64, 32, 96), (64, 18, 70)])
-def test_conv_pair_pool_kernel(cuda, cin, h, w):
-    """Includes a shape that is not a multiple of the 16 x 32 tile."""
-    rng = np.random.default_rng(cin + h)
+def _pair_case(cuda, cin, b, h, w):
+    rng = np.random.default_rng(cin + b + h)
     if cin == 1:
-        x = rng.uniform(0, 1, (2, 1, h, w))
+        x = rng.uniform(0, 1, (b, 1, h, w))
     else:
-        x = np.maximum(rng.normal(size=(2, cin, h, w)), 0)
+        x = np.maximum(rng.normal(size=(b, cin, h, w)), 0)
     wa = rng.normal(size=(64, cin, 3, 3)) * (0.3 if cin == 1 else 0.1)
     ba, bb = rng.normal(size=(64,)) * 0.1, rng.normal(size=(64,)) * 0.1
     wb = rng.normal(size=(64, 64, 3, 3)) * 0.1
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wa, ba, wb, bb)]
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wa, ba, wb, bb)]
+
+
+# CIN = 64 (the mma.sync kernel): H off the 16-row tile and W off the
+# 32-column tile, W < 32, batch 1 and 3 (the grid's z), the real width.
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "cin,b,h,w",
+    [(1, 2, 32, 96), (64, 2, 32, 96), (64, 2, 18, 70), (64, 2, 34, 98), (64, 2, 16, 20),
+     (64, 1, 18, 70), (64, 3, 34, 98), (64, 2, 192, 624)],
+)
+def test_conv_pair_pool_kernel(cuda, cin, b, h, w):
+    """Includes shapes that are not a multiple of the 16 x 32 tile."""
+    args = _pair_case(cuda, cin, b, h, w)
     for out_dtype in (torch.bfloat16, torch.float32):
         got = conv_pair_pool(*args, out_dtype=out_dtype)
         ref = conv_pair_pool_plain(*args, out_dtype=out_dtype)
-        assert got.shape == ref.shape == (2, 64, h // 2, w // 2) and got.dtype == out_dtype
+        assert got.shape == ref.shape == (b, 64, h // 2, w // 2) and got.dtype == out_dtype
         assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cin,h,w", [(1, 32, 96), (64, 32, 96), (64, 17, 71)])
-def test_conv_pair_kernel(cuda, cin, h, w):
+@pytest.mark.parametrize(
+    "cin,b,h,w",
+    [(1, 2, 32, 96), (64, 2, 32, 96), (64, 2, 17, 71), (64, 2, 34, 98), (64, 2, 16, 20),
+     (64, 1, 17, 71), (64, 3, 18, 70), (64, 2, 192, 624)],
+)
+def test_conv_pair_kernel(cuda, cin, b, h, w):
     """The unpooled pair; includes odd sizes off the 16 x 32 tile."""
-    rng = np.random.default_rng(cin + h)
-    if cin == 1:
-        x = rng.uniform(0, 1, (2, 1, h, w))
-    else:
-        x = np.maximum(rng.normal(size=(2, cin, h, w)), 0)
-    wa = rng.normal(size=(64, cin, 3, 3)) * (0.3 if cin == 1 else 0.1)
-    ba, bb = rng.normal(size=(64,)) * 0.1, rng.normal(size=(64,)) * 0.1
-    wb = rng.normal(size=(64, 64, 3, 3)) * 0.1
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wa, ba, wb, bb)]
+    args = _pair_case(cuda, cin, b, h, w)
     for out_dtype in (torch.bfloat16, torch.float32):
         got = conv_pair(*args, out_dtype=out_dtype)
         ref = conv_pair_plain(*args, out_dtype=out_dtype)
-        assert got.shape == ref.shape == (2, 64, h, w) and got.dtype == out_dtype
+        assert got.shape == ref.shape == (b, 64, h, w) and got.dtype == out_dtype
         assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [True, False])
+def test_conv_pair_refuses_a_misaligned_input(cuda, pool):
+    """The mma.sync kernel's cp.async copies read 16-byte chunks: an input
+    one element off 16-byte alignment raises before any launch."""
+    _, wa, ba, wb, bb = _pair_case(cuda, 64, 1, 18, 70)
+    flat = torch.zeros(1 + 18 * 70 * 64, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(1, 18, 70, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.storage_offset() == 1
+    fn, name = (conv_pair_pool, "conv_pair") if pool else (conv_pair, "conv_pair_full")
+    before = _build.launch_counts()[name]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(x, wa, ba, wb, bb)
+    assert _build.launch_counts()[name] == before
 
 
 @pytest.mark.gpu
