@@ -11,19 +11,22 @@ In order, any failure exiting non-zero:
    ``torch.cuda.get_device_name``);
 2. builds the hand-written kernels from the sources in the checkout
    (``superslam_tpu_torch/ops/cuda/_build.py``) and the host estimator's
-   C++ core (``csrc/``), prints the build times and the mma.sync conv pair
-   kernel's registers, shared memory and spills from nvcc's report (any
-   spill fails);
+   C++ core (``csrc/``), prints the build times and the registers, shared
+   memory and spills of the mma.sync conv pair kernel's eight
+   instantiations (CIN 1 and 64, pooled or not, bf16 or f32 out) from
+   nvcc's report (any spill fails);
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
    2e-2, plus the fully-masked row against the mean of v; the fused
    LightGlue self and cross blocks: max error over max |plain| <= 2e-2 in
    bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5; the
-   unpooled conv pairs and the single conv: 2e-2 of max |plain|; the
+   unpooled conv pairs and the single conv: 2e-2 of max |plain|; the conv
+   pairs on operands prepared once give the same bits as on OIHW weights; the
    attention backward at the training shape (16, 4, 256, 64) f32 with
    ragged masks and one fully-masked batch row: dq, dk, dv within 1e-4 of
-   max |plain|), timing kernel, plain version and, where one exists, a
+   max |plain|), timing kernel (the conv pairs on prepared operands, as
+   the main path calls them), plain version and, where one exists, a
    library call as a yardstick (CUDA events, median of 20 after 3
    warm-ups);
 4. runs the port's ``SuperSLAM`` facade on 30 rendered frames at the KITTI
@@ -113,7 +116,7 @@ F32_FLOP_PER_S = 67e12
 
 KERNEL_INFO = {
     "conv1a1b": (
-        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu_torch/ops/cuda/conv_pair_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:558",
     ),
     "conv_pair": (
@@ -149,7 +152,7 @@ KERNEL_INFO = {
         "superslam_tpu/ops/pallas/conv.py:461",
     ),
     "conv1a1b_full": (
-        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu_torch/ops/cuda/conv_pair_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:580",
     ),
     "conv3x3": (
@@ -165,8 +168,9 @@ def fail(msg: str) -> None:
 
 def report_mma_build(build_dir: str) -> None:
     """Print registers, shared memory and spills of each instantiation of
-    the mma.sync conv pair kernel from nvcc's -Xptxas -v report; fail on
-    any spill (the kernel keeps its accumulators in registers)."""
+    the mma.sync conv pair kernel (CIN 1 and 64) from nvcc's -Xptxas -v
+    report; fail on any spill (the kernel keeps its accumulators in
+    registers)."""
     from superslam_tpu_torch.ops.cuda.conv import mma_layout
 
     with open(os.path.join(build_dir, "nvcc.log")) as f:
@@ -188,15 +192,17 @@ def report_mma_build(build_dir: str) -> None:
             fail(f"nvcc.log: no resource report after {line.strip()}")
         found += 1
         entry = line.split("'")[1]
+        cin = 1 if "conv_pair_mma_kernelILi1E" in entry else 64  # the mangled template argument
         print(
-            f"build conv_pair_mma: {entry}: {regs.group(1)} registers, spill "
+            f"build conv_pair_mma: CIN {cin} {entry}: {regs.group(1)} registers, spill "
             f"stores {spill.group(1)} B, spill loads {spill.group(2)} B, shared memory "
-            f"{mma_layout('x')['smem_bytes']} B dynamic + {static.group(1) if static else 0} B static"
+            f"{mma_layout('x', cin)['smem_bytes']} B dynamic + "
+            f"{static.group(1) if static else 0} B static"
         )
         if int(spill.group(1)) or int(spill.group(2)):
-            fail("conv_pair_mma: the kernel spills registers")
-    if found != 4:
-        fail(f"nvcc.log: {found} conv_pair_mma_kernel instantiations reported, want 4")
+            fail(f"conv_pair_mma: the CIN {cin} kernel spills registers")
+    if found != 8:
+        fail(f"nvcc.log: {found} conv_pair_mma_kernel instantiations reported, want 8")
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
@@ -268,6 +274,7 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         conv_pair_plain,
         conv_pair_pool,
         conv_pair_pool_plain,
+        pair_operands,
     )
     from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
     from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
@@ -298,10 +305,13 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
             flush=True,
         )
 
-    def conv_case(name, kernel, plain, library, out_shape, bnd_of):
+    def conv_case(name, kernel, plain, library, out_shape, bnd_of, prepared=None):
         """One conv kernel against its plain version (2e-2 of max |plain|,
         the kernel rounds its conv_a tile to bf16), timed beside the plain
-        version and the cuDNN call; returns the kernel's output."""
+        version and the cuDNN call; returns the kernel's output. With
+        ``prepared`` (the same call on operands prepared once, as the main
+        path makes it) that call must give the same bits, and its time is
+        the one recorded."""
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         if got.shape != out_shape or got.dtype != bf16:
@@ -311,7 +321,14 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         print(f"kernel {name}: max error / max |plain| = {rel:.3g} (limit 2e-2)")
         if not rel <= 2e-2:
             fail(f"{name}: relative error {rel} > 2e-2")
-        record(name, err, time_ms(torch, kernel), time_ms(torch, plain),
+        timed = kernel
+        if prepared is not None:
+            if not torch.equal(prepared(), got):
+                fail(f"{name}: prepared operands give another result than OIHW weights")
+            print(f"kernel {name}: with OIHW weights laid out in the call "
+                  f"{time_ms(torch, kernel):.4f} ms")
+            timed = prepared
+        record(name, err, time_ms(torch, timed), time_ms(torch, plain),
                time_ms(torch, library), bnd_of(got))
         return got
 
@@ -320,6 +337,7 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         pre = ("conv1a", "conv1b") if cin == 1 else ("conv2a", "conv2b")
         wa, ba = sp_params[f"{pre[0]}.weight"], sp_params[f"{pre[0]}.bias"]
         wb, bb = sp_params[f"{pre[1]}.weight"], sp_params[f"{pre[1]}.bias"]
+        ops = pair_operands(wa, ba, wb, bb)
         if cin == 1:
             x = torch.from_numpy(rng.uniform(0, 1, (2, 1, h, w)).astype(np.float32)).to(dev)
         xl = x.to(bf16).contiguous(memory_format=torch.channels_last)
@@ -341,12 +359,14 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
             name, lambda: conv_pair_pool(x, wa, ba, wb, bb),
             lambda: conv_pair_pool_plain(x, wa, ba, wb, bb),
             lambda: F.max_pool2d(library_pair(), 2), (2, 64, h // 2, w // 2), pair_bound,
+            prepared=lambda: conv_pair_pool(x, wa, ba, wb, bb, operands=ops),
         )
         # The same pair without the pool, and (at conv2a) one conv alone, on
         # the same input: what the stage profiler times.
         conv_case(
             name + "_full", lambda: conv_pair(x, wa, ba, wb, bb),
             lambda: conv_pair_plain(x, wa, ba, wb, bb), library_pair, (2, 64, h, w), pair_bound,
+            prepared=lambda: conv_pair(x, wa, ba, wb, bb, operands=ops),
         )
         if cin == 64:
             conv_case(

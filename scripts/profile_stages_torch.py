@@ -10,7 +10,8 @@ lengths to cancel its host relay; events on the card's own stream need no
 such trick.)
 
 Stages:
-  dense_pallas    superpoint_dense on the kernel route (conv pairs + NMS)
+  dense_pallas    superpoint_dense on the kernel route (conv pairs + NMS),
+                  on prepare_superpoint_params' operands as the pipeline
   dense_xla       the same function with cuDNN convs everywhere and the
                   plain NMS, composed here from the kernels' plain versions
                   and the port's tail: a yardstick, not a path of the port
@@ -127,6 +128,7 @@ def run_stages(
 
     img = dev(rng.uniform(0, 1, (2, height, width)).astype(np.float32))
     sp = spm.init_superpoint_params(0, device=device)
+    sp_ready = spm.prepare_superpoint_params(sp, device)  # + the conv pairs' operands
     lg = lgm.init_lightglue_params(0, device=device)
     lg_cast = lgm.cast_compute_params(lg)  # the unfused route's weights
     lg_ready = lgm.prepare_params(lg, device)  # + the fused blocks' operands
@@ -163,7 +165,7 @@ def run_stages(
 
     self_prefix, cross_prefix = "transformers.0.self_attn", "transformers.0.cross_attn"
     stages = {
-        "dense_pallas": lambda: spm.superpoint_dense(sp, img),
+        "dense_pallas": lambda: spm.superpoint_dense(sp_ready, img),
         "dense_xla": dense_xla,
         "conv1a1b": lambda: conv_pair(img[:, None], *pair("conv1")),
         "conv2": lambda: conv3x3(half, sp["conv2a.weight"], sp["conv2a.bias"]),

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..core.interfaces import Features
-from ..models.superpoint import superpoint_extract
+from ..models.superpoint import prepare_superpoint_params, superpoint_extract
 from ..utils.device import resolve_device
 from ..utils.env import env_flag
 from ..utils.profiler import profile_scope
@@ -46,7 +46,7 @@ class SuperPointExtractor:
         select_keypoints); the default is torch.gather, as the JAX
         package's default is its XLA gather."""
         self.device = resolve_device(device)
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.params = prepare_superpoint_params(params, self.device)
         self.width = int(width)
         self.height = int(height)
         self.pad_w = pad_to_multiple(self.width)

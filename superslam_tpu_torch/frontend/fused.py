@@ -6,7 +6,7 @@ Port of ``superslam_tpu/frontend/fused.py``: wraps
 from the frame that became a keyframe) and the packed-block decode. It
 produces the (StereoFrame, frame-to-keyframe MatchResult) pair the
 estimator consumes. The LightGlue checkpoint is cast and the fused blocks'
-kernel operands are prepared once at construction.
+and the conv pairs' kernel operands are prepared once at construction.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ..core.frame import StereoFrame
 from ..core.interfaces import MatchResult
 from ..geometry.stereo_camera import StereoCalib
 from ..models.lightglue import prepare_params
+from ..models.superpoint import prepare_superpoint_params
 from ..ops.frontend_step import PACK_SCALE, fused_stereo_step
 from ..utils.device import resolve_device
 from ..utils.profiler import profile_scope
@@ -77,7 +78,7 @@ class FusedStereoPipeline:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        self.sp_params = {k: v.to(self.device) for k, v in sp_params.items()}
+        self.sp_params = prepare_superpoint_params(sp_params, self.device)
         self.lg_params = prepare_params(lg_params, self.device)
         self.calib = calib
         self.width = int(width)

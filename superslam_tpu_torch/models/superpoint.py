@@ -8,7 +8,9 @@ descriptor gather and the optional 3x3 parabolic sub-pixel refinement.
 
 Routing, as on the TPU's default route:
 - conv1a+conv1b+pool and conv2a+conv2b+pool go through the hand-written
-  conv-pair kernel (``ops/cuda/conv.py``; its plain version on CPU);
+  conv-pair kernel (``ops/cuda/conv.py``; its plain version on CPU), with
+  the kernel operands that ``prepare_superpoint_params`` makes once when the
+  parameters carry them;
 - conv3a..the heads are ``F.conv2d`` in the compute dtype, as the JAX
   package leaves them to XLA;
 - NMS goes through the hand-written kernel (``ops/cuda/nms.py``);
@@ -17,7 +19,8 @@ Routing, as on the TPU's default route:
   ``use_kernel=True``, as the JAX package's ``use_pallas``.
 
 Parameters are a flat dict of torch-layout tensors (OIHW convs) keyed by
-the torch state-dict names. The public functions keep the JAX package's
+the torch state-dict names (plus the derived ``<pair>.__kernel`` entries of
+``prepare_superpoint_params``). The public functions keep the JAX package's
 layouts: scores (B, H, W), descriptor grid NHWC (B, H/8, W/8, 256).
 """
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.conv import conv_pair_pool
+from ..ops.cuda.conv import conv_pair_pool, pair_operands
 from ..ops.cuda.gather import gather_normalize, gather_normalize_plain
 from ..ops.cuda.nms import nms_suppress
 
@@ -35,6 +38,27 @@ Params = dict[str, torch.Tensor]
 
 DESCRIPTOR_DIM = 256
 CELL = 8  # stride of the descriptor grid
+KERNEL_KEY = "__kernel"  # suffix of a conv pair's prepared kernel operands
+_PAIRS = ("conv1", "conv2")
+
+
+def _pair_weights(params: Params, pair: str) -> list[torch.Tensor]:
+    """OIHW weight and bias of conv ``<pair>a``, then of ``<pair>b``."""
+    return [params[f"{pair}{ab}.{kind}"] for ab in "ab" for kind in ("weight", "bias")]
+
+
+def prepare_superpoint_params(params: Params, device) -> Params:
+    """What an extractor or pipeline does to a checkpoint once at
+    construction: move it to ``device`` and add each conv pair's kernel
+    operands (``ops/cuda/conv.py::pair_operands``: conv1a f32 (64, 9);
+    conv1b, conv2a and conv2b bf16 (tap, co, ci); the four biases contiguous
+    f32) as a tuple under ``conv1.__kernel`` and ``conv2.__kernel``, so the
+    conv wrappers launch their kernels alone. The derived entries are not
+    tensors, and the savers and ``to_jax_params`` leave them out."""
+    out = {k: v.to(device) for k, v in params.items() if not k.endswith(KERNEL_KEY)}
+    for pair in _PAIRS:
+        out[f"{pair}.{KERNEL_KEY}"] = pair_operands(*_pair_weights(out, pair))
+    return out
 
 
 def _conv(x: torch.Tensor, params: Params, name: str, dtype) -> torch.Tensor:
@@ -67,15 +91,12 @@ def _tail(params: Params, x: torch.Tensor, compute_dtype):
 def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
     """VGG encoder + both heads at descriptor-grid resolution: the two conv
     pairs through the hand-written kernel, then ``_tail``."""
-    p = params
-    x = conv_pair_pool(
-        image[:, None], p["conv1a.weight"], p["conv1a.bias"], p["conv1b.weight"],
-        p["conv1b.bias"], compute_dtype=compute_dtype,
-    )
-    x = conv_pair_pool(
-        x, p["conv2a.weight"], p["conv2a.bias"], p["conv2b.weight"], p["conv2b.bias"],
-        compute_dtype=compute_dtype,
-    )
+    x = image[:, None]
+    for pair in _PAIRS:
+        x = conv_pair_pool(
+            x, *_pair_weights(params, pair), compute_dtype=compute_dtype,
+            operands=params.get(f"{pair}.{KERNEL_KEY}"),
+        )
     return _tail(params, x, compute_dtype)
 
 

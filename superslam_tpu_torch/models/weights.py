@@ -10,10 +10,11 @@ package holds the same parameters as HWIO convs and (in, out) linears;
 ``save_params`` writes the committed format, so a checkpoint trained by
 either package loads in the other.
 
-The fused LightGlue blocks need nothing more from a checkpoint: their
-kernel operands derive from this same flat dict
-(``ops/cuda/lightglue_layer.py::augment_fused_layer_params``, called once
-by the matcher and the pipeline).
+The fused LightGlue blocks and SuperPoint's conv pairs need nothing more
+from a checkpoint: their kernel operands derive from this same flat dict
+(``ops/cuda/lightglue_layer.py::augment_fused_layer_params`` and
+``models/superpoint.py::prepare_superpoint_params``, called once by the
+matcher, the extractor and the pipeline).
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def to_jax_params(params: Params) -> dict[str, np.ndarray]:
     """The port's torch-layout dict -> a JAX-package parameter dict of f32
     numpy arrays (OIHW -> HWIO, (out, in) -> (in, out)): the inverse of
     ``from_jax_params``. The prepared operands of the fused LightGlue blocks
-    (``__fused`` keys) are derived, not parameters, and are left out."""
+    (``__fused`` keys) and of SuperPoint's conv pairs (``__kernel`` keys) are
+    derived, not parameters, and are left out."""
     out: dict[str, np.ndarray] = {}
     for name, t in params.items():
         if not isinstance(t, torch.Tensor):
@@ -72,7 +74,8 @@ def to_jax_params(params: Params) -> dict[str, np.ndarray]:
 def save_params(params: Params, path: str, dtype: torch.dtype = torch.float16) -> None:
     """Write the port's dict as a torch-layout safetensors checkpoint (no
     transposes; fp16 by default, as the committed checkpoints and the JAX
-    package's ``save_params_torch_layout``)."""
+    package's ``save_params_torch_layout``). Derived kernel operands (lists
+    and tuples of tensors) are left out."""
     from safetensors.torch import save_file
 
     save_file(

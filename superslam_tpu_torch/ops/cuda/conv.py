@@ -7,12 +7,18 @@ image) and ``::conv_pair_chw`` (CIN = 64), both with ``pool_vert=True``
 plus the XLA ``hpool_canvas`` that finishes their pool. ``conv_pair`` is
 the same two convs without the pool (the same two JAX functions without
 ``pool_vert``), and ``conv3x3`` one 3x3 SAME conv + bias + optional ReLU
-(``::conv3x3_chw``); the stage profiler and the tests call these two. The
-64-channel pair (pooled and not) is ``conv_pair_mma.cu``, on the mma.sync
-engine of ``conv_mma.cuh`` whose shared-memory address model
-``mma_layout`` below mirrors; the gray-image pair and ``conv3x3`` are in
-``conv_pair_pool.cu``. Each header says what bounds its kernels on the H100
-and how the design answers that.
+(``::conv3x3_chw``); the stage profiler and the tests call these two. Both
+pairs (CIN 1 and 64, pooled and not) are ``conv_pair_mma.cu``, on the
+mma.sync engine of ``conv_mma.cuh`` whose shared-memory address model
+``mma_layout`` below mirrors; ``conv3x3`` is in ``conv_pair_pool.cu`` (WMMA).
+Each header says what bounds its kernels on the H100 and how the design
+answers that.
+
+The pair kernels take their weights in their own layout (``pair_operands``).
+The wrappers accept OIHW weights and lay them out on every call, or take the
+operands prepared once (``operands=``, as
+``models/superpoint.py::prepare_superpoint_params`` keeps them) and then
+launch the kernel alone.
 
 The TPU kernels work on a padded "canvas" (PAD_ROWS zero rows, lanes
 padded to 128, the image width passed beside it): that is its compiler's
@@ -88,11 +94,32 @@ def conv3x3_plain(
     return (F.relu(y) if relu else y).to(out_dtype or cdt)
 
 
-def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype):
-    """Checks shared by the two conv pairs; returns the kernel's operands
-    (input, conv_a weights, f32 biases, tap-major conv_b weights) and the
-    output type. CIN = 64 takes both weights as (tap, co, ci) and every
-    operand its cp.async copies read 16-byte aligned."""
+def pair_operands(wa, ba, wb, bb) -> tuple[torch.Tensor, ...]:
+    """The pair kernel's weight operands from OIHW weights: conv_a as f32
+    (64, 9) for CIN = 1 or bf16 (tap, co, ci) for CIN = 64, conv_b as bf16
+    (tap, co, ci), both biases as contiguous f32."""
+    wak = wa.float().reshape(C, 9).contiguous() if wa.shape[1] == 1 else _tap_out_in(wa)
+    return wak, ba.float().contiguous(), _tap_out_in(wb), bb.float().contiguous()
+
+
+def _check_operands(name: str, cin: int, device, operands) -> None:
+    """Prepared operands must be what ``pair_operands`` makes, on the input's
+    device: the kernel reads them as raw pointers."""
+    wa_spec = ((C, 9), torch.float32) if cin == 1 else ((9, C, C), torch.bfloat16)
+    specs = (wa_spec, ((C,), torch.float32), ((9, C, C), torch.bfloat16), ((C,), torch.float32))
+    if len(operands) != 4 or not all(
+        tuple(t.shape) == shape and t.dtype == dtype and t.device == device and t.is_contiguous()
+        for t, (shape, dtype) in zip(operands, specs)
+    ):
+        got = [(tuple(t.shape), t.dtype, str(t.device)) for t in operands]
+        raise ValueError(f"{name}: prepared operands {got} are not pair_operands' for CIN {cin}")
+
+
+def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype, operands):
+    """Checks shared by the two conv pairs; returns the kernel's input, its
+    weight operands (``operands`` if given, else ``pair_operands``) and the
+    output type. CIN = 64 needs its input 16-byte aligned (the kernel's
+    cp.async copies)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if compute_dtype != torch.bfloat16:
@@ -105,17 +132,18 @@ def _pair_operands(name: str, x, wa, ba, wb, bb, out_dtype, compute_dtype):
         raise ValueError(f"{name}: unsupported input shape {tuple(x.shape)}")
     if tuple(wa.shape) != (C, cin, 3, 3) or tuple(wb.shape) != (C, C, 3, 3):
         raise ValueError(f"{name}: weights {tuple(wa.shape)}, {tuple(wb.shape)}")
+    if operands is None:
+        operands = pair_operands(wa, ba, wb, bb)
+    else:
+        _check_operands(name, cin, x.device, operands)
     if cin == 1:
         xk = x.float().contiguous()
-        wak = wa.float().reshape(C, 9).contiguous()
-        wbk = _tap_major(wb)
     else:
         xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        wak, wbk = _tap_out_in(wa), _tap_out_in(wb)
         if xk.data_ptr() % 16:
             raise ValueError(f"{name}: the input must be 16-byte aligned (storage offset "
                              f"{xk.storage_offset()})")
-    return xk, wak, ba.float().contiguous(), wbk, bb.float().contiguous(), out_dtype
+    return xk, operands, out_dtype
 
 
 def conv_pair_pool(
@@ -126,16 +154,19 @@ def conv_pair_pool(
     bb: torch.Tensor,
     out_dtype: torch.dtype | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    operands: tuple[torch.Tensor, ...] | None = None,
 ) -> torch.Tensor:
     """(B, CIN, H, W) -> (B, 64, H/2, W/2); CIN in {1, 64}, H and W even.
 
-    Weights are OIHW (64, CIN, 3, 3) and (64, 64, 3, 3). On CUDA the output
-    is a channels_last tensor (NHWC in memory) in ``out_dtype`` (bf16 or
-    f32; default compute_dtype), ready for the next conv."""
+    Weights are OIHW (64, CIN, 3, 3) and (64, 64, 3, 3); ``operands``, if
+    given, is ``pair_operands`` of them, prepared once (the CPU path reads
+    the OIHW weights). On CUDA the output is a channels_last tensor (NHWC in
+    memory) in ``out_dtype`` (bf16 or f32; default compute_dtype), ready for
+    the next conv."""
     if x.device.type == "cpu":
         return conv_pair_pool_plain(x, wa, ba, wb, bb, out_dtype, compute_dtype)
-    xk, wak, bak, wbk, bbk, out_dtype = _pair_operands(
-        "conv_pair_pool", x, wa, ba, wb, bb, out_dtype, compute_dtype
+    xk, (wak, bak, wbk, bbk), out_dtype = _pair_operands(
+        "conv_pair_pool", x, wa, ba, wb, bb, out_dtype, compute_dtype, operands
     )
     b, cin, h, w = x.shape
     if h % 2 or w % 2:
@@ -164,13 +195,14 @@ def conv_pair(
     bb: torch.Tensor,
     out_dtype: torch.dtype | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    operands: tuple[torch.Tensor, ...] | None = None,
 ) -> torch.Tensor:
     """relu(conv_b(relu(conv_a(x) + ba)) + bb), no pool: (B, CIN, H, W) ->
     (B, 64, H, W); CIN in {1, 64}. Operands and output as ``conv_pair_pool``."""
     if x.device.type == "cpu":
         return conv_pair_plain(x, wa, ba, wb, bb, out_dtype, compute_dtype)
-    xk, wak, bak, wbk, bbk, out_dtype = _pair_operands(
-        "conv_pair", x, wa, ba, wb, bb, out_dtype, compute_dtype
+    xk, (wak, bak, wbk, bbk), out_dtype = _pair_operands(
+        "conv_pair", x, wa, ba, wb, bb, out_dtype, compute_dtype, operands
     )
     b, cin, h, w = x.shape
     out = torch.empty(
@@ -235,7 +267,7 @@ def conv3x3(
 
 
 def _tap_major(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, ci, co), the WMMA kernels'
+    """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, ci, co), the WMMA conv3x3's
     GEMM B operand (K = tap x ci rows, N = co columns)."""
     co, ci = w.shape[0], w.shape[1]
     return w.permute(2, 3, 1, 0).reshape(9, ci, co).to(torch.bfloat16).contiguous()
@@ -243,49 +275,73 @@ def _tap_major(w: torch.Tensor) -> torch.Tensor:
 
 def _tap_out_in(w: torch.Tensor) -> torch.Tensor:
     """OIHW (co, ci, ky, kx) -> bf16 (ky*3+kx, co, ci), the mma.sync
-    kernel's B operand: one 128-byte row of input channels per output
+    kernels' B operand: one 128-byte row of input channels per output
     channel, as ldmatrix loads it without transposing."""
     co, ci = w.shape[0], w.shape[1]
     return w.permute(2, 3, 0, 1).reshape(9, co, ci).to(torch.bfloat16).contiguous()
 
 
-def mma_layout(tile: str) -> dict:
-    """The shared-memory address model of ``conv_pair_mma.cu`` (engine in
-    ``conv_mma.cuh``), for one of its three swizzled regions:
+# conv_pair_mma.cu's NPASS1: the CIN = 1 pair's conv_b passes over the 64
+# output channels (one pass: 64-row ring slots).
+GRAY_PASSES = 1
 
-    - ``"x"``: the input tile (20 + 1 overrun rows of pitch 36 pixels) that
-      conv_a's 41 runs read;
+
+def mma_layout(tile: str, cin: int = 64) -> dict:
+    """The shared-memory address model of ``conv_pair_mma.cu`` (engine in
+    ``conv_mma.cuh``), for one of its three regions and the pair's CIN:
+
+    - ``"x"``: the input region. CIN = 64: the input tile (20 + 1 overrun
+      rows of pitch 36 pixels) that conv_a's 41 runs read. CIN = 1: the f32
+      image tile (20 rows of pitch 36, 4-byte pixels, not swizzled) that the
+      conv_a prologue reads at its nine taps;
     - ``"a"``: the conv_a tile (18 + 1 rows of pitch 34) that conv_b's 34
       runs read;
     - ``"w"``: the weight ring, 3 slots ("rows") of 32 output-channel rows
-      ("pitch"); it has no runs or taps.
+      ("pitch"; 64 for CIN = 1 in one pass); it has no runs or taps.
 
-    Keys: ``offset`` and ``nbytes`` (the region in the block's dynamic
-    shared memory), ``pitch`` and ``rows`` (pixels), ``run_starts`` (first
-    pixel of each 16-pixel run), ``tap_offsets`` (pixel offset of tap ky*3+kx),
-    ``valid`` (rows x columns of the tile its stage's epilogue keeps; the
-    conv_a tile's for ``"x"``, the output tile's for ``"a"``),
-    ``smem_bytes`` (the whole block's); ``address(p, j)``: the byte offset
-    in the region of 16-byte chunk ``j`` (channels 8j..8j+7) of pixel or
-    weight row ``p``, stored at chunk ``j ^ (p & 7)`` of a 128-byte row; and
-    ``lane(l, ks)``: the (row, chunk) that lane ``l`` hands ``ldmatrix.x4``
-    at k-step ``ks`` (A: row of the run; B: weight row of the 16-row half).
+    Keys: ``offset`` and ``region`` (the region in the block's dynamic
+    shared memory), ``nbytes`` (what the tile occupies of it), ``pitch`` and
+    ``rows`` (pixels), ``pixel_bytes``, ``run_starts`` (first pixel of each
+    16-pixel run), ``tap_offsets`` (pixel offset of tap ky*3+kx), ``valid``
+    (rows x columns of the tile its stage keeps; the conv_a tile's for
+    ``"x"``, the output tile's for ``"a"``), ``smem_bytes`` (the whole
+    block's); ``address(p, j)``: the byte offset in the region of 16-byte
+    chunk ``j`` (channels 8j..8j+7) of pixel or weight row ``p``, stored at
+    chunk ``j ^ (p & 7)`` of a 128-byte row (CIN = 1's image tile: pixel
+    ``p``'s 4 bytes, ``j`` = 0); ``lane(l, ks)``: the (row, chunk) that lane
+    ``l`` hands ``ldmatrix.x4`` at k-step ``ks`` (A: row of the run; B:
+    weight row of the 16-row group). CIN = 1's ``"a"`` adds
+    ``prologue(t, k)``: the (pixel, chunk) of the conv_a tile that thread
+    ``t`` computes and stores as its ``k``-th item, for pixels below
+    ``prologue_pixels``.
     """
     th, tw, pix = 16, 32, 128
-    x_bytes, a_bytes, slot = 21 * (tw + 4) * pix, 19 * (tw + 2) * pix, 32 * pix
+    slot_rows = 64 // GRAY_PASSES if cin == 1 else 32
+    x_bytes, a_bytes, slot = 21 * (tw + 4) * pix, 19 * (tw + 2) * pix, slot_rows * pix
     regions = {
-        "x": dict(offset=0, pitch=tw + 4, rows=21, runs=41, valid=(th + 2, tw + 2)),
-        "a": dict(offset=x_bytes, pitch=tw + 2, rows=19, runs=34, valid=(th, tw)),
-        "w": dict(offset=x_bytes + a_bytes, pitch=slot // pix, rows=3, runs=0, valid=None),
+        "x": dict(offset=0, region=x_bytes, pitch=tw + 4, rows=21, runs=41,
+                  valid=(th + 2, tw + 2)),
+        "a": dict(offset=x_bytes, region=a_bytes, pitch=tw + 2, rows=19, runs=34, valid=(th, tw)),
+        "w": dict(offset=x_bytes + a_bytes, region=3 * slot, pitch=slot_rows, rows=3, runs=0,
+                  valid=None),
     }
     r = dict(regions[tile])
-    r["nbytes"] = r["pitch"] * r["rows"] * pix
+    r["pixel_bytes"] = pix
+    if cin == 1 and tile == "x":
+        r.update(rows=th + 4, runs=0, pixel_bytes=4)
+    r["nbytes"] = r["pitch"] * r["rows"] * r["pixel_bytes"]
     r["run_starts"] = [16 * k for k in range(r.pop("runs"))]
     r["tap_offsets"] = [] if tile == "w" else [ky * r["pitch"] + kx for ky in range(3) for kx in range(3)]
     r["smem_bytes"] = x_bytes + a_bytes + 3 * slot
-    r["address"] = lambda p, j: p * pix + ((j ^ p) & 7) * 16
+    if r["pixel_bytes"] == 4:
+        r["address"] = lambda p, j=0: 4 * p
+    else:
+        r["address"] = lambda p, j: p * pix + ((j ^ p) & 7) * 16
     if tile == "w":
         r["lane"] = lambda l, ks: (8 * (l >> 4) + (l & 7), 2 * ks + ((l >> 3) & 1))
-    else:
+    elif r["pixel_bytes"] == pix:
         r["lane"] = lambda l, ks: (l & 15, 2 * ks + (l >> 4))
+    if cin == 1 and tile == "a":
+        r["prologue"] = lambda t, k: ((t >> 3) + 48 * k, t & 7)  # 384 threads, 48 pixels a round
+        r["prologue_pixels"] = (th + 2) * (tw + 2)
     return r

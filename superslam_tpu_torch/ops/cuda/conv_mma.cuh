@@ -1,7 +1,8 @@
 // The tensor-core engine of the port's 3x3 convs over 64-channel NHWC tiles
 // in shared memory: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate)
 // fed by ldmatrix.x4 from XOR-swizzled tiles, and the cp.async copies that
-// fill the tiles and the weight ring. conv_pair_mma.cu is its first user.
+// fill the tiles and the weight ring. conv_pair_mma.cu, both conv pairs of
+// SuperPoint's encoder, is its user.
 // The address model it implements is mirrored by
 // superslam_tpu_torch/ops/cuda/conv.py::mma_layout, which
 // tests/test_torch_conv_layout.py enumerates on the CPU.
@@ -10,9 +11,10 @@
 // pitch of 128 bytes; chunk j of pixel p is stored at chunk j ^ (p & 7)
 // (swz). An ldmatrix phase reads one chunk of 8 consecutive pixels (8 rows
 // of a flat run at one tap), which the swizzle spreads over all 32 banks
-// whatever the tap's pixel offset. A weight slice of the ring is 32 output
-// channels x 64 input channels, one 128-byte row per output channel (the
-// B operand "col"-major, as mma.sync wants it), swizzled the same way by row.
+// whatever the tap's pixel offset. A weight slice of the ring is 32 (or 64)
+// output channels x 64 input channels, one 128-byte row per output channel
+// (the B operand "col"-major, as mma.sync wants it), swizzled the same way
+// by row.
 #pragma once
 
 #include "common.cuh"
@@ -38,6 +40,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// 4 bytes global -> shared (for rows that start off 16-byte alignment);
+// valid = false zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -67,13 +75,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // One tap of one ring slice for the runs of one warp:
 //   acc[r][nt] += tile[run_r * 16 + tap_off + i, :] x slice[nt * 8 + n, :]^T
 // over the 64 input channels, for run_r = run0 + r * run_stride, r < nrun
-// (warp-uniform), i < 16 the GEMM row, n < 8 the column of n-tile nt.
+// (warp-uniform), i < 16 the GEMM row, n < 8 the column of n-tile nt < NT
+// (the slice has 8 * NT weight rows).
 // A: lane l points ldmatrix at pixel run*16 + tap_off + (l & 15), chunk
 // 2*ks + (l >> 4): the four 8 x 8 matrices are a0..a3 of the m16k16 fragment.
 // B: lane l points at slice row 16*h + 8*(l >> 4) + (l & 7), chunk 2*ks +
 // ((l >> 3) & 1): b0, b1 of n-tile 2h, then of n-tile 2h + 1.
-template <int MAXR>
-__device__ __forceinline__ void tap_step(float (&acc)[MAXR][4][4], uint32_t tile, int run0,
+template <int MAXR, int NT>
+__device__ __forceinline__ void tap_step(float (&acc)[MAXR][NT][4], uint32_t tile, int run0,
                                          int run_stride, int nrun, int tap_off, uint32_t slice,
                                          int lane) {
   uint32_t arow[MAXR], axor[MAXR];
@@ -88,30 +97,23 @@ __device__ __forceinline__ void tap_step(float (&acc)[MAXR][4][4], uint32_t tile
   const uint32_t bxor = uint32_t((brow ^ ((lane >> 3) & 1)) & 7);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    uint32_t b[2][4];
+    uint32_t b[NT / 2][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < NT / 2; ++h)
       ldsm_x4(bbase + h * 16 * PIX_BYTES + ((bxor ^ (2 * ks)) << 4), b[h]);
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       if (r < nrun) {
         uint32_t a[4];
         ldsm_x4(arow[r] + ((axor[r] ^ (2 * ks)) << 4), a);
-        mma_bf16(acc[r][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[r][1], a, b[0][2], b[0][3]);
-        mma_bf16(acc[r][2], a, b[1][0], b[1][1]);
-        mma_bf16(acc[r][3], a, b[1][2], b[1][3]);
+#pragma unroll
+        for (int h = 0; h < NT / 2; ++h) {
+          mma_bf16(acc[r][2 * h], a, b[h][0], b[h][1]);
+          mma_bf16(acc[r][2 * h + 1], a, b[h][2], b[h][3]);
+        }
       }
     }
   }
 }
 
 }  // namespace conv_mma
-
-// The 64-channel conv pair on this engine (conv_pair_mma.cu): x bf16 NHWC
-// (B, H, W, 64); wa, wb bf16 (9, 64, 64) [tap][co][ci]; ba, bb f32 (64,);
-// out NHWC (B, H/2, W/2, 64) if pool else (B, H, W, 64), f32 if out_f32
-// else bf16. x, wa, wb and out must be 16-byte aligned.
-cudaError_t conv_pair_mma(const void* x, const void* wa, const float* ba, const void* wb,
-                          const float* bb, void* out, int B, int H, int W, int out_f32,
-                          bool pool, cudaStream_t stream);

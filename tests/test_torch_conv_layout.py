@@ -1,9 +1,10 @@
 """The shared-memory addressing of the mma.sync conv pair
-(``superslam_tpu_torch/ops/cuda/conv_pair_mma.cu``), checked on the CPU
-through its Python model ``conv.py::mma_layout``: the model against the
-constants of the CUDA source, every ldmatrix phase free of bank conflicts,
-every address inside its allocation, and the flat runs' overrun rows
-feeding only discarded outputs. No card and no compiler needed."""
+(``superslam_tpu_torch/ops/cuda/conv_pair_mma.cu``, CIN 64 and the gray
+CIN 1), checked on the CPU through its Python model ``conv.py::mma_layout``:
+the model against the constants of the CUDA source, every ldmatrix phase
+and every store phase of the gray pair's conv_a prologue free of bank
+conflicts, every address inside its allocation, and the flat runs' overrun
+rows feeding only discarded outputs. No card and no compiler needed."""
 
 import os
 import re
@@ -30,15 +31,22 @@ def _cuda_constants() -> dict[str, int]:
     return names
 
 
-def _ldmatrix_rows(tile: str):
+# (CIN, region) cases; the CIN = 64 ids are the regions' names.
+CASES = [pytest.param(64, t, id=t) for t in ("x", "a", "w")] + [
+    pytest.param(1, t, id=f"gray-{t}") for t in ("a", "w")
+]
+NTHREADS = 384
+
+
+def _ldmatrix_rows(tile: str, cin: int = 64):
     """Yield (label, [32 byte addresses]) for every ldmatrix.x4 the kernel
     issues on one region: per run, tap and k-step for the tiles, per k-step
-    and 16-row half of every ring slot for the weights."""
-    m = mma_layout(tile)
+    and 16-row group of every ring slot for the weights."""
+    m = mma_layout(tile, cin)
     if tile == "w":
         for slot in range(m["rows"]):
             for ks in KSTEPS:
-                for h in range(2):
+                for h in range(m["pitch"] // 16):
                     rows = [m["lane"](l, ks) for l in LANES]
                     yield (slot, ks, h), [
                         m["address"](slot * m["pitch"] + 16 * h + r, j) for r, j in rows
@@ -51,38 +59,46 @@ def _ldmatrix_rows(tile: str):
                 yield (run, tap, ks), [m["address"](run + off + r, j) for r, j in rows]
 
 
-@pytest.mark.parametrize("tile", ["x", "a", "w"])
-def test_ldmatrix_phases_are_conflict_free(tile):
-    """ldmatrix.x4 serves its 32 row addresses in four phases of 8 lanes;
-    a phase is conflict-free when its eight 16-byte rows fall in eight
-    distinct 16-byte bank groups of the 128-byte bank cycle."""
+def _phases_conflict_free(addrs) -> bool:
+    """A 32-lane access of 16 bytes a lane is served in four phases of 8
+    lanes; a phase is conflict-free when its eight 16-byte rows fall in
+    eight distinct 16-byte bank groups of the 128-byte bank cycle."""
+    return all(
+        len({(a % 128) // 16 for a in addrs[8 * phase : 8 * phase + 8]}) == 8
+        for phase in range(4)
+    )
+
+
+@pytest.mark.parametrize("cin,tile", CASES)
+def test_ldmatrix_phases_are_conflict_free(cin, tile):
+    """ldmatrix.x4 serves its 32 row addresses in four phases of 8 lanes."""
     n = 0
-    for label, addrs in _ldmatrix_rows(tile):
-        for phase in range(4):
-            groups = {(a % 128) // 16 for a in addrs[8 * phase : 8 * phase + 8]}
-            assert len(groups) == 8, (tile, label, phase, addrs[8 * phase : 8 * phase + 8])
+    for label, addrs in _ldmatrix_rows(tile, cin):
+        assert _phases_conflict_free(addrs), (cin, tile, label, addrs)
         n += 1
-    assert n == {"x": 41 * 9 * 4, "a": 34 * 9 * 4, "w": 3 * 4 * 2}[tile]
+    slot_groups = mma_layout("w", cin)["pitch"] // 16
+    assert n == {"x": 41 * 9 * 4, "a": 34 * 9 * 4, "w": 3 * 4 * slot_groups}[tile]
 
 
-@pytest.mark.parametrize("tile", ["x", "a", "w"])
-def test_every_read_stays_inside_its_allocation(tile):
-    m = mma_layout(tile)
-    lo = min(min(a) for _, a in _ldmatrix_rows(tile))
-    hi = max(max(a) for _, a in _ldmatrix_rows(tile)) + 16
-    assert 0 <= lo and hi <= m["nbytes"], (tile, lo, hi, m["nbytes"])
-    regions = [mma_layout(t) for t in ("x", "a", "w")]
-    assert [r["offset"] for r in regions] == [0, regions[0]["nbytes"],
-                                              regions[0]["nbytes"] + regions[1]["nbytes"]]
-    assert sum(r["nbytes"] for r in regions) == m["smem_bytes"] <= 232_448
+@pytest.mark.parametrize("cin,tile", CASES)
+def test_every_read_stays_inside_its_allocation(cin, tile):
+    m = mma_layout(tile, cin)
+    lo = min(min(a) for _, a in _ldmatrix_rows(tile, cin))
+    hi = max(max(a) for _, a in _ldmatrix_rows(tile, cin)) + 16
+    assert 0 <= lo and hi <= m["nbytes"] <= m["region"], (tile, lo, hi, m["nbytes"])
+    regions = [mma_layout(t, cin) for t in ("x", "a", "w")]
+    assert [r["offset"] for r in regions] == [0, regions[0]["region"],
+                                              regions[0]["region"] + regions[1]["region"]]
+    assert sum(r["region"] for r in regions) == m["smem_bytes"] <= 232_448
 
 
-@pytest.mark.parametrize("tile", ["x", "a", "w"])
-def test_swizzle_permutes_the_chunks_of_every_row(tile):
+@pytest.mark.parametrize("cin,tile", CASES)
+def test_swizzle_permutes_the_chunks_of_every_row(cin, tile):
     """The fills (cp.async of the input tile and of a ring slot, the
-    overrun rows' zeroing, conv_a's epilogue) write chunk j of row p at
-    address(p, j): a bijection onto the region, one 128-byte row per p."""
-    m = mma_layout(tile)
+    overrun rows' zeroing, conv_a's epilogue or prologue) write chunk j of
+    row p at address(p, j): a bijection onto the region, one 128-byte row
+    per p."""
+    m = mma_layout(tile, cin)
     rows = m["pitch"] * m["rows"]
     addrs = {m["address"](p, j) for p in range(rows) for j in range(8)}
     assert addrs == set(range(0, m["nbytes"], 16))
@@ -92,10 +108,15 @@ def test_swizzle_permutes_the_chunks_of_every_row(tile):
 
 def test_ring_slice_is_one_cp_async_per_thread():
     """256 threads fill a 32-row slot: thread t copies chunk t & 7 of row
-    t >> 3, and the 256 chunks are the whole slot."""
+    t >> 3, and the 256 chunks are the whole slot. A 64-row slot (the gray
+    pair in one pass) takes copies i = t, t + 384: chunk i & 7 of row i >> 3."""
     m = mma_layout("w")
     addrs = {m["address"](t >> 3, t & 7) for t in range(256)}
     assert addrs == set(range(0, m["pitch"] * 128, 16))
+    m = mma_layout("w", 1)
+    copies = [i for t in range(NTHREADS) for i in range(t, m["pitch"] * 8, NTHREADS)]
+    assert sorted(copies) == list(range(m["pitch"] * 8))
+    assert {m["address"](i >> 3, i & 7) for i in copies} == set(range(0, m["pitch"] * 128, 16))
 
 
 @pytest.mark.parametrize("tile", ["x", "a"])
@@ -145,3 +166,49 @@ def test_model_matches_the_cuda_constants():
     assert c["PIX_BYTES"] == 128 and c["CH"] == 64
     assert c["MAXR"] * c["NWARPS"] >= c["NRUN_A"] and c["NSTEP"] == 2 * 2 * 9
     assert (x["valid"], a["valid"]) == ((c["TH"] + 2, c["TW"] + 2), (c["TH"], c["TW"]))
+    # The gray pair (CIN = 1): image tile, one ring slot of 64 / NPASS1 rows.
+    gx, ga, gw = (mma_layout(t, 1) for t in ("x", "a", "w"))
+    assert (c["IMG_R"], c["IMG_BYTES"]) == (gx["rows"], gx["nbytes"]) and gx["pitch"] == c["XP"]
+    assert c["NPASS1"] == conv_mod.GRAY_PASSES and gw["pitch"] == 8 * c["NT1"]
+    assert gx["smem_bytes"] == c["X_BYTES"] + c["A_BYTES"] + c["RING"] * gw["pitch"] * 128
+    assert c["MAXR1"] * c["NWARPS"] >= c["NRUN_B"] and (ga["pitch"], ga["rows"]) == (a["pitch"], a["rows"])
+    assert c["NTHREADS"] == NTHREADS and gx["valid"] == x["valid"]
+
+
+def test_gray_image_tile_fits_and_feeds_the_prologue():
+    """The f32 image tile (20 x 36) lies in the input region beside nothing
+    else (the pool staging aliases it only after conv_a is written), and
+    conv_a pixel (r, c) of the 18 x 34 tile reads image pixels (r + ky,
+    c + kx), all inside the tile; the 4-byte copies cover it exactly."""
+    m = mma_layout("x", 1)
+    assert m["nbytes"] == 20 * 36 * 4 <= m["region"]
+    assert _cuda_constants()["HP_BYTES"] <= m["region"]
+    keep_r, keep_c = m["valid"]
+    reads = {m["address"](r * m["pitch"] + c + off)
+             for r in range(keep_r) for c in range(keep_c) for off in m["tap_offsets"]}
+    assert min(reads) == 0 and max(reads) + 4 == m["nbytes"]
+    copies = {m["address"](i) for i in range(m["rows"] * m["pitch"])}
+    assert copies == set(range(0, m["nbytes"], 4))
+
+
+def test_gray_prologue_stores_are_conflict_free_and_cover_the_tile():
+    """Thread t stores chunk t & 7 of conv_a tile pixels (t >> 3) + 48k as
+    16-byte stores: in every warp's store the 8 lanes of each phase write
+    the 8 chunks of one 128-byte row (no bank conflict), and together the
+    stores write every chunk of the 18 x 34 data rows exactly once, never
+    the overrun row (zeroed apart)."""
+    m = mma_layout("a", 1)
+    n_pix, rounds = m["prologue_pixels"], -(-m["prologue_pixels"] // (NTHREADS // 8))
+    written = []
+    for warp in range(NTHREADS // 32):
+        for k in range(rounds):
+            items = [m["prologue"](warp * 32 + lane, k) for lane in range(32)]
+            live = [(p, j) for p, j in items if p < n_pix]
+            if not live:
+                continue
+            assert len(live) == 32  # whole warps: 612 pixels = 153 warps of 4
+            addrs = [m["address"](p, j) for p, j in live]
+            assert _phases_conflict_free(addrs), (warp, k, addrs)
+            written += addrs
+    assert sorted(written) == list(range(0, n_pix * 128, 16))
+    assert n_pix == (m["rows"] - 1) * m["pitch"]

@@ -5,7 +5,8 @@ JAX, so on the GPU host it runs without the JAX package's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: conv pairs within 2e-2 of max|plain| (the kernel rounds the
-conv_a tile to bf16), NMS exact, bf16 attention atol 2e-2, the fused
+conv_a tile to bf16) and bit-equal between prepared and OIHW weights, NMS
+exact, bf16 attention atol 2e-2, the fused
 LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
 the descriptor gather atol 1e-5, the attention backward within 1e-4 of
 max|plain| in f32 (2e-2 in bf16). The last two tests run the tracking
@@ -29,6 +30,7 @@ from superslam_tpu_torch.ops.cuda.conv import (
     conv_pair_plain,
     conv_pair_pool,
     conv_pair_pool_plain,
+    pair_operands,
 )
 from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
 from superslam_tpu_torch.ops.cuda import _build
@@ -56,13 +58,14 @@ def _pair_case(cuda, cin, b, h, w):
     return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wa, ba, wb, bb)]
 
 
-# CIN = 64 (the mma.sync kernel): H off the 16-row tile and W off the
-# 32-column tile, W < 32, batch 1 and 3 (the grid's z), the real width.
+# Both CINs (the mma.sync kernel): H off the 16-row tile and W off the
+# 32-column tile, W < 32, batch 1 and 3 (the grid's z), the real shape.
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "cin,b,h,w",
     [(1, 2, 32, 96), (64, 2, 32, 96), (64, 2, 18, 70), (64, 2, 34, 98), (64, 2, 16, 20),
-     (64, 1, 18, 70), (64, 3, 34, 98), (64, 2, 192, 624)],
+     (64, 1, 18, 70), (64, 3, 34, 98), (64, 2, 192, 624), (1, 2, 18, 70), (1, 2, 34, 98),
+     (1, 2, 16, 20), (1, 1, 18, 70), (1, 3, 34, 98), (1, 2, 384, 1248)],
 )
 def test_conv_pair_pool_kernel(cuda, cin, b, h, w):
     """Includes shapes that are not a multiple of the 16 x 32 tile."""
@@ -78,7 +81,8 @@ def test_conv_pair_pool_kernel(cuda, cin, b, h, w):
 @pytest.mark.parametrize(
     "cin,b,h,w",
     [(1, 2, 32, 96), (64, 2, 32, 96), (64, 2, 17, 71), (64, 2, 34, 98), (64, 2, 16, 20),
-     (64, 1, 17, 71), (64, 3, 18, 70), (64, 2, 192, 624)],
+     (64, 1, 17, 71), (64, 3, 18, 70), (64, 2, 192, 624), (1, 2, 17, 71), (1, 2, 34, 98),
+     (1, 2, 16, 20), (1, 1, 17, 71), (1, 3, 18, 70), (1, 2, 384, 1248)],
 )
 def test_conv_pair_kernel(cuda, cin, b, h, w):
     """The unpooled pair; includes odd sizes off the 16 x 32 tile."""
@@ -88,6 +92,26 @@ def test_conv_pair_kernel(cuda, cin, b, h, w):
         ref = conv_pair_plain(*args, out_dtype=out_dtype)
         assert got.shape == ref.shape == (b, 64, h, w) and got.dtype == out_dtype
         assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("cin", [1, 64])
+def test_conv_pair_prepared_operands_match_oihw(cuda, cin, pool):
+    """Operands prepared once give the same bits as OIHW weights laid out in
+    the call; operands of the other CIN raise before any launch."""
+    args = _pair_case(cuda, cin, 2, 34, 98)
+    fn, name = (conv_pair_pool, "conv_pair") if pool else (conv_pair, "conv_pair_full")
+    name = name.replace("conv_pair", "conv1a1b") if cin == 1 else name
+    ops = pair_operands(*args[1:])
+    for out_dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(fn(*args, out_dtype=out_dtype, operands=ops),
+                           fn(*args, out_dtype=out_dtype))
+    other = pair_operands(*_pair_case(cuda, 65 - cin, 1, 2, 2)[1:])
+    before = _build.launch_counts()[name]
+    with pytest.raises(ValueError, match="prepared operands"):
+        fn(*args, operands=other)
+    assert _build.launch_counts()[name] == before
 
 
 @pytest.mark.gpu

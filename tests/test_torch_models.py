@@ -16,17 +16,29 @@ from superslam_tpu.models import superpoint as jsp
 from superslam_tpu.models.weights import load_safetensors as jax_load
 from superslam_tpu_torch.models import lightglue as tlg
 from superslam_tpu_torch.models import superpoint as tsp
-from superslam_tpu_torch.models.weights import from_jax_params
+from superslam_tpu_torch.models.weights import (
+    from_jax_params,
+    load_safetensors,
+    save_params,
+    to_jax_params,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _dense_inputs():
+    """The JAX package's init(0) parameters in both layouts and a (2, 64,
+    160) image."""
+    jparams = jsp.init_superpoint_params(0)
+    tparams = from_jax_params({k: np.asarray(v) for k, v in jparams.items()})
+    img = np.random.default_rng(0).uniform(0, 1, (2, 64, 160)).astype(np.float32)
+    return jparams, tparams, img
 
 
 @pytest.fixture(scope="module")
 def dense_pair():
     """Both packages' dense SuperPoint heads on the same (2, 64, 160) image."""
-    jparams = jsp.init_superpoint_params(0)
-    tparams = from_jax_params({k: np.asarray(v) for k, v in jparams.items()})
-    img = np.random.default_rng(0).uniform(0, 1, (2, 64, 160)).astype(np.float32)
+    jparams, tparams, img = _dense_inputs()
     jout = jsp.superpoint_dense(
         jparams, jnp.asarray(img), compute_dtype=jnp.float32,
         use_pallas_convs=False, return_pre_nms=True,
@@ -46,6 +58,44 @@ def test_superpoint_dense_matches_jax(dense_pair):
     np.testing.assert_allclose(ts, js, atol=1e-4, rtol=0)
     np.testing.assert_allclose(td, jd, atol=1e-4, rtol=0)
     np.testing.assert_array_equal(ts > 0, js > 0)
+
+
+def test_prepared_superpoint_params_leave_dense_unchanged(dense_pair):
+    """prepare_superpoint_params adds each conv pair's kernel operands (the
+    OIHW weights laid out as the kernel reads them); on the CPU
+    superpoint_dense reads the OIHW weights, so its outputs are the same
+    bits as without them, and still match the JAX package (atol 1e-4)."""
+    (js, jd, jpre), port = dense_pair
+    _, tparams, img = _dense_inputs()
+    ready = tsp.prepare_superpoint_params(tparams, "cpu")
+    assert set(ready) - set(tparams) == {"conv1.__kernel", "conv2.__kernel"}
+    assert set(tsp.prepare_superpoint_params(ready, "cpu")) == set(ready)
+    got = tsp.superpoint_dense(
+        ready, torch.from_numpy(img), compute_dtype=torch.float32, return_pre_nms=True
+    )
+    for g, t, j in zip(got, port, (js, jd, jpre)):
+        np.testing.assert_array_equal(g.numpy(), t)
+        np.testing.assert_allclose(g.numpy(), j, atol=1e-4, rtol=0)
+    # conv1a f32 (64, 9); conv1b, conv2a, conv2b bf16 (tap, co, ci); f32 biases.
+    (wa1, ba1, wb1, bb1), (wa2, _, wb2, _) = ready["conv1.__kernel"], ready["conv2.__kernel"]
+    assert torch.equal(wa1, tparams["conv1a.weight"].reshape(64, 9))
+    assert ba1.dtype == bb1.dtype == torch.float32 and torch.equal(bb1, tparams["conv1b.bias"])
+    for name, wk in (("conv1b", wb1), ("conv2a", wa2), ("conv2b", wb2)):
+        assert wk.shape == (9, 64, 64) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
+        oihw = tparams[f"{name}.weight"].to(torch.bfloat16)
+        for tap in range(9):
+            assert torch.equal(wk[tap], oihw[:, :, tap // 3, tap % 3])
+
+
+def test_prepared_superpoint_operands_are_not_saved(tmp_path):
+    """The derived kernel operands are left out by save_params and
+    to_jax_params: a prepared dict saves and converts as the raw one."""
+    params = tsp.init_superpoint_params(0)
+    ready = tsp.prepare_superpoint_params(params, "cpu")
+    path = str(tmp_path / "sp.safetensors")
+    save_params(ready, path)
+    assert load_safetensors(path).keys() == params.keys()
+    assert to_jax_params(ready).keys() == params.keys()
 
 
 def test_select_keypoints_matches_jax(dense_pair):
