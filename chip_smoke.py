@@ -12,9 +12,10 @@ In order, any failure exiting non-zero:
 2. builds the hand-written kernels from the sources in the checkout
    (``superslam_tpu_torch/ops/cuda/_build.py``) and the host estimator's
    C++ core (``csrc/``), prints the build times and the registers, shared
-   memory and spills of the mma.sync conv pair kernel's eight
-   instantiations (CIN 1 and 64, pooled or not, bf16 or f32 out) from
-   nvcc's report (any spill fails);
+   memory and spills from nvcc's report of the mma.sync conv pair kernel's
+   eight instantiations (CIN 1 and 64, pooled or not, bf16 or f32 out),
+   conv3x3's four (CIN 1 and 64, bf16 or f32 out) and the attention
+   backward's four (dq and dk/dv kernels, f32 and bf16); any spill fails;
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
@@ -22,13 +23,16 @@ In order, any failure exiting non-zero:
    LightGlue self and cross blocks: max error over max |plain| <= 2e-2 in
    bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5; the
    unpooled conv pairs and the single conv: 2e-2 of max |plain|; the conv
-   pairs on operands prepared once give the same bits as on OIHW weights; the
-   attention backward at the training shape (16, 4, 256, 64) f32 with
-   ragged masks and one fully-masked batch row: dq, dk, dv within 1e-4 of
-   max |plain|), timing kernel (the conv pairs on prepared operands, as
-   the main path calls them), plain version and, where one exists, a
-   library call as a yardstick (CUDA events, median of 20 after 3
-   warm-ups);
+   pairs and the single conv on operands prepared once give the same bits
+   as on OIHW weights; the forward's row statistics against the plain
+   softmax's; the attention backward at the training shape (16, 4, 256,
+   64) f32 with ragged masks and one fully-masked batch row, on the
+   forward's residuals: dq, dk, dv within 1e-4 of max |plain|, dq = dk = 0
+   in that row, autograd's gradients bit-equal), timing kernel (the convs
+   on prepared operands, the backward on the forward's residuals), plain
+   version and, where one exists, a library call as a yardstick (CUDA
+   events, median of 20 after 3 warm-ups; for row 4 also the library's
+   forward at the training shape);
 4. runs the port's ``SuperSLAM`` facade on 30 rendered frames at the KITTI
    00 geometry (1241x376, padded to 1248x384; 600 keypoints; the committed
    render-trained SuperPoint and synthetic LightGlue weights) on the
@@ -112,6 +116,7 @@ PER_FRAME_UNFUSED = {
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
 
 KERNEL_INFO = {
@@ -156,7 +161,7 @@ KERNEL_INFO = {
         "superslam_tpu/ops/pallas/conv.py:580",
     ),
     "conv3x3": (
-        "superslam_tpu_torch/ops/cuda/conv_pair_pool.cu",
+        "superslam_tpu_torch/ops/cuda/conv3x3_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:640",
     ),
 }
@@ -166,18 +171,45 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def report_mma_build(build_dir: str) -> None:
-    """Print registers, shared memory and spills of each instantiation of
-    the mma.sync conv pair kernel (CIN 1 and 64) from nvcc's -Xptxas -v
-    report; fail on any spill (the kernel keeps its accumulators in
-    registers)."""
-    from superslam_tpu_torch.ops.cuda.conv import mma_layout
+# nvcc's entry names (mangled) of the kernels whose registers chip_smoke
+# reports: substring -> instantiations expected.
+REPORTED_KERNELS = {
+    "conv_pair_mma_kernel": 8,
+    "conv3x3_mma_kernel": 2,
+    "conv3x3_gray_kernel": 2,
+    "attn_bwd_dq_kernel": 2,
+    "attn_bwd_dkv_kernel": 2,
+}
 
+
+def _smem_bytes(entry: str) -> int:
+    """Dynamic shared memory of a reported kernel, from the address models."""
+    from superslam_tpu_torch.ops.cuda.attention import bwd_layout
+    from superslam_tpu_torch.ops.cuda.conv import CONV3X3_GRAY_SMEM_BYTES, mma_layout
+
+    if "conv_pair_mma_kernel" in entry:
+        return mma_layout("x", 1 if "conv_pair_mma_kernelILi1E" in entry else 64)["smem_bytes"]
+    if "conv3x3_mma_kernel" in entry:
+        return mma_layout("x3")["smem_bytes"]
+    if "attn_bwd" in entry:
+        return bwd_layout()["smem_bytes"]
+    return CONV3X3_GRAY_SMEM_BYTES
+
+
+def report_build(build_dir: str) -> None:
+    """Print registers, shared memory and spills of every instantiation of
+    the mma.sync conv kernels and the attention backward from nvcc's
+    -Xptxas -v report; fail on any spill (they keep their accumulators in
+    registers) or a missing instantiation."""
     with open(os.path.join(build_dir, "nvcc.log")) as f:
         lines = f.read().splitlines()
-    found = 0
+    found = dict.fromkeys(REPORTED_KERNELS, 0)
     for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or "conv_pair_mma_kernel" not in line:
+        if "Compiling entry function" not in line:
+            continue
+        entry = line.split("'")[1]
+        kind = next((k for k in REPORTED_KERNELS if k in entry), None)
+        if kind is None:
             continue
         block = []
         for nxt in lines[i + 1 : i + 8]:
@@ -190,19 +222,16 @@ def report_mma_build(build_dir: str) -> None:
         static = re.search(r"(\d+) bytes smem", text)
         if not regs or not spill:
             fail(f"nvcc.log: no resource report after {line.strip()}")
-        found += 1
-        entry = line.split("'")[1]
-        cin = 1 if "conv_pair_mma_kernelILi1E" in entry else 64  # the mangled template argument
+        found[kind] += 1
         print(
-            f"build conv_pair_mma: CIN {cin} {entry}: {regs.group(1)} registers, spill "
-            f"stores {spill.group(1)} B, spill loads {spill.group(2)} B, shared memory "
-            f"{mma_layout('x', cin)['smem_bytes']} B dynamic + "
-            f"{static.group(1) if static else 0} B static"
+            f"build {kind}: {entry}: {regs.group(1)} registers, spill stores "
+            f"{spill.group(1)} B, spill loads {spill.group(2)} B, shared memory "
+            f"{_smem_bytes(entry)} B dynamic + {static.group(1) if static else 0} B static"
         )
         if int(spill.group(1)) or int(spill.group(2)):
-            fail(f"conv_pair_mma: the CIN {cin} kernel spills registers")
-    if found != 8:
-        fail(f"nvcc.log: {found} conv_pair_mma_kernel instantiations reported, want 8")
+            fail(f"{entry}: spills registers")
+    if found != REPORTED_KERNELS:
+        fail(f"nvcc.log: instantiations reported {found}, want {REPORTED_KERNELS}")
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
@@ -221,10 +250,13 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
-    """Least time in ms: bytes over HBM rate vs operations over peak rates."""
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0, tf32_ops: float = 0.0):
+    """Least time in ms: bytes over HBM rate vs operations over peak rates
+    (f32 on the CUDA cores, bf16 and TF32 on the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_FLOP_PER_S + bf16_ops / BF16_FLOP_PER_S) * 1e3
+    t_ops = (
+        f32_ops / F32_FLOP_PER_S + bf16_ops / BF16_FLOP_PER_S + tf32_ops / TF32_FLOP_PER_S
+    ) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -243,16 +275,31 @@ def attention_ops(kv_mask, heads: int = 4, dim: int = 64) -> tuple[float, float]
     return 4.0 * heads * k * keys * dim, 5.0 * heads * k * keys
 
 
-def attention_bwd_ops(kv_mask, heads: int = 4, dim: int = 64) -> float:
-    """f32 operations of the attention backward over (B, K) key masks: five
-    products (s, dp, dv, dq, dk) of 2 K x keys x dim each over the real keys
-    of a row's key set, and ~8 per logit for p and ds. A row with no real
-    key has p uniform over all K keys and only the dv product."""
+def attention_bwd_ops(kv_mask, heads: int = 4, dim: int = 64) -> tuple[float, float]:
+    """(TF32, f32) operations of the attention backward over (B, K) key
+    masks: five products (s, dp, dv, dq, dk) of 2 K x keys x dim each over
+    the real keys of a row's key set, each f32-accurate product three TF32
+    ones (3xTF32, the card's fastest f32-accurate product), and ~8 f32
+    operations per logit for p and ds. A row with no real key has p uniform
+    over all K keys and only the dv product."""
     k = kv_mask.shape[1]
     real = kv_mask.sum(dim=1).double()
-    with_keys = 5.0 * 2 * k * real * dim + 8.0 * k * real
-    no_keys = 2.0 * k * k * dim + 3.0 * k * k
-    return float(heads * (with_keys + (real == 0) * no_keys).sum().item())
+    no_keys = (real == 0).double()
+    products = 5.0 * 2 * k * real * dim + no_keys * 2.0 * k * k * dim
+    logits = 8.0 * k * real + no_keys * 3.0 * k * k
+    return 3.0 * heads * float(products.sum().item()), heads * float(logits.sum().item())
+
+
+def check_row_stats(label: str, got, ref) -> None:
+    """The forward kernel's row statistics against the plain softmax's: the
+    maximum within 1e-5 of max(|m|, 1), 1 / sum within 1e-5 relative (f32
+    sums in another order)."""
+    err_m = ((got[0] - ref[0]).abs() / ref[0].abs().clamp_min(1.0)).max().item()
+    err_l = ((got[1] - ref[1]).abs() / ref[1].abs()).max().item()
+    print(f"kernel masked_attention: {label} row statistics vs plain: maximum {err_m:.3g}, "
+          f"1 / sum {err_l:.3g} (limit 1e-5)")
+    if not (err_m <= 1e-5 and err_l <= 1e-5):
+        fail(f"masked_attention: {label} row statistics error {err_m}, {err_l} > 1e-5")
 
 
 def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
@@ -262,13 +309,16 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     from superslam_tpu_torch.models import lightglue as lg
     from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
     from superslam_tpu_torch.ops.cuda.attention import (
+        attention_row_stats_plain,
         masked_attention,
         masked_attention_backward,
         masked_attention_backward_plain,
         masked_attention_plain,
+        masked_attention_with_stats,
     )
     from superslam_tpu_torch.ops.cuda.conv import (
         conv3x3,
+        conv3x3_operands,
         conv3x3_plain,
         conv_pair,
         conv_pair_plain,
@@ -369,10 +419,12 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
             prepared=lambda: conv_pair(x, wa, ba, wb, bb, operands=ops),
         )
         if cin == 64:
+            c3ops = conv3x3_operands(wa, ba)
             conv_case(
                 "conv3x3", lambda: conv3x3(x, wa, ba), lambda: conv3x3_plain(x, wa, ba),
                 lambda: F.relu(F.conv2d(xl, wal, bal, padding=1)), (2, 64, h, w),
                 lambda out: bound(nbytes(x, wa, ba, out), bf16_ops=2 * px * 64 * 64 * 9),
+                prepared=lambda: conv3x3(x, wa, ba, operands=c3ops),
             )
         x = pooled  # the next pair's input, as on the main path
 
@@ -409,6 +461,11 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     print(f"kernel masked_attention: fully-masked row vs mean of v: {err_masked:.3g}")
     if not err_masked <= 2e-2:
         fail(f"masked_attention: fully-masked row error {err_masked} > 2e-2")
+    # The row statistics (the backward's residuals) change no bit of the output.
+    got_s, stats_s = masked_attention_with_stats(q, k, v, mask)
+    if not torch.equal(got_s, got):
+        fail("masked_attention: the output differs when the row statistics are written")
+    check_row_stats("bf16", stats_s, attention_row_stats_plain(q, k, mask))
     ms = time_ms(torch, lambda: masked_attention(q, k, v, mask))
     plain_ms = time_ms(torch, lambda: masked_attention_plain(q, k, v, mask))
     sdpa_mask = mask[:, None, None, :]
@@ -432,7 +489,10 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     n_real = rng.integers(TRAIN_CAP // 2, TRAIN_CAP + 1, size=2 * TRAIN_BATCH)
     tmask = torch.from_numpy(np.arange(TRAIN_CAP)[None] < n_real[:, None]).to(dev)
     tmask[3] = False
-    got3 = masked_attention_backward(tq, tk, tv, tmask, tg)
+    # The residuals from the forward (f32, as training runs it).
+    tout, tstats = masked_attention_with_stats(tq, tk, tv, tmask)
+    check_row_stats("f32", tstats, attention_row_stats_plain(tq, tk, tmask))
+    got3 = masked_attention_backward(tq, tk, tv, tmask, tg, tout, tstats)
     ref3 = masked_attention_backward_plain(tq, tk, tv, tmask, tg)
     torch.cuda.synchronize()
     worst = 0.0
@@ -456,7 +516,7 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     out_t.backward(tg)
     if not all(torch.equal(leaf.grad, g3) for leaf, g3 in zip(leaves, got3)):
         fail("masked_attention: autograd's gradients differ from masked_attention_backward's")
-    ms = time_ms(torch, lambda: masked_attention_backward(tq, tk, tv, tmask, tg))
+    ms = time_ms(torch, lambda: masked_attention_backward(tq, tk, tv, tmask, tg, tout, tstats))
     plain_ms = time_ms(torch, lambda: masked_attention_backward_plain(tq, tk, tv, tmask, tg))
     sdpa_tmask = tmask[:, None, None, :].clone()
     sdpa_tmask[3] = True  # the library has no replaced-logit row; any mask times the same
@@ -473,13 +533,23 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         lib_ms -= time_ms(
             torch, lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_tmask)
         )
+    tf32_ops, f32_ops = attention_bwd_ops(tmask)
     record(
         "masked_attention_bwd", worst, ms, plain_ms, lib_ms,
-        bound(nbytes(tq, tk, tv, tg, tmask, *got3), f32_ops=attention_bwd_ops(tmask)),
+        bound(nbytes(tq, tk, tv, tg, tmask, tout, tstats, *got3),
+              f32_ops=f32_ops, tf32_ops=tf32_ops),
     )
     with torch.no_grad():
         f32_fwd_ms = time_ms(torch, lambda: masked_attention(tq, tk, tv, tmask))
-    print(f"kernel masked_attention (f32, the training shape {tshape}): {f32_fwd_ms:.4f} ms")
+        f32_stats_ms = time_ms(torch, lambda: masked_attention_with_stats(tq, tk, tv, tmask))
+        f32_lib_ms = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_tmask)
+        )
+    print(
+        f"kernel masked_attention (f32, the training shape {tshape}): {f32_fwd_ms:.4f} ms, "
+        f"with the row statistics {f32_stats_ms:.4f} ms, library "
+        f"(scaled_dot_product_attention, f32) {f32_lib_ms:.4f} ms"
+    )
     del got3, ref3, leaves, out_t
 
     # The forward's library time is taken twice, before and after the
@@ -993,7 +1063,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds} s)")
-    report_mma_build(_build.BUILD_DIR)
+    report_build(_build.BUILD_DIR)
     # The host estimator's C++ core (csrc/, built with make at first use):
     # build it here so the build is set-up, not part of the timed loop.
     from superslam_tpu_torch import native

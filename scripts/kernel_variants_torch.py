@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Build variants of a hand-written kernel side by side and time them on the
+card at the main path's shapes.
+
+    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd] [NAME[:EDIT,EDIT...] ...]
+
+Kernels (``--kernel``, default ``pair``):
+
+- ``pair``: the mma.sync conv pair (``conv_pair_mma.cu``), the gray pair
+  (CIN = 1) at (2, 1, 384, 1248) f32 and the 64-channel pair at (2, 64,
+  192, 624) bf16, pooled and unpooled, bf16 out;
+- ``conv3x3``: the single conv (``conv3x3_mma.cu``) at (2, 64, 192, 624)
+  bf16, COUT 64 and 128, ReLU, bf16 out;
+- ``attn_bwd``: the attention backward (``attention_bwd.cu``) at the
+  training shape (16, 4, 256, 64) f32, key masks of 128-256 real keys and
+  one fully-masked batch row, on the plain forward's residuals.
+
+A NAME alone is the kernel source as it is. An EDIT is either KEY=VALUE,
+which sets the source's ``constexpr int KEY`` (pair: ``p2:NPASS1=2``, the
+gray pair's conv_b in two 32-channel passes, ``w16:NWARPS=16``,
+``r4:RING=4``; conv3x3: ``w8:NWARPS3=8,NPASS3=2,MINB3=2``, 8 warps in
+32-channel passes, two blocks per SM; attn_bwd: ``r32:BR=32``, blocks of
+32 own rows, ``wc1:WC=1``, one warp across a walked tile), or the name of
+a diagnostic patch of ``PATCHES`` (pair: ``noA``, A operands from
+registers, no ldmatrix; ``nomma``, no mma, one ALU operation per product
+instead; ``nostep``, no tap step at all; ``noprologue``, no CUDA-core
+conv_a in the gray pair; attn_bwd: ``tf32x1``, one TF32 product instead
+of three; ``noexp``, no exponential). Patched variants compute wrong
+results: they only split the time. With no variant: pair ``tree p2:NPASS1=2
+nostep:nostep nomma:nomma noprologue:noprologue``; conv3x3 ``tree
+w8:NWARPS3=8,NPASS3=2,MINB3=2``; attn_bwd ``tree r32:BR=32``.
+
+Each variant is compiled with the port's nvcc flags into its own library
+under ``build/kernel_variants/<kernel>/`` (one nvcc per variant, all at once)
+and called through the kernel's own C entry point. Unpatched variants are
+held against the plain version (max error / max|plain| <= 2e-2 for the
+convs, 1e-4 for the backward). Then every variant is timed: 4 rounds, in
+alternating order, of 50 back-to-back launches between two CUDA events, for
+each case. Prints the card and its power limit, registers and spills from
+nvcc's report, and one line per variant and case; conv3x3's cases are also
+timed, in the same turns, through cuDNN (``library``). Exits non-zero without a
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+SRC = os.path.join(REPO, "superslam_tpu_torch", "ops", "cuda")
+OUT = os.path.join(REPO, "build", "kernel_variants")
+ENGINE, ATTN = "conv_mma.cuh", "attention_bwd.cu"
+# kernel: (source, headers beside common.cuh, default variants)
+KERNELS = {
+    "pair": ("conv_pair_mma.cu", (ENGINE,),
+             ["tree", "p2:NPASS1=2", "nostep:nostep", "nomma:nomma", "noprologue:noprologue"]),
+    "conv3x3": ("conv3x3_mma.cu", (ENGINE,), ["tree", "w8:NWARPS3=8,NPASS3=2,MINB3=2"]),
+    "attn_bwd": (ATTN, (), ["tree", "r32:BR=32"]),
+}
+SHAPES = {1: (2, 1, 384, 1248), 64: (2, 64, 192, 624)}
+ATTN_SHAPE = (16, 4, 256, 64)
+
+# name: (file, text, replacement); the pair kernel's diagnostics.
+PATCHES = {
+    "noA": (ENGINE, "ldsm_x4(arow[r] + ((axor[r] ^ (2 * ks)) << 4), a);",
+            "a[0] = arow[r]; a[1] = axor[r]; a[2] = ks; a[3] = lane;"),
+    "nomma": (ENGINE, """  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));""",
+              "  c[0] += __uint_as_float(a[0] ^ b0);"),
+    "nostep": ("conv_pair_mma.cu", "    tap_step(acc,", "    if (s < 0) tap_step(acc,"),
+    "noprologue": ("conv_pair_mma.cu", "for (int p = tid >> 3; p < (TH + 2) * AP;",
+                   "for (int p = tid >> 3; p < 0;"),
+}
+# The attention backward's diagnostics: one TF32 product instead of three,
+# no exp.
+PATCHES.update({
+    "tf32x1": (ATTN, """  mma_tf32(c, as[0], as[1], as[2], as[3], bb0, bb1);
+  mma_tf32(c, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
+""", ""),
+    "noexp": (ATTN, "expf(", "fabsf("),
+})
+
+
+def parse(args: list[str]) -> dict[str, tuple[dict[str, str], list[str]]]:
+    variants = {}
+    for arg in args:
+        name, _, edits = arg.partition(":")
+        consts, patches = {}, []
+        for edit in filter(None, edits.split(",")):
+            if "=" in edit:
+                key, value = edit.split("=", 1)
+                consts[key] = value
+            elif edit in PATCHES:
+                patches.append(edit)
+            else:
+                raise SystemExit(f"kernel_variants: unknown edit {edit!r} of {arg!r}")
+        variants[name] = (consts, patches)
+    return variants
+
+
+def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[str]) -> str:
+    source, headers, _ = KERNELS[kernel]
+    d = os.path.join(OUT, kernel, name)
+    os.makedirs(d, exist_ok=True)
+    shutil.copy(os.path.join(SRC, "common.cuh"), d)
+    files = {}
+    for f in (*headers, source):
+        with open(os.path.join(SRC, f)) as fh:
+            files[f] = fh.read()
+    for p in patches:
+        f, old, new = PATCHES[p]
+        if f not in files or old not in files[f]:
+            raise SystemExit(f"kernel_variants: patch {p} does not match {kernel}'s sources")
+        files[f] = files[f].replace(old, new)
+    for key, value in consts.items():
+        files[source], n = re.subn(
+            rf"constexpr int {key} = [^;]+;", f"constexpr int {key} = {value};", files[source]
+        )
+        if n != 1:
+            raise SystemExit(f"kernel_variants: no constexpr int {key} in {source}")
+    for f, text in files.items():
+        with open(os.path.join(d, f), "w") as fh:
+            fh.write(text)
+    return os.path.join(d, source)
+
+
+def pair_cases(torch, dev, rng):
+    """(label, launch(lib, stream), outputs, references, limit, library
+    call or None) of the pair."""
+    from superslam_tpu_torch.ops.cuda.conv import conv_pair_plain, conv_pair_pool_plain, pair_operands
+
+    cases = []
+    for cin, shape in SHAPES.items():
+        b, c, h, w = shape
+        x = rng.uniform(0, 1, shape) if cin == 1 else np.maximum(rng.normal(size=shape), 0)
+        x = torch.from_numpy(x.astype(np.float32)).to(dev)
+        wa = torch.from_numpy((rng.normal(size=(64, c, 3, 3)) * (0.3 if cin == 1 else 0.05))
+                              .astype(np.float32)).to(dev)
+        wb = torch.from_numpy((rng.normal(size=(64, 64, 3, 3)) * 0.05).astype(np.float32)).to(dev)
+        ba, bb = (torch.from_numpy((rng.normal(size=(64,)) * 0.1).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        xk = x if cin == 1 else x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        ops = pair_operands(wa, ba, wb, bb)
+        for pool, plain in ((True, conv_pair_pool_plain), (False, conv_pair_plain)):
+            ref = plain(x, wa, ba, wb, bb).float()
+            out = torch.empty(ref.shape, dtype=torch.bfloat16, device=dev,
+                              memory_format=torch.channels_last)
+
+            def launch(lib, stream, xk=xk, ops=ops, out=out, pool=pool, cin=cin, b=b, h=h, w=w):
+                fn = lib.ssl_conv_pair_pool if pool else lib.ssl_conv_pair
+                return fn(xk.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(), b, cin,
+                          h, w, 0, stream)
+
+            label = f"CIN {cin} {'pooled' if pool else 'unpooled'} at {shape}"
+            cases.append((label, launch, [out], [ref], 2e-2, None))
+    return cases
+
+
+def conv3x3_cases(torch, dev, rng):
+    """The library call beside each case is cuDNN's conv2d + ReLU on the same
+    bf16 NHWC input and bf16 weights, prepared beforehand."""
+    import torch.nn.functional as F
+
+    from superslam_tpu_torch.ops.cuda.conv import conv3x3_operands, conv3x3_plain
+
+    b, c, h, w = SHAPES[64]
+    x = torch.from_numpy(np.maximum(rng.normal(size=(b, c, h, w)), 0).astype(np.float32)).to(dev)
+    xk = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cases = []
+    for cout in (64, 128):
+        wt = torch.from_numpy((rng.normal(size=(cout, c, 3, 3)) * 0.05).astype(np.float32)).to(dev)
+        bias = torch.from_numpy((rng.normal(size=(cout,)) * 0.1).astype(np.float32)).to(dev)
+        ops = conv3x3_operands(wt, bias)
+        ref = conv3x3_plain(x, wt, bias).float()
+        out = torch.empty(ref.shape, dtype=torch.bfloat16, device=dev,
+                          memory_format=torch.channels_last)
+
+        def launch(lib, stream, ops=ops, out=out, cout=cout):
+            return lib.ssl_conv3x3(xk.data_ptr(), ops[0].data_ptr(), ops[1].data_ptr(),
+                                   out.data_ptr(), b, c, cout, h, w, 1, 0, stream)
+
+        wl, bl = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+        cases.append((f"COUT {cout} at {SHAPES[64]}", launch, [out], [ref], 2e-2,
+                      lambda wl=wl, bl=bl: F.relu(F.conv2d(xk, wl, bl, padding=1))))
+    return cases
+
+
+def attn_bwd_cases(torch, dev, rng):
+    from superslam_tpu_torch.ops.cuda.attention import (
+        attention_row_stats_plain,
+        masked_attention_backward_plain,
+        masked_attention_plain,
+    )
+
+    b, h, n, d = ATTN_SHAPE
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(ATTN_SHAPE).astype(np.float32)).to(dev)
+                  for _ in range(4))
+    mask = torch.from_numpy(np.arange(n)[None] < rng.integers(n // 2, n + 1, size=b)[:, None])
+    mask = mask.to(dev)
+    mask[3] = False
+    out = masked_attention_plain(q, k, v, mask)
+    stats = attention_row_stats_plain(q, k, mask).contiguous()
+    refs = [t.float() for t in masked_attention_backward_plain(q, k, v, mask, g)]
+    grads = [torch.empty_like(q) for _ in range(3)]
+
+    def launch(lib, stream):
+        return lib.ssl_masked_attention_bwd(
+            *(t.data_ptr() for t in (q, k, v, mask, g, out, stats, *grads)), b, h, n, 0, stream)
+
+    return [(f"f32 at {ATTN_SHAPE}", launch, grads, refs, 1e-4, None)]
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    from superslam_tpu_torch.ops.cuda import _build
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="pair")
+    ap.add_argument("variants", nargs="*")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(f"card: {smi.stdout.strip() or 'not readable'}")
+    kernel = args.kernel
+    variants = parse(args.variants or KERNELS[kernel][2])
+    entries = {"pair": ("ssl_conv_pair_pool", "ssl_conv_pair"), "conv3x3": ("ssl_conv3x3",),
+               "attn_bwd": ("ssl_masked_attention_bwd",)}[kernel]
+
+    jobs = {}
+    for name, (consts, patches) in variants.items():
+        src = write_variant(kernel, name, consts, patches)
+        lib = os.path.join(os.path.dirname(src), "lib.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src]
+        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in jobs.items():
+        log = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            print(f"{name}: build failed\n{log[-3000:]}")
+            return 1
+        for block in log.split("Compiling entry function '")[1:]:
+            entry = block.split("'")[0]
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            print(f"{name}: {entry}: {regs and regs.group(1)} registers, "
+                  f"{spill and spill.group(1)} B spill stores")
+        lib = ctypes.CDLL(path)
+        for fn in entries:
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {"pair": pair_cases, "conv3x3": conv3x3_cases,
+             "attn_bwd": attn_bwd_cases}[kernel](torch, dev, rng)
+
+    def call(lib, launch):
+        err = launch(lib, stream)
+        if err:
+            raise RuntimeError(f"launch failed with cudaError {err}")
+
+    for name, lib in libs.items():
+        if variants[name][1]:
+            continue
+        for label, launch, outs, refs, limit, _ in cases:
+            call(lib, launch)
+            torch.cuda.synchronize()
+            for out, ref in zip(outs, refs):
+                rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+                print(f"{name} {label}: max error / max|plain| {rel:.3g} (limit {limit:g})")
+                if not rel <= limit:
+                    return 1
+
+    def per_call_ms(fn, n=50):
+        for _ in range(5):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    # Each variant's call of each case, and the library call where a case
+    # has one, in turns.
+    fns = {name: [lambda c=c, lib=lib: call(lib, c[1]) for c in cases] for name, lib in libs.items()}
+    if any(c[5] for c in cases):
+        fns["library"] = [c[5] for c in cases]
+    times = {(name, i): [] for name, row in fns.items() for i, fn in enumerate(row) if fn}
+    order = list(fns)
+    for rnd in range(4):
+        for name in order if rnd % 2 == 0 else order[::-1]:
+            for i, fn in enumerate(fns[name]):
+                if fn:
+                    times[(name, i)].append(per_call_ms(fn))
+    for (name, i), ts in times.items():
+        print(f"time {kernel} {name} {cases[i][0]}: median {statistics.median(ts):.4f} ms a call "
+              f"over 4 x 50 launches ({', '.join(f'{t:.4f}' for t in ts)})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

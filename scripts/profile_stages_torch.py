@@ -16,7 +16,7 @@ Stages:
                   plain NMS, composed here from the kernels' plain versions
                   and the port's tail: a yardstick, not a path of the port
   conv1a1b        conv1a+conv1b, no pool      (kernel conv_pair, CIN 1)
-  conv2           conv2a alone                (kernel conv3x3)
+  conv2           conv2a alone                (kernel conv3x3, operands prepared once)
   conv_pair       conv2a+conv2b, no pool      (kernel conv_pair, CIN 64)
   conv_pair_pool  conv2a+conv2b+pool          (kernel conv_pair_pool)
   conv1a1b_pool   conv1a+conv1b+pool          (kernel conv_pair_pool, CIN 1)
@@ -102,6 +102,7 @@ def run_stages(
     from superslam_tpu_torch.ops.cuda.attention import masked_attention
     from superslam_tpu_torch.ops.cuda.conv import (
         conv3x3,
+        conv3x3_operands,
         conv_pair,
         conv_pair_pool,
         conv_pair_pool_plain,
@@ -132,6 +133,9 @@ def run_stages(
     lg = lgm.init_lightglue_params(0, device=device)
     lg_cast = lgm.cast_compute_params(lg)  # the unfused route's weights
     lg_ready = lgm.prepare_params(lg, device)  # + the fused blocks' operands
+
+    # conv2a's kernel operands, laid out once as a caller of conv3x3 would.
+    conv2a_ops = conv3x3_operands(sp["conv2a.weight"], sp["conv2a.bias"])
 
     def pair(name):
         return [sp[f"{name}{ab}.{kind}"] for ab in "ab" for kind in ("weight", "bias")]
@@ -168,7 +172,9 @@ def run_stages(
         "dense_pallas": lambda: spm.superpoint_dense(sp_ready, img),
         "dense_xla": dense_xla,
         "conv1a1b": lambda: conv_pair(img[:, None], *pair("conv1")),
-        "conv2": lambda: conv3x3(half, sp["conv2a.weight"], sp["conv2a.bias"]),
+        "conv2": lambda: conv3x3(
+            half, sp["conv2a.weight"], sp["conv2a.bias"], operands=conv2a_ops
+        ),
         "conv_pair": lambda: conv_pair(half, *pair("conv2")),
         "conv_pair_pool": lambda: conv_pair_pool(half, *pair("conv2")),
         "conv1a1b_pool": lambda: conv_pair_pool(img[:, None], *pair("conv1")),

@@ -71,10 +71,10 @@ _SIGNATURES = {
     "ssl_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # s, out, B, H, W, radius, stream
     "ssl_nms": [_P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, mask, out, B, heads, N, is_bf16, stream
-    "ssl_masked_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, mask, dout, dq, dk, dv, stats scratch, B, heads, N, is_bf16, stream
-    "ssl_masked_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # q, k, v, mask, out, stats (or null), B, heads, N, is_bf16, stream
+    "ssl_masked_attention": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # q, k, v, mask, dout, out, stats, dq, dk, dv, B, heads, N, is_bf16, stream
+    "ssl_masked_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _P],
     # x, cos, sin, mask, wqkv, bqkv, wout, bout, w0, b0, g, be, w3, b3,
     # qkv scratch, ctx scratch, out, B, K, is_bf16, stream
     "ssl_fused_self_block": [_P] * 17 + [_I, _I, _I, _P],

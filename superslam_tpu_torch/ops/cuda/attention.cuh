@@ -23,6 +23,12 @@
 //   pair rows (2p, 2p+1) attend each other (the cross block);
 // - merged = 1 writes the context as (B, N, heads*64) rows, the layout the
 //   block's tail consumes, instead of (B, heads, N, 64).
+// A non-null stats pointer (2, B, heads, N) f32 also receives each query
+// row's softmax maximum m (of the scaled, replaced logits) and 1 / l, its
+// sum's inverse: the residuals of the backward (attention_bwd.cu). The two
+// are kept apart, not as a log-sum-exp: in a row whose keys are all masked
+// m = -1e9 would swallow log N in f32. The fused blocks and calls without
+// autograd pass null and compute exactly what they computed before.
 #pragma once
 
 #include <math.h>
@@ -48,8 +54,8 @@ template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                     T* __restrict__ out, int heads, int N, float scale, int kv_xor,
-                     int merged) {
+                     T* __restrict__ out, float* __restrict__ stats, int heads, int N,
+                     float scale, int kv_xor, int merged) {
   __shared__ float q_s[QT][D + 1];
   __shared__ float k_s[KT][D + 1];
   __shared__ float v_s[KT][D];
@@ -129,6 +135,11 @@ __global__ void __launch_bounds__(NTHREADS)
                   : out + base + size_t(q0 + row) * D;
 #pragma unroll
     for (int i = 0; i < 8; ++i) o[sub + 8 * i] = ssl_from_float<T>(acc[i] * inv);
+    if (stats != nullptr && sub == 0) {
+      const size_t at = size_t(bh) * N + q0 + row;
+      stats[at] = m_run;
+      stats[size_t(gridDim.y) * N + at] = inv;
+    }
   }
 }
 
@@ -146,8 +157,8 @@ template <typename bf16>
 __global__ void __launch_bounds__(WTHREADS)
     attention_wmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                          bf16* __restrict__ out, int heads, int N, float scale, int kv_xor,
-                          int merged) {
+                          bf16* __restrict__ out, float* __restrict__ stats, int heads, int N,
+                          float scale, int kv_xor, int merged) {
   static_assert(std::is_same<bf16, __nv_bfloat16>::value, "the WMMA kernel is bf16 only");
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -265,14 +276,20 @@ __global__ void __launch_bounds__(WTHREADS)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i)
       o[half + 2 * i] = __float2bfloat16(o_s[row * LDF + half + 2 * i] * inv);
+    if (stats != nullptr && half == 0) {
+      const size_t at = size_t(bh) * N + qrow;
+      stats[at] = m_run;
+      stats[size_t(gridDim.y) * N + at] = inv;
+    }
   }
 }
 
 // q, k, v: (B, heads, N, 64); mask: (B, N) bytes, nonzero = real key; out:
-// (B, heads, N, 64), or (B, N, heads*64) when merged.
+// (B, heads, N, 64), or (B, N, heads*64) when merged; stats: null, or (2, B,
+// heads, N) f32 for m and 1 / l.
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask,
-                   void* out, int B, int heads, int N, int kv_xor, int merged,
+                   void* out, float* stats, int B, int heads, int N, int kv_xor, int merged,
                    cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -281,14 +298,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* m
     dim3 grid((N + WQ - 1) / WQ, B * heads);
     attention_wmma_kernel<T><<<grid, WTHREADS, W_SMEM, stream>>>(
         reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-        reinterpret_cast<const T*>(v), mask, reinterpret_cast<T*>(out), heads, N,
+        reinterpret_cast<const T*>(v), mask, reinterpret_cast<T*>(out), stats, heads, N,
         0.125f /* 1/sqrt(64) */, kv_xor, merged);
     return cudaGetLastError();
   } else {
     dim3 grid((N + QT - 1) / QT, B * heads);
     attention_kernel<T><<<grid, NTHREADS, 0, stream>>>(
         reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-        reinterpret_cast<const T*>(v), mask, reinterpret_cast<T*>(out), heads, N,
+        reinterpret_cast<const T*>(v), mask, reinterpret_cast<T*>(out), stats, heads, N,
         0.125f /* 1/sqrt(64) */, kv_xor, merged);
     return cudaGetLastError();
   }

@@ -12,8 +12,12 @@ goes through ``masked_attention_plain`` and
 
 One ``torch.autograd.Function`` serves every device, so a result carries a
 ``grad_fn`` on the card as on the CPU. It saves q, k, v and the mask (the
-JAX VJP's residuals); under ``torch.no_grad()`` nothing is saved. The mask
-gets no gradient. Launches count as ``masked_attention`` (forward) and
+JAX VJP's residuals) and, on the card, the forward's output and its row
+statistics (each query row's softmax maximum and 1 / sum, written by the
+forward kernel only when a gradient is wanted), which the backward kernels
+read instead of recomputing the softmax; under ``torch.no_grad()`` nothing
+is saved and the forward writes no statistics. The mask gets no gradient.
+Launches count as ``masked_attention`` (forward) and
 ``masked_attention_bwd`` (backward).
 
 A query row whose keys are all masked gets the uniform mean of v over the
@@ -59,6 +63,20 @@ def masked_attention_plain(
     return out.to(v.dtype)
 
 
+def attention_row_stats_plain(
+    q: torch.Tensor, k: torch.Tensor, key_mask: torch.Tensor
+) -> torch.Tensor:
+    """(2, B, H, N) f32: each query row's softmax maximum m (of the scaled
+    logits, masked keys at -1e9) and 1 / l (l = sum of exp(logit - m)), the
+    row statistics the forward kernel writes for the backward."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    logits = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
+    logits = torch.where(key_mask[:, None, None, :], logits, torch.full_like(logits, NEG))
+    m = logits.amax(dim=-1)
+    inv_l = 1.0 / torch.exp(logits - m[..., None]).sum(dim=-1)
+    return torch.stack([m, inv_l])
+
+
 def masked_attention_backward_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -94,9 +112,20 @@ def _check(name: str, q, k, v, key_mask) -> None:
         raise ValueError(f"{name}: key_mask {key_mask.shape} {key_mask.dtype}")
 
 
-def _forward(q, k, v, key_mask) -> torch.Tensor:
+def _aligned(name: str, *ts: torch.Tensor) -> None:
+    """The kernels read and write 16-byte vectors."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor is not 16-byte aligned (storage offset "
+                             f"{t.storage_offset()})")
+
+
+def _forward(q, k, v, key_mask, with_stats: bool = False):
+    """(out, stats): stats is ``attention_row_stats_plain``'s (2, B, H, N)
+    f32, written by the kernel on the card, when ``with_stats``, else None."""
     if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, key_mask)
+        out = masked_attention_plain(q, k, v, key_mask)
+        return out, attention_row_stats_plain(q, k, key_mask) if with_stats else None
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention: unsupported device {q.device}")
     _check("masked_attention", q, k, v, key_mask)
@@ -104,13 +133,25 @@ def _forward(q, k, v, key_mask) -> torch.Tensor:
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     mc = key_mask.contiguous()
     out = torch.empty_like(vc)
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device) if with_stats else None
     err = _build.library().ssl_masked_attention(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), mc.data_ptr(), out.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         b, h, n, int(q.dtype == torch.bfloat16), _build.stream_of(q),
     )
     _build.check(err, "masked_attention")
     _build.count("masked_attention")
-    return out
+    return out, stats
+
+
+def masked_attention_with_stats(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward (not differentiable) and its row statistics: (out,
+    stats), stats (2, B, H, N) f32 = each query row's softmax maximum and
+    1 / sum, the residuals ``masked_attention_backward`` takes with out."""
+    with torch.no_grad():
+        return _forward(q, k, v, key_mask, with_stats=True)
 
 
 def masked_attention_backward(
@@ -119,27 +160,36 @@ def masked_attention_backward(
     v: torch.Tensor,
     key_mask: torch.Tensor,
     grad_out: torch.Tensor,
+    out: torch.Tensor | None,
+    stats: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``masked_attention`` with respect to q, k and v, each
-    (B, H, N, 64) in its input's type, given the output's gradient."""
+    (B, H, N, 64) in its input's type, given the output's gradient and the
+    forward's residuals: its output ``out`` and row statistics ``stats``
+    (``masked_attention_with_stats``). A CPU tensor takes
+    ``masked_attention_backward_plain``, which ignores both (they may be
+    None there); on the card a missing residual raises."""
     if q.device.type == "cpu":
         return masked_attention_backward_plain(q, k, v, key_mask, grad_out)
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention_backward: unsupported device {q.device}")
     _check("masked_attention_backward", q, k, v, key_mask)
-    if grad_out.shape != q.shape or grad_out.dtype != q.dtype:
-        raise ValueError(
-            f"masked_attention_backward: grad_out {grad_out.shape} {grad_out.dtype}"
-        )
     b, h, n, _ = q.shape
-    qc, kc, vc, gc = (t.contiguous() for t in (q, k, v, grad_out))
-    mc = key_mask.contiguous()
+    for label, t in (("grad_out", grad_out), ("out", out)):
+        if t is None or t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            got = None if t is None else (tuple(t.shape), t.dtype, str(t.device))
+            raise ValueError(f"masked_attention_backward: {label} {got}")
+    if (stats is None or stats.shape != (2, b, h, n) or stats.dtype != torch.float32
+            or stats.device != q.device):
+        got = None if stats is None else (tuple(stats.shape), stats.dtype, str(stats.device))
+        raise ValueError(f"masked_attention_backward: stats {got}, want (2, {b}, {h}, {n}) f32")
+    qc, kc, vc, gc, oc = (t.contiguous() for t in (q, k, v, grad_out, out))
+    mc, sc = key_mask.contiguous(), stats.contiguous()
     dq, dk, dv = torch.empty_like(qc), torch.empty_like(kc), torch.empty_like(vc)
-    # Row maximum, 1 / row sum and delta of every query row, f32.
-    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    _aligned("masked_attention_backward", qc, kc, vc, gc, oc)
     err = _build.library().ssl_masked_attention_bwd(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), mc.data_ptr(), gc.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        oc.data_ptr(), sc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, n, int(q.dtype == torch.bfloat16), _build.stream_of(q),
     )
     _build.check(err, "masked_attention_backward")
@@ -150,14 +200,18 @@ def masked_attention_backward(
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
-        ctx.save_for_backward(q, k, v, key_mask)
-        return _forward(q, k, v, key_mask)
+        # The row statistics only when a gradient will be asked for, and only
+        # on the card: the CPU backward recomputes the softmax.
+        with_stats = q.device.type == "cuda" and any(ctx.needs_input_grad[:3])
+        out, stats = _forward(q, k, v, key_mask, with_stats)
+        ctx.save_for_backward(q, k, v, key_mask, out if with_stats else None, stats)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        q, k, v, key_mask = ctx.saved_tensors
-        dq, dk, dv = masked_attention_backward(q, k, v, key_mask, grad_out)
+        q, k, v, key_mask, out, stats = ctx.saved_tensors
+        dq, dk, dv = masked_attention_backward(q, k, v, key_mask, grad_out, out, stats)
         return dq, dk, dv, None
 
 
@@ -166,4 +220,65 @@ def masked_attention(
 ) -> torch.Tensor:
     """(B, H, N, 64) q, k, v in bf16 or f32 + (B, N) bool key mask ->
     (B, H, N, 64) in v's type; differentiable in q, k and v."""
-    return _MaskedAttention.apply(q, k, v, key_mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _MaskedAttention.apply(q, k, v, key_mask)
+    return _forward(q, k, v, key_mask)[0]  # no graph: no residuals, no statistics
+
+
+# attention_bwd.cu's tiling: the block's own rows, the rows of a walked tile
+# and the warps across a walked tile (BR, BC, WC there; edit both together).
+BWD_ROWS, BWD_WALK, BWD_WARP_COLS = 64, 64, 2
+
+
+def bwd_layout(rows: int = BWD_ROWS, walk: int = BWD_WALK, warp_cols: int = BWD_WARP_COLS) -> dict:
+    """The shared-memory address model of ``attention_bwd.cu`` (both
+    kernels), in 4-byte words.
+
+    Keys: ``pitch`` (68 words a staged row) and ``red_pitch`` (72, the
+    reduction scratch); ``planes``: name -> (offset, rows) of each staged
+    plane (``own0``, ``own1``: the block's two own tensors, q and dO in the
+    dq kernel, k and v in the dk/dv kernel; ``walk0``, ``walk1``: the walked
+    tile's two, k and v or q and dO; each with a ``b`` (big) and an ``s``
+    (small) plane), ``raw`` (offset, words) of the staging buffer that
+    cp.async fills with the next walked tile (up to three tensors of walk x
+    64 elements, unpadded), ``vectors`` (offset, words) of the per-row
+    vectors, ``red_region`` (offset, rows) of the reduction scratch
+    (aliasing the walked planes after the loop; dV's rows, then dK's),
+    ``smem_bytes``, ``nthreads``, ``warps``: the (first own row, first
+    walked row) of each warp, ``ntc``: n-tiles of a warp's logits. Word offsets inside a plane, for lane ``l`` (g = l >> 2,
+    t = l & 3):
+
+    - ``a_rows(l, m0, k0, reg)``: A register ``reg`` of an S-type product
+      (row m0 + g + 8 (reg & 1), column k0 + t + 4 (reg >> 1));
+    - ``b_rows(l, n0, k0, reg)``: its B register ``reg`` (row n0 + g,
+      column k0 + t + 4 reg);
+    - ``b_perm(l, n0, kk, nt, reg)``: B register ``reg`` of a product whose
+      A is a warp's accumulators, k permuted (row n0 + 8 kk + 2t + reg,
+      column 8 nt + g);
+    - ``stage(i)``: the (row, column) of the 4-word chunk that staging
+      index i stores (i = thread + round x nthreads), and of the 4-element
+      chunk of each raw tensor that it copies and reads back;
+    - ``red(l, m0, nt, hr)``: the float2 of the reduction scratch for rows
+      m0 + g + 8 hr, column 8 nt + 2t.
+    """
+    ld, rld = 68, 72
+    wr = rows // 16
+    planes, off = {}, 0
+    for name, n in (("own0", rows), ("own1", rows), ("walk0", walk), ("walk1", walk)):
+        for part in "bs":
+            planes[name + part] = (off, n)
+            off += n * ld
+    raw = (off, 3 * walk * 64)
+    off += raw[1]
+    vectors = (off, 3 * walk + 3 * rows)
+    return dict(
+        pitch=ld, red_pitch=rld, planes=planes, raw=raw, vectors=vectors,
+        red_region=(planes["walk0b"][0], 2 * rows), smem_bytes=4 * (off + vectors[1]),
+        nthreads=32 * wr * warp_cols, ntc=walk // warp_cols // 8,
+        warps=[(16 * (w % wr), walk // warp_cols * (w // wr)) for w in range(wr * warp_cols)],
+        a_rows=lambda l, m0, k0, reg: (m0 + (l >> 2) + 8 * (reg & 1)) * ld + k0 + (l & 3) + 4 * (reg >> 1),
+        b_rows=lambda l, n0, k0, reg: (n0 + (l >> 2)) * ld + k0 + (l & 3) + 4 * reg,
+        b_perm=lambda l, n0, kk, nt, reg: (n0 + 8 * kk + 2 * (l & 3) + reg) * ld + 8 * nt + (l >> 2),
+        stage=lambda i: (i >> 4, (i & 15) * 4),
+        red=lambda l, m0, nt, hr: (m0 + (l >> 2) + 8 * hr) * rld + 8 * nt + 2 * (l & 3),
+    )

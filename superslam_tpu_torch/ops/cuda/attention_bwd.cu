@@ -14,33 +14,72 @@
 // is non-zero. Wherever a row has one real key, p of a masked key underflows
 // to exactly 0 in f32 and this equals _sdpa_bwd.
 //
-// Residuals: q, k, v and the mask, as the JAX VJP saves them; the forward
-// emits no log-sum-exp, so the backward recomputes the row maximum and sum
-// (kept apart, not as their log-sum-exp: in a fully-masked row the maximum
-// is -1e9, which would swallow log N in f32).
-// Everything inside is f32 (inputs may be bf16 or f32; results are cast to
-// the inputs' type).
+// Residuals: q, k, v, the mask, the forward's output O and, per query row,
+// the forward's softmax maximum m and 1 / l (attention.cuh writes them when
+// asked), kept apart as two f32 planes: in a fully-masked row m = -1e9 would
+// swallow log N in a log-sum-exp. So p = exp(s - m) / l needs no softmax
+// pass, and rowsum(dp * p) = dO . O (delta) needs no product: each kernel
+// takes the 64-long dot of its own query rows while it stages dO.
+// Inputs may be bf16 or f32; everything inside is f32 and results are cast
+// to the inputs' type.
 //
 // Bound on the H100: operations. Training calls are (16, 4, 256, 64) f32:
-// five N x N x 64 products per head = 2.7 GFLOP against 29 MB of q, k, v,
-// dO, dq, dk, dv. f32 at 1e-4 of the plain version rules out the tensor
-// cores (TF32 keeps three digits), so the products are FMA loops.
-// What the design does: flash-style, two kernels, no atomics, so the result
+// five N x N x 64 products per head over the real keys, ~1.9 GFLOP at f32
+// precision, i.e. ~5.8 GFLOP of TF32 in 3xTF32 (0.0117 ms at 495 TFLOP/s),
+// plus ~0.02 GFLOP of f32 per logit; 0.0121 ms in all, against 34 MB of q,
+// k, v, dO, O, the row statistics, dq, dk, dv (0.0101 ms at 3.35 TB/s). What the design does about it (two kernels, no atomics, so the result
 // does not depend on block order and the N x N probabilities never reach
-// device memory.
-//   1. attention_bwd_dq_kernel, one block per (batch row, head, 32-query
-//      tile), walks the key tiles twice: first an online softmax that also
-//      carries sum_j e_ij dp_ij, giving the row's maximum, 1 / sum and
-//      delta_i = rowsum(dp * p) (all three written to scratch for kernel 2);
-//      then p, dp, ds again and dq += ds k.
-//   2. attention_bwd_dkv_kernel, one block per (batch row, head, 32-key
-//      tile), walks the query tiles with those row statistics:
-//      dv += p^T dO and dk += ds^T q in registers.
-// That is nine tile products where five are needed: what holds it back is
-// the recomputation and the CUDA-core FMA rate. Later work: keep the
-// forward's log-sum-exp and O (delta = rowsum(dO * O) then needs no
-// product), skip key tiles past the last real key, 3xTF32 or bf16 tensor
-// core products.
+// device memory):
+//   1. attn_bwd_dkv_kernel, one block per (batch row, head, BR-key tile),
+//      walks the query tiles: S^T = K Q^T, P^T from (m, 1/l), dV += P^T dO,
+//      dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+//   2. attn_bwd_dq_kernel, one block per (batch row, head, BR-query tile),
+//      walks the key tiles: S = Q K^T, P, dP = dO V^T, dS, dQ += dS K.
+//   Seven tile products where the earlier FMA kernels ran nine.
+//   * Key tiles that hold no real key are skipped. The dq kernel tests each
+//     key tile's mask bytes (a warp vote) and skips it: its ds is 0. In
+//     the dk/dv kernel such a tile has dk = 0, and dv = 0 wherever the batch
+//     row has a real key (p underflows to exactly 0 in f32), so the block
+//     writes zeros and leaves; only a fully-masked batch row computes dv (p
+//     = 1/N there; dq = dk = 0).
+//   * The products run on the tensor cores in 3xTF32: mma.sync m16n8k8
+//     tf32 with f32 accumulators; each operand x is split into big =
+//     tf32(x) and small = tf32(x - big) (cvt.rna.tf32.f32) and the product
+//     is big*big + big*small + small*big, about f32's accuracy (one TF32
+//     product keeps three digits and misses the 1e-4 limit:
+//     tests/test_torch_attention_bwd_model.py). The staged q, k, v and dO
+//     tiles are split once, on their way into shared memory (big and small
+//     planes side by side); P and dS are split in registers. A bf16 input
+//     is exact in TF32 (its small part is 0): one code path for both types.
+//   * Fragment layouts: the m16n8 accumulator (c0..c3 at (g, 2t), (g, 2t+1),
+//     (g+8, 2t), (g+8, 2t+1)) is not the m16n8k8 A layout ((g, t), (g+8, t),
+//     (g, t+4), (g+8, t+4)). Neither shuffles nor a staging tile are used:
+//     the k index of a product is permuted instead (k slot t is column 2t,
+//     slot t + 4 is column 2t + 1), so a lane's P or dS accumulators are
+//     its A fragment as they stand, and the B operand reads rows 2t and 2t
+//     + 1 of the staged tile (pattern (row 2t, col g)). mm_acc below.
+//   * Bank conflicts: the staged tiles are read in two patterns, (row g,
+//     col t) for S-type products and (row 2t (+1), col g) for the permuted
+//     ones. A pitch of 68 floats keeps both conflict-free (4g + t and 8t +
+//     g (+ 4) are 32 distinct banks); the cross-warp reduction of the
+//     partial sums uses a pitch of 72 for its float2 stores. The model is
+//     attention.py::bwd_layout; tests/test_torch_attention_bwd_model.py
+//     enumerates every fragment load on the CPU, proves each conflict-free
+//     and in bounds, and checks it against the constants below.
+//   * Staging: the next walked tile arrives raw (f32 or bf16,
+//     zero-filled past N) by cp.async into a staging buffer while this
+//     tile's products run; the split into big and small planes (and, in
+//     the dk/dv kernel, delta) reads it back from shared memory. About 12%
+//     faster than staging straight from device memory between two barriers
+//     (one 190 KB block per SM: nothing else overlaps the loads). The dq
+//     kernel finds the next key tile with a real key by a warp vote over
+//     its mask bytes, so a skipped tile is never loaded.
+//   * Grid: a block is BR / 16 x WC warps, each owning 16 of the block's rows
+//     and BC / WC of a walked tile's; the WC partial sums of a row meet in
+//     shared memory at the end. At (16, 4, 256, 64), BR = 64 gives 256
+//     blocks a kernel and BR = 32 512; BR = 32 (two blocks per SM) and WC =
+//     1 (4 warps) were slower (scripts/conv_variants_torch.py, variants
+//     "r32:BR=32", "wc1:WC=1"; PERF.md has the times).
 #include <math.h>
 
 #include "common.cuh"
@@ -48,236 +87,439 @@
 namespace {
 
 constexpr int D = 64;
-constexpr int TQ = 32, TK = 32;  // tile rows; eight threads own a row
-constexpr int NTHREADS = 256;
+constexpr int LD = D + 4;     // floats a staged row: 68 (conflict-free in both patterns)
+constexpr int RLD = D + 8;    // floats a row of the reduction scratch: 72
+constexpr int BR = 64;        // the block's own rows (queries for dq, keys for dk/dv)
+constexpr int BC = 64;        // rows of a walked tile (keys for dq, queries for dk/dv)
+constexpr int WC = 2;         // warps across a walked tile (1 or 2)
+constexpr int WR = BR / 16;   // warps across the own rows
+constexpr int NWARPS = WR * WC;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int CW = BC / WC;   // walked rows (logit columns) of one warp
+constexpr int NTC = CW / 8;   // n-tiles of a warp's logits
+constexpr int OWN = 4 * BR * LD;    // floats: two own tensors, big and small planes
+constexpr int WALK = 4 * BC * LD;   // floats: two walked tensors, big and small planes
+constexpr int RAW = 3 * BC * D;      // floats: the raw staging buffer (f32 at most)
+constexpr int SMEM_FLOATS = OWN + WALK + RAW + 3 * BC + 3 * BR;
+constexpr int SMEM_BYTES = SMEM_FLOATS * 4;  // 189,952 at BR = BC = 64
 constexpr float NEG = -1e9f;
 constexpr float SCALE = 0.125f;  // 1/sqrt(64)
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float (*dst)[D + 1], const T* __restrict__ src,
-                                          int r0, int N, int tid) {
-  for (int i = tid; i < TQ * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
-    dst[r][d] = (r0 + r < N) ? ssl_to_float(src[size_t(r0 + r) * D + d]) : 0.0f;
+static_assert(BR % 16 == 0 && BC % (8 * WC) == 0 && (WC == 1 || WC == 2), "tiles");
+static_assert((BR * 16) % NTHREADS == 0 && (BC * 16) % NTHREADS == 0, "uniform staging loops");
+static_assert(BC <= NTHREADS && BR <= NTHREADS, "one thread a row for the vectors");
+static_assert(WC == 1 || 2 * BR * RLD <= WALK, "the reduction scratch fits the walked tiles");
+static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+__device__ __forceinline__ float tf32_big(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// c (16 x 8) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: c += (ab + as)(bb + bs) less the small x small term.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                     uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as[0], as[1], as[2], as[3], bb0, bb1);
+  mma_tf32(c, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
+  mma_tf32(c, ab[0], ab[1], ab[2], ab[3], bb0, bb1);
+}
+
+__device__ __forceinline__ uint32_t lds(const float* p) { return __float_as_uint(*p); }
+
+// 4 elements from global or shared memory, as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void split_store(float* big, float* small, int at, float4 v) {
+  const float4 hb = make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
+  *reinterpret_cast<float4*>(big + at) = hb;
+  *reinterpret_cast<float4*>(small + at) = make_float4(
+      tf32_big(v.x - hb.x), tf32_big(v.y - hb.y), tf32_big(v.z - hb.z), tf32_big(v.w - hb.w));
+}
+
+// Rows r0 .. r0 + ROWS of src (N x 64, global or the raw staging buffer)
+// into big and small planes of pitch LD, zero past N. Thread i of a round
+// takes the 4-element chunk i & 15 of row i >> 4.
+template <int ROWS, typename T>
+__device__ __forceinline__ void stage(float* big, float* small, const T* src, int r0, int N,
+                                      int tid) {
+  for (int i = tid; i < ROWS * 16; i += NTHREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const float4 v = r0 + r < N ? load4(src + size_t(r0 + r) * D + c) : make_float4(0, 0, 0, 0);
+    split_store(big, small, r * LD + c, v);
   }
 }
 
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  float s = 0.0f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) s += a[d] * b[d];
-  return s;
+// The same for dO, and delta_s[r] = dO_r . O_r in f32: the 16 lanes of a
+// row's chunks are one half-warp.
+template <int ROWS, typename T>
+__device__ __forceinline__ void stage_delta(float* big, float* small, float* delta_s,
+                                            const T* dout, const T* o, int r0, int N, int tid) {
+  for (int i = tid; i < ROWS * 16; i += NTHREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const bool in = r0 + r < N;
+    const float4 g = in ? load4(dout + size_t(r0 + r) * D + c) : make_float4(0, 0, 0, 0);
+    const float4 y = in ? load4(o + size_t(r0 + r) * D + c) : make_float4(0, 0, 0, 0);
+    float part = g.x * y.x + g.y * y.y + g.z * y.z + g.w * y.w;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if ((i & 15) == 0) delta_s[r] = part;
+    split_store(big, small, r * LD + c, g);
+  }
 }
 
-// Sum / max over the eight lanes that own a row (they share a warp).
-__device__ __forceinline__ float row_sum(float v) {
+// The next walked tile's rows of NT tensors (src[t] + r0 rows, N x
+// 64) into the raw staging buffer (NT x BC x 64 elements of T, unpadded) by
+// cp.async, 4 elements a copy, zero-filled past N; one commit group a call.
+template <int NT, typename T>
+__device__ __forceinline__ void prefetch(T* raw, const T* const (&src)[NT], int r0, int N,
+                                         int tid) {
+  for (int i = tid; r0 < N && i < BC * 16; i += NTHREADS) {
+    const int r = i >> 4, c = (i & 15) * 4;
+    const bool in = r0 + r < N;
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int t = 0; t < NT; ++t) {
+      const uint32_t dst = uint32_t(__cvta_generic_to_shared(raw + (t * BC + r) * D + c));
+      const T* from = in ? src[t] + size_t(r0 + r) * D + c : src[t];
+      if constexpr (sizeof(T) == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(from),
+                     "r"(in ? 16 : 0));
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(from),
+                     "r"(in ? 8 : 0));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ float row_max(float v) {
+__device__ __forceinline__ void prefetch_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// c[p][nt] = X_p[m0 .. m0+16, :] . Y_p[n0 + 8 nt .. n0 + 8 nt + 8, :]^T
+// over the 64 columns (k = d) for the warp's two S-type products p, X and
+// Y staged (big, small). A: (row g, col t) and (g + 8, t + 4) etc.; B: (row
+// g, col t): banks 4g + t.
+__device__ __forceinline__ void mm_rows(float (&c)[2][NTC][4], const float* const (&x)[2][2],
+                                        int m0, const float* const (&y)[2][2], int n0,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int a_lo = (m0 + g) * LD + t, a_hi = a_lo + 8 * LD;
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int p = 0; p < 2; ++p) {
+    const float *xb = x[p][0], *xs = x[p][1], *yb = y[p][0], *ys = y[p][1];
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt) c[p][nt][0] = c[p][nt][1] = c[p][nt][2] = c[p][nt][3] = 0.0f;
+#pragma unroll
+    for (int k0 = 0; k0 < D; k0 += 8) {
+      const uint32_t ab[4] = {lds(xb + a_lo + k0), lds(xb + a_hi + k0),
+                              lds(xb + a_lo + k0 + 4), lds(xb + a_hi + k0 + 4)};
+      const uint32_t as[4] = {lds(xs + a_lo + k0), lds(xs + a_hi + k0),
+                              lds(xs + a_lo + k0 + 4), lds(xs + a_hi + k0 + 4)};
+#pragma unroll
+      for (int nt = 0; nt < NTC; ++nt) {
+        const int bi = (n0 + 8 * nt + g) * LD + t + k0;
+        mma3(c[p][nt], ab, as, lds(yb + bi), lds(yb + bi + 4), lds(ys + bi), lds(ys + bi + 4));
+      }
+    }
+  }
+}
+
+// acc[nt] += P . Z[n0 .. n0 + CW, 8 nt .. 8 nt + 8], P (16 x CW) the warp's
+// accumulators of an S-type product (register A operand), Z staged (big,
+// small). k is permuted within each 8-step: slot t is column 2t, slot t + 4
+// column 2t + 1, so A = (p0, p2, p1, p3) of the lane as it stands and B
+// reads Z rows n0 + 8 kk + 2t and + 1 at column 8 nt + g: banks 8t + g (+ 4).
+__device__ __forceinline__ void mm_acc(float (&acc)[8][4], const float (&p)[NTC][4],
+                                       const float* zb, const float* zs, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < NTC; ++kk) {
+    uint32_t ab[4], as[4];
+    const float pv[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float hb = tf32_big(pv[e]);
+      ab[e] = __float_as_uint(hb);
+      as[e] = __float_as_uint(tf32_big(pv[e] - hb));
+    }
+    const int row = (n0 + 8 * kk + 2 * t) * LD + g;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int bi = row + 8 * nt;
+      mma3(acc[nt], ab, as, lds(zb + bi), lds(zb + bi + LD), lds(zs + bi), lds(zs + bi + LD));
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+
+// Adds the partial sums of the warps with wc > 0 onto those of wc = 0
+// through red (pitch RLD floats, float2 at (row g (+8), col 8 nt + 2t):
+// banks 8g + 2t of a half-warp phase), then warps wc = 0 write rows r0 + m0
+// + g (+ 8) < N of out (scaled).
+template <typename T>
+__device__ __forceinline__ void reduce_store(float (&acc)[8][4], float* red, int wc, int m0,
+                                             T* __restrict__ out, int r0, int N, float scale,
+                                             int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  if (WC > 1) {
+    if (wc == 1) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<float2*>(red + (m0 + g) * RLD + 8 * nt + t2) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(red + (m0 + g + 8) * RLD + 8 * nt + t2) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+    __syncthreads();
+    if (wc != 0) return;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 lo = *reinterpret_cast<const float2*>(red + (m0 + g) * RLD + 8 * nt + t2);
+      const float2 hi = *reinterpret_cast<const float2*>(red + (m0 + g + 8) * RLD + 8 * nt + t2);
+      acc[nt][0] += lo.x, acc[nt][1] += lo.y, acc[nt][2] += hi.x, acc[nt][3] += hi.y;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + m0 + g + 8 * hr;
+    if (row >= N) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      store2(out + size_t(row) * D + 8 * nt + t2, acc[nt][2 * hr] * scale,
+             acc[nt][2 * hr + 1] * scale);
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                            const T* __restrict__ dout, T* __restrict__ dq,
-                            float* __restrict__ stats, int heads, int N) {
-  __shared__ float q_s[TQ][D + 1];
-  __shared__ float do_s[TQ][D + 1];
-  __shared__ float k_s[TK][D + 1];
-  __shared__ float v_s[TK][D + 1];
-  __shared__ float ds_s[TQ][TK + 1];
-  __shared__ float valid_s[TK];  // 1 real key, 0 masked key, -1 past N
+    attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                       const T* __restrict__ dout, const T* __restrict__ o,
+                       const float* __restrict__ stats, T* __restrict__ dq, int heads, int N) {
+  extern __shared__ __align__(16) float sm[];
+  float *qb = sm, *qs = qb + BR * LD, *gb = qs + BR * LD, *gs = gb + BR * LD;
+  float *kb = sm + OWN, *ks = kb + BC * LD, *vb = ks + BC * LD, *vs = vb + BC * LD;
+  T* raw = reinterpret_cast<T*>(sm + OWN + WALK);  // k, v of the next key tile
+  float* valid_s = sm + OWN + WALK + RAW;          // BC: 1 real key, 0 masked or past N
+  float *m_s = valid_s + BC, *inv_s = m_s + BR, *delta_s = inv_s + BR;
 
-  const int bh = blockIdx.y, b = bh / heads;
-  const int q0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, row = tid / 8, sub = tid % 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp % WR, wc = warp / WR, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, r0 = blockIdx.x * BR;
   const size_t base = size_t(bh) * N * D;
-  const uint8_t* m = mask + size_t(b) * N;
+  const uint8_t* mrow = mask + size_t(b) * N;
+  const T* const kv[2] = {k + base, v + base};
 
-  load_tile(q_s, q + base, q0, N, tid);
-  load_tile(do_s, dout + base, q0, N, tid);
-
-  // Pass 1: the row's maximum and sum, and delta = sum_j p_ij dp_ij.
-  float m_run = -INFINITY, l_run = 0.0f, dl_run = 0.0f;
-  for (int k0 = 0; k0 < N; k0 += TK) {
-    __syncthreads();  // the previous tile is consumed (and q_s, do_s are loaded)
-    load_tile(k_s, k + base, k0, N, tid);
-    load_tile(v_s, v + base, k0, N, tid);
-    if (tid < TK) valid_s[tid] = (k0 + tid < N) ? (m[k0 + tid] ? 1.0f : 0.0f) : -1.0f;
-    __syncthreads();
-    float s[4], dp[4];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int j = sub + 8 * t;
-      const float vj = valid_s[j];
-      const float dot = dot64(q_s[row], k_s[j]);
-      dp[t] = dot64(do_s[row], v_s[j]);
-      s[t] = vj < 0.0f ? -INFINITY : (vj > 0.0f ? dot * SCALE : NEG);
-      tmax = fmaxf(tmax, s[t]);
+  // The next key tile from k0 on that holds a real key (N if none): every
+  // warp votes over the tile's mask bytes, so the answer is block-uniform.
+  auto next_real = [&](int k0) {
+    for (; k0 < N; k0 += BC) {
+      bool any = false;
+      for (int i = lane; i < BC; i += 32) any |= k0 + i < N && __ldg(mrow + k0 + i) != 0;
+      if (__any_sync(0xffffffffu, any)) break;
     }
-    const float m_new = fmaxf(m_run, row_max(tmax));  // finite: the tile has a key < N
-    const float alpha = expf(m_run - m_new);
-    float esum = 0.0f, edp = 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float e = expf(s[t] - m_new);
-      esum += e;
-      edp += e * dp[t];
-    }
-    l_run = l_run * alpha + row_sum(esum);
-    dl_run = dl_run * alpha + row_sum(edp);
-    m_run = m_new;
+    return k0;
+  };
+  int k0 = next_real(0);
+  prefetch<2>(raw, kv, k0, N, tid);
+  stage<BR>(qb, qs, q + base, r0, N, tid);
+  stage_delta<BR>(gb, gs, delta_s, dout + base, o + base, r0, N, tid);
+  if (tid < BR) {
+    const bool in = r0 + tid < N;
+    m_s[tid] = in ? stats[size_t(bh) * N + r0 + tid] : 0.0f;
+    inv_s[tid] = in ? stats[size_t(gridDim.y) * N + size_t(bh) * N + r0 + tid] : 0.0f;
   }
-  const float inv_l = 1.0f / l_run;
-  const float delta_i = dl_run * inv_l;
-  if (sub == 0 && q0 + row < N) {
-    const size_t plane = size_t(gridDim.y) * N, at = size_t(bh) * N + q0 + row;
-    stats[at] = m_run;
-    stats[plane + at] = inv_l;
-    stats[2 * plane + at] = delta_i;
-  }
+  __syncthreads();
+  const int m0 = 16 * wr, n0 = CW * wc;
+  const float rm[2] = {m_s[m0 + g], m_s[m0 + g + 8]};
+  const float rinv[2] = {inv_s[m0 + g], inv_s[m0 + g + 8]};
+  const float rdelta[2] = {delta_s[m0 + g], delta_s[m0 + g + 8]};
+  const float* const x[2][2] = {{qb, qs}, {gb, gs}};
+  const float* const y[2][2] = {{kb, ks}, {vb, vs}};
 
-  // Pass 2: dq = sum_j ds_ij k_j / 8.
-  float acc[8];
+  float acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
-  for (int k0 = 0; k0 < N; k0 += TK) {
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  // Key tiles without a real key add nothing (ds = 0) and are never loaded.
+  while (k0 < N) {
+    const int kn = next_real(k0 + BC);
+    prefetch_wait();
+    __syncthreads();  // tile k0 landed for everyone; the planes are free
+    stage<BC>(kb, ks, raw, 0, BC, tid);
+    stage<BC>(vb, vs, raw + BC * D, 0, BC, tid);
+    if (tid < BC) valid_s[tid] = (k0 + tid < N && mrow[k0 + tid] != 0) ? 1.0f : 0.0f;
     __syncthreads();
-    load_tile(k_s, k + base, k0, N, tid);
-    load_tile(v_s, v + base, k0, N, tid);
-    if (tid < TK) valid_s[tid] = (k0 + tid < N) ? (m[k0 + tid] ? 1.0f : 0.0f) : -1.0f;
-    __syncthreads();
+    prefetch<2>(raw, kv, kn, N, tid);  // under this tile's products
+    float sdp[2][NTC][4];  // S, then ds; dP
+    mm_rows(sdp, x, m0, y, n0, lane);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int j = sub + 8 * t;
-      float ds = 0.0f;
-      if (valid_s[j] > 0.0f) {  // a masked logit is a constant: no gradient
-        const float p = expf(dot64(q_s[row], k_s[j]) * SCALE - m_run) * inv_l;
-        ds = p * (dot64(do_s[row], v_s[j]) - delta_i);
+    for (int nt = 0; nt < NTC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const float p = valid_s[n0 + 8 * nt + 2 * t + (e & 1)] > 0.0f
+                            ? expf(sdp[0][nt][e] * SCALE - rm[hr]) * rinv[hr]
+                            : 0.0f;
+        sdp[0][nt][e] = p * (sdp[1][nt][e] - rdelta[hr]);  // ds
       }
-      ds_s[row][j] = ds;
-    }
-    __syncwarp();  // the row's eight threads share a warp
-    for (int j = 0; j < TK; ++j) {
-      const float ds = ds_s[row][j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] += ds * k_s[j][sub + 8 * i];
-    }
+    mm_acc(acc, sdp[0], kb, ks, n0, lane);
+    k0 = kn;
   }
-  if (q0 + row < N) {
-    T* o = dq + base + size_t(q0 + row) * D;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[sub + 8 * i] = ssl_from_float<T>(acc[i] * SCALE);
-  }
+  __syncthreads();  // the walked tiles are free: the reduction scratch
+  reduce_store(acc, sm + OWN, wc, m0, dq + base, r0, N, SCALE, lane);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-    attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                             const T* __restrict__ dout, const float* __restrict__ stats,
-                             T* __restrict__ dk, T* __restrict__ dv, int heads, int N) {
-  __shared__ float k_s[TK][D + 1];
-  __shared__ float v_s[TK][D + 1];
-  __shared__ float q_s[TQ][D + 1];
-  __shared__ float do_s[TQ][D + 1];
-  __shared__ float p_s[TK][TQ + 1];   // p^T: [key][query]
-  __shared__ float ds_s[TK][TQ + 1];  // ds^T
-  __shared__ float max_s[TQ], inv_s[TQ], delta_s[TQ];
+    attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                        const T* __restrict__ dout, const T* __restrict__ o,
+                        const float* __restrict__ stats, T* __restrict__ dk,
+                        T* __restrict__ dv, int heads, int N) {
+  extern __shared__ __align__(16) float sm[];
+  float *kb = sm, *ks = kb + BR * LD, *vb = ks + BR * LD, *vs = vb + BR * LD;
+  float *qb = sm + OWN, *qs = qb + BC * LD, *gb = qs + BC * LD, *gs = gb + BC * LD;
+  T* raw = reinterpret_cast<T*>(sm + OWN + WALK);  // q, dO, O of the next query tile
+  float *qm_s = sm + OWN + WALK + RAW, *qinv_s = qm_s + BC, *qdelta_s = qinv_s + BC;
 
-  const int bh = blockIdx.y, b = bh / heads;
-  const int k0 = blockIdx.x * TK;
-  const int tid = threadIdx.x, row = tid / 8, sub = tid % 8;  // row = this thread's key
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp % WR, wc = warp / WR, g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / heads, r0 = blockIdx.x * BR;
   const size_t base = size_t(bh) * N * D;
-  const bool in = k0 + row < N;
-  const bool real = in && mask[size_t(b) * N + k0 + row] != 0;
+  const size_t plane = size_t(gridDim.y) * N;
+  const uint8_t* mrow = mask + size_t(b) * N;
+  const T* const qgo[3] = {q + base, dout + base, o + base};
 
-  load_tile(k_s, k + base, k0, N, tid);
-  load_tile(v_s, v + base, k0, N, tid);
+  int row_real = 0, tile_real = 0;
+  for (int i = tid; i < N; i += NTHREADS)
+    if (mrow[i]) row_real = 1, tile_real |= int(i >= r0 && i < r0 + BR);
+  row_real = __syncthreads_or(row_real);
+  tile_real = __syncthreads_or(tile_real);
+  if (row_real && !tile_real) {  // p = 0 and ds = 0 for every key here
+    for (int i = tid; i < BR * D; i += NTHREADS) {
+      if (r0 + i / D >= N) break;
+      dk[base + size_t(r0) * D + i] = ssl_from_float<T>(0.0f);
+      dv[base + size_t(r0) * D + i] = ssl_from_float<T>(0.0f);
+    }
+    return;
+  }
+  prefetch<3>(raw, qgo, 0, N, tid);
+  stage<BR>(kb, ks, k + base, r0, N, tid);
+  stage<BR>(vb, vs, v + base, r0, N, tid);
+  const int m0 = 16 * wr, n0 = CW * wc;
+  const bool real[2] = {r0 + m0 + g < N && mrow[r0 + m0 + g] != 0,
+                        r0 + m0 + g + 8 < N && mrow[r0 + m0 + g + 8] != 0};
+  const float* const x[2][2] = {{kb, ks}, {vb, vs}};
+  const float* const y[2][2] = {{qb, qs}, {gb, gs}};
 
-  float acc_k[8], acc_v[8];
+  float acc_k[8][4], acc_v[8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc_k[i] = acc_v[i] = 0.0f;
-
-  for (int q0 = 0; q0 < N; q0 += TQ) {
-    __syncthreads();
-    load_tile(q_s, q + base, q0, N, tid);
-    load_tile(do_s, dout + base, q0, N, tid);
-    if (tid < TQ) {
-      const bool qin = q0 + tid < N;
-      const size_t plane = size_t(gridDim.y) * N, at = size_t(bh) * N + q0 + tid;
-      max_s[tid] = qin ? stats[at] : 0.0f;
-      inv_s[tid] = qin ? stats[plane + at] : 0.0f;  // p = 0 past N
-      delta_s[tid] = qin ? stats[2 * plane + at] : 0.0f;
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[nt][e] = acc_v[nt][e] = 0.0f;
+  for (int q0 = 0; q0 < N; q0 += BC) {
+    prefetch_wait();
+    __syncthreads();  // tile q0 landed for everyone; the planes are free
+    stage<BC>(qb, qs, raw, 0, BC, tid);
+    stage_delta<BC>(gb, gs, qdelta_s, raw + BC * D, raw + 2 * BC * D, 0, BC, tid);
+    if (tid < BC) {
+      const bool in = q0 + tid < N;  // p = 0 past N
+      qm_s[tid] = in ? stats[size_t(bh) * N + q0 + tid] : 0.0f;
+      qinv_s[tid] = in ? stats[plane + size_t(bh) * N + q0 + tid] : 0.0f;
     }
     __syncthreads();
+    prefetch<3>(raw, qgo, q0 + BC, N, tid);  // under this tile's products
+    float sdp[2][NTC][4];  // S^T, then p^T; dP^T, then ds^T
+    mm_rows(sdp, x, m0, y, n0, lane);  // own keys x walked queries
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int i = sub + 8 * t;
-      const float s = real ? dot64(q_s[i], k_s[row]) * SCALE : NEG;
-      const float p = in ? expf(s - max_s[i]) * inv_s[i] : 0.0f;
-      p_s[row][i] = p;
-      ds_s[row][i] = real ? p * (dot64(do_s[i], v_s[row]) - delta_s[i]) : 0.0f;
-    }
-    __syncwarp();  // the key's eight threads share a warp
-    for (int i = 0; i < TQ; ++i) {
-      const float p = p_s[row][i], ds = ds_s[row][i];
+    for (int nt = 0; nt < NTC; ++nt)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        acc_v[c] += p * do_s[i][sub + 8 * c];
-        acc_k[c] += ds * q_s[i][sub + 8 * c];
+      for (int e = 0; e < 4; ++e) {
+        const int i = n0 + 8 * nt + 2 * t + (e & 1);
+        const float sv = real[e >> 1] ? sdp[0][nt][e] * SCALE : NEG;
+        const float p = expf(sv - qm_s[i]) * qinv_s[i];
+        sdp[0][nt][e] = p;
+        sdp[1][nt][e] = real[e >> 1] ? p * (sdp[1][nt][e] - qdelta_s[i]) : 0.0f;
       }
-    }
+    mm_acc(acc_v, sdp[0], gb, gs, n0, lane);  // dV += P^T dO
+    mm_acc(acc_k, sdp[1], qb, qs, n0, lane);  // dK += dS^T Q
   }
-  if (in) {
-    T* ok = dk + base + size_t(k0 + row) * D;
-    T* ov = dv + base + size_t(k0 + row) * D;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      ok[sub + 8 * c] = ssl_from_float<T>(acc_k[c] * SCALE);
-      ov[sub + 8 * c] = ssl_from_float<T>(acc_v[c]);
-    }
-  }
+  __syncthreads();  // the walked tiles are free: the reduction scratch
+  reduce_store(acc_v, sm + OWN, wc, m0, dv + base, r0, N, 1.0f, lane);
+  __syncthreads();
+  reduce_store(acc_k, sm + OWN + BR * RLD, wc, m0, dk + base, r0, N, SCALE, lane);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* mask,
-                   const void* dout, void* dq, void* dk, void* dv, float* stats, int B,
-                   int heads, int N, cudaStream_t stream) {
-  const T* qt = reinterpret_cast<const T*>(q);
-  const T* kt = reinterpret_cast<const T*>(k);
-  const T* vt = reinterpret_cast<const T*>(v);
-  const T* gt = reinterpret_cast<const T*>(dout);
-  dim3 grid((N + TQ - 1) / TQ, B * heads);
-  attention_bwd_dq_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      qt, kt, vt, mask, gt, reinterpret_cast<T*>(dq), stats, heads, N);
-  cudaError_t err = cudaGetLastError();
+                   const void* dout, const void* o, const float* stats, void* dq, void* dk,
+                   void* dv, int B, int heads, int N, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const T* ot = static_cast<const T*>(o);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  attention_bwd_dkv_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      qt, kt, vt, mask, gt, stats, reinterpret_cast<T*>(dk), reinterpret_cast<T*>(dv), heads,
-      N);
+  const dim3 grid((N + BR - 1) / BR, B * heads);
+  attn_bwd_dkv_kernel<T><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+      qt, kt, vt, mask, gt, ot, stats, static_cast<T*>(dk), static_cast<T*>(dv), heads, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dq_kernel<T><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+      qt, kt, vt, mask, gt, ot, stats, static_cast<T*>(dq), heads, N);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: (B, heads, N, 64), bf16 if is_bf16 else f32;
-// mask: (B, N) bytes, nonzero = real key; stats: (3, B, heads, N) f32 scratch
-// that the call fills and reads (row maximum, 1 / row sum, delta).
+// q, k, v, dout, out, dq, dk, dv: (B, heads, N, 64), bf16 if is_bf16 else
+// f32, 16-byte aligned; mask: (B, N) bytes, nonzero = real key; out and
+// stats are the forward's output and its (2, B, heads, N) f32 row
+// statistics (maximum, 1 / sum), as ssl_masked_attention writes them.
 SSL_EXPORT int ssl_masked_attention_bwd(const void* q, const void* k, const void* v,
-                                        const uint8_t* mask, const void* dout, void* dq,
-                                        void* dk, void* dv, float* stats, int B, int heads,
-                                        int N, int is_bf16, void* stream) {
+                                        const uint8_t* mask, const void* dout, const void* out,
+                                        const float* stats, void* dq, void* dk, void* dv,
+                                        int B, int heads, int N, int is_bf16, void* stream) {
   if (B < 1 || heads < 1 || N < 1) return int(cudaErrorInvalidValue);
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                        reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dq) |
+                        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (any % 16 != 0) return int(cudaErrorMisalignedAddress);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return int(is_bf16
-                 ? launch<__nv_bfloat16>(q, k, v, mask, dout, dq, dk, dv, stats, B, heads, N, s)
-                 : launch<float>(q, k, v, mask, dout, dq, dk, dv, stats, B, heads, N, s));
+  return int(is_bf16 ? launch<__nv_bfloat16>(q, k, v, mask, dout, out, stats, dq, dk, dv, B,
+                                             heads, N, s)
+                     : launch<float>(q, k, v, mask, dout, out, stats, dq, dk, dv, B, heads, N,
+                                     s));
 }

@@ -1,8 +1,8 @@
 // The tensor-core engine of the port's 3x3 convs over 64-channel NHWC tiles
 // in shared memory: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate)
 // fed by ldmatrix.x4 from XOR-swizzled tiles, and the cp.async copies that
-// fill the tiles and the weight ring. conv_pair_mma.cu, both conv pairs of
-// SuperPoint's encoder, is its user.
+// fill the tiles and the weight ring. Its users are conv_pair_mma.cu, both
+// conv pairs of SuperPoint's encoder, and conv3x3_mma.cu, the single conv.
 // The address model it implements is mirrored by
 // superslam_tpu_torch/ops/cuda/conv.py::mma_layout, which
 // tests/test_torch_conv_layout.py enumerates on the CPU.

@@ -9,8 +9,8 @@
 // _conv_pair_pool_kernel plus the XLA hpool_canvas that finishes its pool;
 // wrapper conv.py::conv_pair_pool, counted "conv1a1b" / "conv_pair") and
 // without (_conv1a1b_kernel / _conv_pair_kernel; wrapper conv.py::conv_pair,
-// counted "conv1a1b_full" / "conv_pair_full"). conv3x3 stays in
-// conv_pair_pool.cu.
+// counted "conv1a1b_full" / "conv_pair_full"). conv3x3 is conv3x3_mma.cu,
+// this schedule's conv_b on a loaded tile.
 //
 // Bound on the H100: operations. At (2, 64, 192, 624) the 64-channel pair is
 // 35.3 GFLOP of bf16 products, 0.0357 ms at 989 TFLOP/s, against 31 MB in

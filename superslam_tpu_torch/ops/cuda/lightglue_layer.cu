@@ -293,7 +293,7 @@ cudaError_t run_block(const BlockArgs& a, cudaStream_t stream) {
   const T* q = proj;
   const T* k = a.cross ? proj : proj + size_t(M) * DIM;
   const T* v = proj + size_t(a.cross ? 1 : 2) * M * DIM;
-  err = ssl_attn::launch<T>(q, k, v, a.mask, a.ctx, a.B, HEADS, a.K, a.cross, 1, stream);
+  err = ssl_attn::launch<T>(q, k, v, a.mask, a.ctx, nullptr, a.B, HEADS, a.K, a.cross, 1, stream);
   if (err != cudaSuccess) return err;
 
   tail_kernel<T><<<tiles, NT, tail_smem, stream>>>(

@@ -21,13 +21,15 @@
 #include "attention.cuh"
 
 // q, k, v, out: (B, heads, N, 64), bf16 if is_bf16 else f32; mask: (B, N)
-// bytes, nonzero = real key.
+// bytes, nonzero = real key; stats: null, or (2, B, heads, N) f32 that
+// receives each query row's softmax maximum and 1 / sum (the backward's
+// residuals).
 SSL_EXPORT int ssl_masked_attention(const void* q, const void* k, const void* v,
-                                    const uint8_t* mask, void* out, int B, int heads,
-                                    int N, int is_bf16, void* stream) {
+                                    const uint8_t* mask, void* out, float* stats, int B,
+                                    int heads, int N, int is_bf16, void* stream) {
   if (B < 1 || heads < 1 || N < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return int(is_bf16
-                 ? ssl_attn::launch<__nv_bfloat16>(q, k, v, mask, out, B, heads, N, 0, 0, s)
-                 : ssl_attn::launch<float>(q, k, v, mask, out, B, heads, N, 0, 0, s));
+                 ? ssl_attn::launch<__nv_bfloat16>(q, k, v, mask, out, stats, B, heads, N, 0, 0, s)
+                 : ssl_attn::launch<float>(q, k, v, mask, out, stats, B, heads, N, 0, 0, s));
 }

@@ -1,6 +1,7 @@
 """The shared-memory addressing of the mma.sync conv pair
 (``superslam_tpu_torch/ops/cuda/conv_pair_mma.cu``, CIN 64 and the gray
-CIN 1), checked on the CPU through its Python model ``conv.py::mma_layout``:
+CIN 1) and of the single conv (``conv3x3_mma.cu``, CIN 64), checked on the
+CPU through their Python model ``conv.py::mma_layout``:
 the model against the constants of the CUDA source, every ldmatrix phase
 and every store phase of the gray pair's conv_a prologue free of bank
 conflicts, every address inside its allocation, and the flat runs' overrun
@@ -19,11 +20,11 @@ LANES = range(32)
 KSTEPS = range(4)  # 64 input channels = 4 k-steps of 16
 
 
-def _cuda_constants() -> dict[str, int]:
+def _cuda_constants(kernel: str = "conv_pair_mma.cu") -> dict[str, int]:
     """Every ``constexpr int NAME = expr;`` of the engine header and the
     kernel source, evaluated in order."""
     names: dict[str, int] = {}
-    for fname in ("conv_mma.cuh", "conv_pair_mma.cu"):
+    for fname in ("conv_mma.cuh", kernel):
         with open(os.path.join(CUDA_DIR, fname)) as f:
             text = f.read()
         for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
@@ -34,7 +35,9 @@ def _cuda_constants() -> dict[str, int]:
 # (CIN, region) cases; the CIN = 64 ids are the regions' names.
 CASES = [pytest.param(64, t, id=t) for t in ("x", "a", "w")] + [
     pytest.param(1, t, id=f"gray-{t}") for t in ("a", "w")
-]
+] + [pytest.param(64, t, id=f"conv3x3-{t[0]}") for t in ("x3", "w3")]
+# The regions of one kernel's shared memory, in order.
+REGIONS = {"x3": ("x3", "w3"), "w3": ("x3", "w3")}
 NTHREADS = 384
 
 
@@ -43,7 +46,7 @@ def _ldmatrix_rows(tile: str, cin: int = 64):
     issues on one region: per run, tap and k-step for the tiles, per k-step
     and 16-row group of every ring slot for the weights."""
     m = mma_layout(tile, cin)
-    if tile == "w":
+    if tile in ("w", "w3"):
         for slot in range(m["rows"]):
             for ks in KSTEPS:
                 for h in range(m["pitch"] // 16):
@@ -76,8 +79,8 @@ def test_ldmatrix_phases_are_conflict_free(cin, tile):
     for label, addrs in _ldmatrix_rows(tile, cin):
         assert _phases_conflict_free(addrs), (cin, tile, label, addrs)
         n += 1
-    slot_groups = mma_layout("w", cin)["pitch"] // 16
-    assert n == {"x": 41 * 9 * 4, "a": 34 * 9 * 4, "w": 3 * 4 * slot_groups}[tile]
+    slot_groups = mma_layout("w3" if tile.endswith("3") else "w", cin)["pitch"] // 16
+    assert n == {"x": 41 * 9 * 4, "a": 34 * 9 * 4, "x3": 34 * 9 * 4}.get(tile, 3 * 4 * slot_groups)
 
 
 @pytest.mark.parametrize("cin,tile", CASES)
@@ -86,9 +89,9 @@ def test_every_read_stays_inside_its_allocation(cin, tile):
     lo = min(min(a) for _, a in _ldmatrix_rows(tile, cin))
     hi = max(max(a) for _, a in _ldmatrix_rows(tile, cin)) + 16
     assert 0 <= lo and hi <= m["nbytes"] <= m["region"], (tile, lo, hi, m["nbytes"])
-    regions = [mma_layout(t, cin) for t in ("x", "a", "w")]
-    assert [r["offset"] for r in regions] == [0, regions[0]["region"],
-                                              regions[0]["region"] + regions[1]["region"]]
+    regions = [mma_layout(t, cin) for t in REGIONS.get(tile, ("x", "a", "w"))]
+    offsets = [sum(r["region"] for r in regions[:i]) for i in range(len(regions))]
+    assert [r["offset"] for r in regions] == offsets
     assert sum(r["region"] for r in regions) == m["smem_bytes"] <= 232_448
 
 
@@ -119,7 +122,7 @@ def test_ring_slice_is_one_cp_async_per_thread():
     assert {m["address"](i >> 3, i & 7) for i in copies} == set(range(0, m["pitch"] * 128, 16))
 
 
-@pytest.mark.parametrize("tile", ["x", "a"])
+@pytest.mark.parametrize("tile", ["x", "a", "x3"])
 def test_runs_cover_the_kept_pixels_and_overrun_feeds_only_discards(tile):
     """Each pixel the stage keeps is one row of exactly one run, and its
     nine taps read only rows that hold data (input rows 0-19, conv_a rows
@@ -212,3 +215,40 @@ def test_gray_prologue_stores_are_conflict_free_and_cover_the_tile():
             written += addrs
     assert sorted(written) == list(range(0, n_pix * 128, 16))
     assert n_pix == (m["rows"] - 1) * m["pitch"]
+
+
+def test_conv3x3_model_matches_the_cuda_constants():
+    """conv3x3_mma.cu's tile is the pair's conv_a tile (pitch 34, 18 + 1
+    overrun rows, 34 runs) at offset 0, followed by its ring of 64 /
+    NPASS3-row slots."""
+    c = _cuda_constants("conv3x3_mma.cu")
+    x, w = mma_layout("x3"), mma_layout("w3")
+    assert (c["AP3"], c["AR3"], c["NRUN3"]) == (x["pitch"], x["rows"], len(x["run_starts"]))
+    assert (x["pitch"], x["rows"]) == (mma_layout("a")["pitch"], mma_layout("a")["rows"])
+    assert c["X3_BYTES"] == x["nbytes"] == x["region"] == w["offset"]
+    assert c["NPASS3"] == conv_mod.CONV3X3_PASSES and c["SLOT_CO3"] == w["pitch"]
+    assert c["RING3"] == w["rows"] and c["SMEM3_BYTES"] == x["smem_bytes"] == w["smem_bytes"]
+    assert x["smem_bytes"] == 82_688 + 3 * w["pitch"] * 128 <= 232_448
+    assert c["MAXR3"] * c["NWARPS3"] >= c["NRUN3"] and c["NT3"] * 8 == w["pitch"]
+    assert x["valid"] == (c["TH3"], c["TW3"])
+    assert c["GRAY_SMEM_BYTES"] == conv_mod.CONV3X3_GRAY_SMEM_BYTES
+
+
+def test_conv3x3_tile_and_ring_fills_cover_their_regions_once():
+    """The input tile arrives by one 16-byte cp.async per chunk: copy i is
+    chunk i & 7 of pixel i >> 3, for every pixel of the 19 x 34 tile; the
+    copies of row 18 (the overrun row) and of pixels outside the image
+    zero-fill. A ring slot of 64 / NPASS3 rows takes copies i = t, t +
+    NTHREADS3, ...: chunk i & 7 of weight row i >> 3."""
+    c = _cuda_constants("conv3x3_mma.cu")
+    x, w = mma_layout("x3"), mma_layout("w3")
+    n = x["rows"] * x["pitch"] * 8
+    copies = [i for t in range(c["NTHREADS3"]) for i in range(t, n, c["NTHREADS3"])]
+    assert sorted(copies) == list(range(n))
+    assert sorted(x["address"](i >> 3, i & 7) for i in copies) == list(range(0, x["nbytes"], 16))
+    zero_filled = {i >> 3 for i in copies if (i >> 3) // x["pitch"] >= c["TH3"] + 2}
+    assert zero_filled == set(range((x["rows"] - 1) * x["pitch"], x["rows"] * x["pitch"]))
+    slot = w["pitch"] * 8
+    copies = [i for t in range(c["NTHREADS3"]) for i in range(t, slot, c["NTHREADS3"])]
+    assert sorted(copies) == list(range(slot))
+    assert {w["address"](i >> 3, i & 7) for i in copies} == set(range(0, w["pitch"] * 128, 16))

@@ -9,7 +9,8 @@ conv_a tile to bf16) and bit-equal between prepared and OIHW weights, NMS
 exact, bf16 attention atol 2e-2, the fused
 LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
 the descriptor gather atol 1e-5, the attention backward within 1e-4 of
-max|plain| in f32 (2e-2 in bf16). The last two tests run the tracking
+max|plain| in f32 (2e-2 in bf16) on the forward's residuals, and the
+forward's row statistics within 1e-5 of the plain softmax's. The last two tests run the tracking
 chains (track_scan, track_kf_scan: plain PyTorch, no kernel of their own)
 on the card against their own CPU results."""
 
@@ -18,13 +19,16 @@ import pytest
 import torch
 
 from superslam_tpu_torch.ops.cuda.attention import (
+    attention_row_stats_plain,
     masked_attention,
     masked_attention_backward,
     masked_attention_backward_plain,
     masked_attention_plain,
+    masked_attention_with_stats,
 )
 from superslam_tpu_torch.ops.cuda.conv import (
     conv3x3,
+    conv3x3_operands,
     conv3x3_plain,
     conv_pair,
     conv_pair_plain,
@@ -130,21 +134,62 @@ def test_conv_pair_refuses_a_misaligned_input(cuda, pool):
     assert _build.launch_counts()[name] == before
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("cin,cout,h,w", [(64, 64, 32, 96), (1, 64, 17, 71), (64, 128, 17, 71)])
-def test_conv3x3_kernel(cuda, cin, cout, h, w, relu):
-    rng = np.random.default_rng(cin + cout + h)
-    x = rng.normal(size=(2, cin, h, w))
+def _conv3x3_case(cuda, cin, cout, b, h, w):
+    rng = np.random.default_rng(cin + cout + h + b)
+    x = rng.normal(size=(b, cin, h, w))
     wt = rng.normal(size=(cout, cin, 3, 3)) * (0.3 if cin == 1 else 0.1)
     bias = rng.normal(size=(cout,)) * 0.1
-    args = [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wt, bias)]
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, wt, bias)]
+
+
+# Both CINs and COUTs; H off the 16-row tile (odd), W off the 32-column
+# tile and W < 32, batch 1 and 3 (the grid's z), conv2a's real shape.
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize(
+    "cin,cout,b,h,w",
+    [(64, 64, 2, 32, 96), (1, 64, 2, 17, 71), (64, 128, 2, 17, 71), (64, 64, 2, 17, 20),
+     (64, 128, 1, 33, 98), (64, 64, 3, 18, 70), (1, 128, 3, 19, 20), (64, 64, 2, 192, 624)],
+)
+def test_conv3x3_kernel(cuda, cin, cout, b, h, w, relu):
+    args = _conv3x3_case(cuda, cin, cout, b, h, w)
     for out_dtype in (torch.bfloat16, torch.float32):
         got = conv3x3(*args, relu=relu, out_dtype=out_dtype)
         ref = conv3x3_plain(*args, relu=relu, out_dtype=out_dtype)
-        assert got.shape == ref.shape == (2, cout, h, w) and got.dtype == out_dtype
+        assert got.shape == ref.shape == (b, cout, h, w) and got.dtype == out_dtype
         assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
         assert relu == bool((got.float() >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (1, 64)])
+def test_conv3x3_prepared_operands_match_oihw(cuda, cin, cout):
+    """Operands prepared once give the same bits as OIHW weights laid out in
+    the call; operands of another COUT raise before any launch."""
+    args = _conv3x3_case(cuda, cin, cout, 2, 34, 98)
+    ops = conv3x3_operands(*args[1:])
+    for out_dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(conv3x3(*args, out_dtype=out_dtype, operands=ops),
+                           conv3x3(*args, out_dtype=out_dtype))
+    other = conv3x3_operands(*_conv3x3_case(cuda, cin, 192 - cout, 1, 2, 2)[1:])
+    before = _build.launch_counts()["conv3x3"]
+    with pytest.raises(ValueError, match="prepared operands"):
+        conv3x3(*args, operands=other)
+    assert _build.launch_counts()["conv3x3"] == before
+
+
+@pytest.mark.gpu
+def test_conv3x3_refuses_a_misaligned_input(cuda):
+    """The mma.sync kernel's cp.async copies read 16-byte chunks: an input
+    one element off 16-byte alignment raises before any launch."""
+    _, wt, bias = _conv3x3_case(cuda, 64, 64, 1, 18, 70)
+    flat = torch.zeros(1 + 18 * 70 * 64, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(1, 18, 70, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.storage_offset() == 1
+    before = _build.launch_counts()["conv3x3"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv3x3(x, wt, bias)
+    assert _build.launch_counts()["conv3x3"] == before
 
 
 @pytest.mark.gpu
@@ -176,12 +221,13 @@ def test_masked_attention_kernel(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [256, 70])
+@pytest.mark.parametrize("n", [256, 70, 600])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_masked_attention_backward_kernel(cuda, dtype, n):
-    """dq, dk, dv against the plain version and, through the Function,
-    against autograd through the plain forward; ragged masks and one
-    fully-masked batch row (only dv is non-zero there)."""
+    """dq, dk, dv on the forward's residuals against the plain version and,
+    through the Function, against autograd through the plain forward (and
+    bit-equal to the standalone call); ragged masks, a key tile with no
+    real key and one fully-masked batch row (only dv is non-zero there)."""
     rng = np.random.default_rng(n)
     q, k, v, g = (
         torch.from_numpy(rng.standard_normal((3, 4, n, 64)).astype(np.float32)).to(cuda, dtype)
@@ -190,22 +236,67 @@ def test_masked_attention_backward_kernel(cuda, dtype, n):
     mask = torch.from_numpy(rng.uniform(size=(3, n)) > 0.3).to(cuda)
     mask[1] = False
     mask[2, n // 2 :] = False  # a ragged prefix
-    got = masked_attention_backward(q, k, v, mask, g)
+    mask[0, :64] = False  # the first key tile holds no real key
+    mask[0, -1] = True
+    out, stats = masked_attention_with_stats(q, k, v, mask)
+    assert torch.equal(out, masked_attention(q, k, v, mask))
+    got = masked_attention_backward(q, k, v, mask, g, out, stats)
     ref = masked_attention_backward_plain(q, k, v, mask, g)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, ref):
         assert a.dtype == dtype and torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max() <= tol * b.float().abs().max()
     assert got[0][1].abs().max() == 0 and got[1][1].abs().max() == 0
+    assert got[1][0, :, :64].abs().max() == 0 and got[2][0, :, :64].abs().max() == 0
 
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = masked_attention(*leaves, mask)
-    assert out.grad_fn is not None
-    out.backward(g)
+    out_f = masked_attention(*leaves, mask)
+    assert out_f.grad_fn is not None
+    out_f.backward(g)
+    assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, got))
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     masked_attention_plain(*plain, mask).backward(g)
     for a, b in zip(leaves, plain):
         assert (a.grad.float() - b.grad.float()).abs().max() <= tol * b.grad.float().abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [70, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_attention_row_stats(cuda, dtype, n):
+    """The forward's row statistics (maximum, 1 / sum) against the plain
+    softmax's: the maximum within 1e-5 of max(|m|, 1), 1 / sum within 1e-5
+    relative; the fully-masked row has -1e9 and 1 / N. Writing them
+    changes no bit of the output."""
+    rng = np.random.default_rng(n + 1)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((2, 4, n, 64)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(3)
+    )
+    mask = torch.from_numpy(rng.uniform(size=(2, n)) > 0.3).to(cuda)
+    mask[1] = False
+    out, stats = masked_attention_with_stats(q, k, v, mask)
+    assert torch.equal(out, masked_attention(q, k, v, mask))
+    ref = attention_row_stats_plain(q, k, mask)
+    assert stats.shape == (2, 2, 4, n) and stats.dtype == torch.float32
+    assert ((stats[0] - ref[0]).abs() <= 1e-5 * ref[0].abs().clamp_min(1.0)).all()
+    assert ((stats[1] - ref[1]).abs() <= 1e-5 * ref[1].abs()).all()
+    assert (stats[0, 1] == -1e9).all()
+    torch.testing.assert_close(stats[1, 1], torch.full_like(stats[1, 1], 1.0 / n), rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_masked_attention_backward_needs_the_residuals(cuda):
+    """On the card the backward takes the forward's output and row
+    statistics; without them it raises before any launch."""
+    q = torch.zeros((1, 4, 8, 64), device=cuda)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
+    before = _build.launch_counts()["masked_attention_bwd"]
+    with pytest.raises(ValueError, match="out"):
+        masked_attention_backward(q, q, q, mask, q, None, None)
+    with pytest.raises(ValueError, match="stats"):
+        masked_attention_backward(q, q, q, mask, q, q, torch.zeros((3, 1, 4, 8), device=cuda))
+    assert _build.launch_counts()["masked_attention_bwd"] == before
 
 
 def _block_case(cuda, dtype, k):

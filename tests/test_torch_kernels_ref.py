@@ -311,7 +311,7 @@ def test_wrappers_do_not_fall_back_off_cpu(which):
         elif which == "attention_backward":
             t = torch.empty(1, 4, 8, 64, device=meta)
             mask = torch.ones(1, 8, dtype=torch.bool, device=meta)
-            masked_attention_backward(t, t, t, mask, t)
+            masked_attention_backward(t, t, t, mask, t, t, None)
         elif which == "gather":
             gather_normalize(
                 torch.empty(1, 16, 256, device=meta),

@@ -45,6 +45,7 @@ from superslam_tpu_torch.ops.cuda.attention import (
     masked_attention_backward,
     masked_attention_backward_plain,
     masked_attention_plain,
+    masked_attention_with_stats,
 )
 from superslam_tpu_torch.parallel import training as ttrain
 from superslam_tpu_torch.train import render_domain as trender
@@ -94,7 +95,7 @@ def test_attention_backward_matches_autograd_through_plain_forward():
 
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     masked_attention_plain(*plain, mask).backward(g)
-    got = masked_attention_backward(q, k, v, mask, g)
+    got = masked_attention_backward(q, k, v, mask, g, *masked_attention_with_stats(q, k, v, mask))
     for a, leaf in zip(got, plain):
         np.testing.assert_allclose(a.numpy(), leaf.grad.numpy(), atol=1e-5, rtol=0)
     assert got[0][1].abs().max() == 0 and got[1][1].abs().max() == 0

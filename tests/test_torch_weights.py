@@ -82,7 +82,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import superslam_tpu_torch.ops.cuda._build\n"
         "import superslam_tpu_torch.parallel, superslam_tpu_torch.train\n"
         "import scripts.train_lightglue_synth_torch, scripts.profile_stages_torch\n"
-        "import scripts.conv_variants_torch\n"
+        "import scripts.kernel_variants_torch\n"
         "scripts.profile_stages_torch.run_stages(['lg_attn'], 'cpu', 32, 64, 16, 0, 1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superslam_tpu' or m.startswith('superslam_tpu.'))\n"
