@@ -14,8 +14,11 @@ In order, any failure exiting non-zero:
    C++ core (``csrc/``), prints the build times and the registers, shared
    memory and spills from nvcc's report of the mma.sync conv pair kernel's
    eight instantiations (CIN 1 and 64, pooled or not, bf16 or f32 out),
-   conv3x3's four (CIN 1 and 64, bf16 or f32 out) and the attention
-   backward's four (dq and dk/dv kernels, f32 and bf16); any spill fails;
+   conv3x3's four (CIN 1 and 64, bf16 or f32 out), the attention
+   backward's four (dq and dk/dv kernels, f32 and bf16), the attention
+   forward's four (bf16 and f32, in masked_attention.cu and
+   lightglue_layer.cu) and the fused blocks' two bf16 linears (projection
+   and tail); any spill fails;
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
@@ -25,9 +28,11 @@ In order, any failure exiting non-zero:
    unpooled conv pairs and the single conv: 2e-2 of max |plain|; the conv
    pairs and the single conv on operands prepared once give the same bits
    as on OIHW weights; the forward's row statistics against the plain
-   softmax's; the attention backward at the training shape (16, 4, 256,
-   64) f32 with ragged masks and one fully-masked batch row, on the
-   forward's residuals: dq, dk, dv within 1e-4 of max |plain|, dq = dk = 0
+   softmax's; at the training shape (16, 4, 256, 64) f32 with ragged masks
+   and one fully-masked batch row, the forward within 1e-4 of max |plain|
+   (the same bits with and without its row statistics; recorded as
+   ``masked_attention_f32``) and the attention backward on the forward's
+   residuals: dq, dk, dv within 1e-4 of max |plain|, dq = dk = 0
    in that row, autograd's gradients bit-equal), timing kernel (the convs
    on prepared operands, the backward on the forward's residuals), plain
    version and, where one exists, a library call as a yardstick (CUDA
@@ -64,8 +69,9 @@ In order, any failure exiting non-zero:
 8. runs every stage of ``scripts/profile_stages_torch.py`` and checks that
    conv1a1b_full, conv_pair_full and conv3x3 were launched there;
 9. prints one ``{"kernels": [...]}`` line (each kernel's launches are
-   those of the phase that drives it: 4, 5, 6, 7 or 8), then, as the last
-   line, ``{"ok": true, "device": {...}}``.
+   those of the phase that drives it: 4, 5, 6, 7 or 8; row 4 twice, bf16
+   from phase 5 and f32 from phase 7's fixed-batch steps), then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -136,6 +142,10 @@ KERNEL_INFO = {
         "superslam_tpu_torch/ops/cuda/masked_attention.cu",
         "superslam_tpu/ops/pallas/attention.py:145",
     ),
+    "masked_attention_f32": (
+        "superslam_tpu_torch/ops/cuda/masked_attention.cu",
+        "superslam_tpu/ops/pallas/attention.py:145",
+    ),
     "fused_self_block": (
         "superslam_tpu_torch/ops/cuda/lightglue_layer.cu",
         "superslam_tpu/ops/pallas/lightglue_layer.py:344",
@@ -173,20 +183,33 @@ def fail(msg: str) -> None:
 
 # nvcc's entry names (mangled) of the kernels whose registers chip_smoke
 # reports: substring -> instantiations expected.
+# The attention forward's two kernels are instantiated in both
+# masked_attention.cu and lightglue_layer.cu.
 REPORTED_KERNELS = {
     "conv_pair_mma_kernel": 8,
     "conv3x3_mma_kernel": 2,
     "conv3x3_gray_kernel": 2,
     "attn_bwd_dq_kernel": 2,
     "attn_bwd_dkv_kernel": 2,
+    "attn_fwd_bf16_kernel": 2,
+    "attn_fwd_f32_kernel": 2,
+    "proj_mma_kernel": 1,
+    "tail_mma_kernel": 1,
 }
 
 
 def _smem_bytes(entry: str) -> int:
     """Dynamic shared memory of a reported kernel, from the address models."""
-    from superslam_tpu_torch.ops.cuda.attention import bwd_layout
+    from superslam_tpu_torch.ops.cuda.attention import bwd_layout, fwd_layout
     from superslam_tpu_torch.ops.cuda.conv import CONV3X3_GRAY_SMEM_BYTES, mma_layout
+    from superslam_tpu_torch.ops.cuda.lightglue_layer import gemm_layout
 
+    if "attn_fwd_bf16" in entry:
+        return fwd_layout("bf16")["smem_bytes"]
+    if "attn_fwd_f32" in entry:
+        return fwd_layout("f32")["smem_bytes"]
+    if "proj_mma_kernel" in entry or "tail_mma_kernel" in entry:
+        return gemm_layout("proj" if "proj_mma" in entry else "tail")["smem_bytes"]
     if "conv_pair_mma_kernel" in entry:
         return mma_layout("x", 1 if "conv_pair_mma_kernelILi1E" in entry else 64)["smem_bytes"]
     if "conv3x3_mma_kernel" in entry:
@@ -198,9 +221,10 @@ def _smem_bytes(entry: str) -> int:
 
 def report_build(build_dir: str) -> None:
     """Print registers, shared memory and spills of every instantiation of
-    the mma.sync conv kernels and the attention backward from nvcc's
-    -Xptxas -v report; fail on any spill (they keep their accumulators in
-    registers) or a missing instantiation."""
+    the mma.sync kernels (the convs, the attention forward and backward, the
+    fused blocks' linears) from nvcc's -Xptxas -v report; fail on any spill
+    (they keep their accumulators in registers) or a missing
+    instantiation."""
     with open(os.path.join(build_dir, "nvcc.log")) as f:
         lines = f.read().splitlines()
     found = dict.fromkeys(REPORTED_KERNELS, 0)
@@ -265,10 +289,12 @@ def nbytes(*ts) -> int:
 
 
 def attention_ops(kv_mask, heads: int = 4, dim: int = 64) -> tuple[float, float]:
-    """(bf16, f32) operations of key-masked attention over (B, K) key masks:
-    QK^T and PV over the real keys of each row's key set (a masked key's
-    probability is exactly 0; a row with no real key averages all K values),
-    and ~5 f32 operations per logit for the softmax."""
+    """(product, f32) operations of key-masked attention over (B, K) key
+    masks: QK^T and PV over the real keys of each row's key set (a masked
+    key's probability is exactly 0; a row with no real key averages all K
+    values), priced by the caller at the bf16 rate or, f32-accurate, as
+    three TF32 products each (3xTF32); and ~5 f32 operations per logit for
+    the softmax."""
     k = kv_mask.shape[1]
     real = kv_mask.sum(dim=1)
     keys = float(real.masked_fill(real == 0, k).sum().item())
@@ -489,9 +515,25 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     n_real = rng.integers(TRAIN_CAP // 2, TRAIN_CAP + 1, size=2 * TRAIN_BATCH)
     tmask = torch.from_numpy(np.arange(TRAIN_CAP)[None] < n_real[:, None]).to(dev)
     tmask[3] = False
-    # The residuals from the forward (f32, as training runs it).
+    # The residuals from the forward (f32, as training runs it), and the
+    # forward itself against its plain version: within 1e-4 of max |plain|
+    # (3xTF32; one TF32 product would miss it), the same bits without the
+    # row statistics, the fully-masked row the mean of v.
     tout, tstats = masked_attention_with_stats(tq, tk, tv, tmask)
     check_row_stats("f32", tstats, attention_row_stats_plain(tq, tk, tmask))
+    tref = masked_attention_plain(tq, tk, tv, tmask)
+    torch.cuda.synchronize()
+    if tout.shape != tshape or not torch.isfinite(tout).all().item():
+        fail(f"masked_attention (f32): output {tuple(tout.shape)} not finite")
+    f32_err = (tout - tref).abs().max().item()
+    f32_rel = f32_err / max(tref.abs().max().item(), 1e-12)
+    print(f"kernel masked_attention (f32, {tshape}): max error / max |plain| = {f32_rel:.3g} "
+          "(limit 1e-4)")
+    if not f32_rel <= 1e-4:
+        fail(f"masked_attention (f32): relative error {f32_rel} > 1e-4")
+    with torch.no_grad():
+        if not torch.equal(masked_attention(tq, tk, tv, tmask), tout):
+            fail("masked_attention (f32): the output differs when the row statistics are written")
     got3 = masked_attention_backward(tq, tk, tv, tmask, tg, tout, tstats)
     ref3 = masked_attention_backward_plain(tq, tk, tv, tmask, tg)
     torch.cuda.synchronize()
@@ -542,13 +584,17 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
     with torch.no_grad():
         f32_fwd_ms = time_ms(torch, lambda: masked_attention(tq, tk, tv, tmask))
         f32_stats_ms = time_ms(torch, lambda: masked_attention_with_stats(tq, tk, tv, tmask))
+        f32_plain_ms = time_ms(torch, lambda: masked_attention_plain(tq, tk, tv, tmask))
         f32_lib_ms = time_ms(
             torch, lambda: F.scaled_dot_product_attention(tq, tk, tv, attn_mask=sdpa_tmask)
         )
-    print(
-        f"kernel masked_attention (f32, the training shape {tshape}): {f32_fwd_ms:.4f} ms, "
-        f"with the row statistics {f32_stats_ms:.4f} ms, library "
-        f"(scaled_dot_product_attention, f32) {f32_lib_ms:.4f} ms"
+    print(f"kernel masked_attention_f32: with the row statistics {f32_stats_ms:.4f} ms")
+    # Row 4 in f32: both products f32-accurate as 3xTF32 on the tensor cores,
+    # over each row's real keys, and the softmax's per-logit f32 work.
+    a_ops, a_f32 = attention_ops(tmask)
+    record(
+        "masked_attention_f32", f32_err, f32_fwd_ms, f32_plain_ms, f32_lib_ms,
+        bound(nbytes(tq, tk, tv, tmask, tout, tstats), f32_ops=a_f32, tf32_ops=3.0 * a_ops),
     )
     del got3, ref3, leaves, out_t
 
@@ -861,10 +907,10 @@ def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> N
 _BATCH_KEYS = ("kpts0", "desc0", "kpts1", "desc1", "mask0", "mask1", "gt_indices")
 
 
-def check_training(torch) -> int:
+def check_training(torch) -> tuple[int, int]:
     """The matcher's training at full width on the card (phase 7 of the
-    module docstring). Returns the masked_attention_bwd launches of the
-    fixed-batch steps."""
+    module docstring). Returns the masked_attention (the f32 forward) and
+    masked_attention_bwd launches of the fixed-batch steps."""
     from scripts import train_lightglue_synth_torch as train_script
     from superslam_tpu_torch.models import lightglue as lgm
     from superslam_tpu_torch.models.weights import load_safetensors
@@ -960,7 +1006,7 @@ def check_training(torch) -> int:
                    ("fused_self_block", 0), ("fused_cross_block", 0)):
         if counts[k] != per * FIXED_BATCH_STEPS:
             fail(f"train: {k}: {counts[k]} launches in {FIXED_BATCH_STEPS} steps, want {per} per step")
-    bwd_launches = counts["masked_attention_bwd"]
+    fwd_launches, bwd_launches = counts["masked_attention"], counts["masked_attention_bwd"]
 
     # One more step in its three parts (CUDA events), then under the profiler.
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -980,7 +1026,7 @@ def check_training(torch) -> int:
         f"train: one step in parts (CUDA events): forward {ev[0].elapsed_time(ev[1]):.3f} ms, "
         f"backward {ev[1].elapsed_time(ev[2]):.3f} ms, optimizer {ev[2].elapsed_time(ev[3]):.3f} ms"
     )
-    profile_device(torch, lambda: train_step(params, optimizer, batch), 1, "step", "train step", top=15)
+    profile_device(torch, lambda: train_step(params, optimizer, batch), 1, "step", "train step", top=30)
 
     # 3. The training script, in-process, on harvested data.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1007,7 +1053,7 @@ def check_training(torch) -> int:
         f"{meta['precision_init']:.3f}/{meta['recall_init']:.3f} trained "
         f"{meta['precision']:.3f}/{meta['recall']:.3f}, checkpoint of {len(loaded)} tensors loaded back"
     )
-    return bwd_launches
+    return fwd_launches, bwd_launches
 
 
 def check_profiler(torch) -> dict[str, int]:
@@ -1099,13 +1145,14 @@ def main() -> int:
 
     gather_launches = check_extractor_kernel_route(torch, sp, *frames[0])
 
-    bwd_launches = check_training(torch)
+    f32_fwd_launches, bwd_launches = check_training(torch)
     profiler_launches = check_profiler(torch)
 
     # Each kernel's launches are those of the phase that drives it.
     launches = {k: counts[k] for k, per in PER_FRAME_FUSED.items() if per}
     launches["masked_attention"] = counts_u["masked_attention"]
     launches["gather_normalize"] = gather_launches
+    launches["masked_attention_f32"] = f32_fwd_launches
     launches["masked_attention_bwd"] = bwd_launches
     launches.update(profiler_launches)
     rows = []

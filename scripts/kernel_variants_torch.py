@@ -2,7 +2,7 @@
 """Build variants of a hand-written kernel side by side and time them on the
 card at the main path's shapes.
 
-    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd] [NAME[:EDIT,EDIT...] ...]
+    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block] [NAME[:EDIT,EDIT...] ...]
 
 Kernels (``--kernel``, default ``pair``):
 
@@ -13,33 +13,50 @@ Kernels (``--kernel``, default ``pair``):
   bf16, COUT 64 and 128, ReLU, bf16 out;
 - ``attn_bwd``: the attention backward (``attention_bwd.cu``) at the
   training shape (16, 4, 256, 64) f32, key masks of 128-256 real keys and
-  one fully-masked batch row, on the plain forward's residuals.
+  one fully-masked batch row, on the plain forward's residuals;
+- ``attn_fwd``: the attention forward (``masked_attention.cu`` with
+  ``attention.cuh``) in bf16 at the serving shape (4, 4, 600, 64), 70% real
+  keys and one fully-masked batch row, and in f32 at the training shape
+  (16, 4, 256, 64) as for ``attn_bwd``; the library call beside each is
+  ``scaled_dot_product_attention`` on the same inputs;
+- ``block``: the fused LightGlue self and cross blocks
+  (``lightglue_layer.cu``) at (4, 600, 256) bf16, one random layer, 70%
+  real keys and one fully-masked row.
 
 A NAME alone is the kernel source as it is. An EDIT is either KEY=VALUE,
-which sets the source's ``constexpr int KEY`` (pair: ``p2:NPASS1=2``, the
-gray pair's conv_b in two 32-channel passes, ``w16:NWARPS=16``,
-``r4:RING=4``; conv3x3: ``w8:NWARPS3=8,NPASS3=2,MINB3=2``, 8 warps in
-32-channel passes, two blocks per SM; attn_bwd: ``r32:BR=32``, blocks of
-32 own rows, ``wc1:WC=1``, one warp across a walked tile), or the name of
+which sets the ``constexpr int KEY`` of the source or of one of its
+headers (pair: ``p2:NPASS1=2``, the gray pair's conv_b in two 32-channel
+passes, ``w16:NWARPS=16``, ``r4:RING=4``; conv3x3:
+``w8:NWARPS3=8,NPASS3=2,MINB3=2``, 8 warps in 32-channel passes, two
+blocks per SM; attn_bwd: ``r32:BR=32``, blocks of 32 own rows,
+``wc1:WC=1``, one warp across a walked tile; attn_fwd: ``s3:KSTAGES=3``,
+the bf16 key/value ring of 3 slots, ``q32:BQ=32``, bf16 blocks of 32
+query rows, ``f32q32:FQ=32`` and ``f32q128:FQ=128``, f32 blocks of 32 or
+128; block: ``ring4:RING=4``, a weight ring of 4 slots, ``r16:BM=16`` and
+``r64:BM=64``, row tiles of 16 or 64 rows, ``w16:NWARPS=16``), or the name of
 a diagnostic patch of ``PATCHES`` (pair: ``noA``, A operands from
 registers, no ldmatrix; ``nomma``, no mma, one ALU operation per product
 instead; ``nostep``, no tap step at all; ``noprologue``, no CUDA-core
-conv_a in the gray pair; attn_bwd: ``tf32x1``, one TF32 product instead
-of three; ``noexp``, no exponential). Patched variants compute wrong
-results: they only split the time. With no variant: pair ``tree p2:NPASS1=2
+conv_a in the gray pair; attn_bwd and attn_fwd: ``tf32x1``, one TF32
+product instead of three). Patched variants compute wrong results: they
+only split the time. With no variant: pair ``tree p2:NPASS1=2
 nostep:nostep nomma:nomma noprologue:noprologue``; conv3x3 ``tree
-w8:NWARPS3=8,NPASS3=2,MINB3=2``; attn_bwd ``tree r32:BR=32``.
+w8:NWARPS3=8,NPASS3=2,MINB3=2``;
+attn_bwd ``tree r32:BR=32``; attn_fwd ``tree s3:KSTAGES=3 s4:KSTAGES=4
+q32:BQ=32 f32q32:FQ=32 f32q128:FQ=128``; block ``tree ring4:RING=4
+ring5:RING=5 r16:BM=16 r64:BM=64 w16:NWARPS=16``.
 
 Each variant is compiled with the port's nvcc flags into its own library
 under ``build/kernel_variants/<kernel>/`` (one nvcc per variant, all at once)
 and called through the kernel's own C entry point. Unpatched variants are
 held against the plain version (max error / max|plain| <= 2e-2 for the
-convs, 1e-4 for the backward). Then every variant is timed: 4 rounds, in
+convs, the blocks and bf16 attention, 1e-4 for f32 attention and the
+backward). Then every variant is timed: 4 rounds, in
 alternating order, of 50 back-to-back launches between two CUDA events, for
 each case. Prints the card and its power limit, registers and spills from
 nvcc's report, and one line per variant and case; conv3x3's cases are also
-timed, in the same turns, through cuDNN (``library``). Exits non-zero without a
-card.
+timed, in the same turns, through cuDNN (``library``), and attn_fwd's
+through scaled_dot_product_attention. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -60,16 +77,24 @@ sys.path.insert(0, REPO)
 
 SRC = os.path.join(REPO, "superslam_tpu_torch", "ops", "cuda")
 OUT = os.path.join(REPO, "build", "kernel_variants")
-ENGINE, ATTN = "conv_mma.cuh", "attention_bwd.cu"
+ENGINE, ATTN, TF32, FWD = "conv_mma.cuh", "attention_bwd.cu", "tf32_mma.cuh", "attention.cuh"
 # kernel: (source, headers beside common.cuh, default variants)
 KERNELS = {
     "pair": ("conv_pair_mma.cu", (ENGINE,),
              ["tree", "p2:NPASS1=2", "nostep:nostep", "nomma:nomma", "noprologue:noprologue"]),
     "conv3x3": ("conv3x3_mma.cu", (ENGINE,), ["tree", "w8:NWARPS3=8,NPASS3=2,MINB3=2"]),
-    "attn_bwd": (ATTN, (), ["tree", "r32:BR=32"]),
+    "attn_bwd": (ATTN, (TF32,), ["tree", "r32:BR=32"]),
+    "attn_fwd": ("masked_attention.cu", (FWD, ENGINE, TF32),
+                 ["tree", "s3:KSTAGES=3", "s4:KSTAGES=4", "q32:BQ=32", "f32q32:FQ=32",
+                  "f32q128:FQ=128"]),
+    "block": ("lightglue_layer.cu", (FWD, ENGINE, TF32),
+              ["tree", "ring4:RING=4", "ring5:RING=5", "r16:BM=16", "r64:BM=64",
+               "w16:NWARPS=16"]),
 }
 SHAPES = {1: (2, 1, 384, 1248), 64: (2, 64, 192, 624)}
 ATTN_SHAPE = (16, 4, 256, 64)
+SERVE_ATTN_SHAPE = (4, 4, 600, 64)
+BLOCK_SHAPE = (4, 600, 256)
 
 # name: (file, text, replacement); the pair kernel's diagnostics.
 PATCHES = {
@@ -85,10 +110,10 @@ PATCHES = {
     "noprologue": ("conv_pair_mma.cu", "for (int p = tid >> 3; p < (TH + 2) * AP;",
                    "for (int p = tid >> 3; p < 0;"),
 }
-# The attention backward's diagnostics: one TF32 product instead of three,
-# no exp.
+# The attention kernels' diagnostics: one TF32 product instead of three
+# (backward and f32 forward), no exp (backward).
 PATCHES.update({
-    "tf32x1": (ATTN, """  mma_tf32(c, as[0], as[1], as[2], as[3], bb0, bb1);
+    "tf32x1": (TF32, """  mma_tf32(c, as[0], as[1], as[2], as[3], bb0, bb1);
   mma_tf32(c, ab[0], ab[1], ab[2], ab[3], bs0, bs1);
 """, ""),
     "noexp": (ATTN, "expf(", "fabsf("),
@@ -127,11 +152,13 @@ def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[
             raise SystemExit(f"kernel_variants: patch {p} does not match {kernel}'s sources")
         files[f] = files[f].replace(old, new)
     for key, value in consts.items():
-        files[source], n = re.subn(
-            rf"constexpr int {key} = [^;]+;", f"constexpr int {key} = {value};", files[source]
-        )
-        if n != 1:
-            raise SystemExit(f"kernel_variants: no constexpr int {key} in {source}")
+        hits = 0
+        for f in files:
+            files[f], n = re.subn(rf"^constexpr int {key} = [^;]+;",
+                                  f"constexpr int {key} = {value};", files[f], flags=re.M)
+            hits += n
+        if hits != 1:
+            raise SystemExit(f"kernel_variants: {hits} constexpr int {key} in {kernel}'s sources")
     for f, text in files.items():
         with open(os.path.join(d, f), "w") as fh:
             fh.write(text)
@@ -224,6 +251,92 @@ def attn_bwd_cases(torch, dev, rng):
     return [(f"f32 at {ATTN_SHAPE}", launch, grads, refs, 1e-4, None)]
 
 
+def _serve_mask(torch, dev, rng, b, n):
+    """70% real keys, batch row 1 fully masked (the keyframe side before the
+    first keyframe)."""
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.7).to(dev)
+    mask[1] = False
+    return mask
+
+
+def attn_fwd_cases(torch, dev, rng):
+    """bf16 at the serving shape and f32 at the training shape, each with
+    scaled_dot_product_attention on the same inputs as the library call (a
+    fully-masked row unmasked for it: the library has no replaced logits)."""
+    import torch.nn.functional as F
+
+    from superslam_tpu_torch.ops.cuda.attention import masked_attention_plain
+
+    cases = []
+    for dtype, shape in ((torch.bfloat16, SERVE_ATTN_SHAPE), (torch.float32, ATTN_SHAPE)):
+        b, h, n, d = shape
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+                   for _ in range(3))
+        if dtype == torch.bfloat16:
+            mask = _serve_mask(torch, dev, rng, b, n)
+        else:
+            mask = torch.from_numpy(
+                np.arange(n)[None] < rng.integers(n // 2, n + 1, size=b)[:, None]).to(dev)
+            mask[3] = False
+        ref = masked_attention_plain(q, k, v, mask).float()
+        out = torch.empty_like(q)
+        lib_mask = mask[:, None, None, :].clone()
+        lib_mask[~mask.any(dim=1)] = True
+
+        def launch(lib, stream, q=q, k=k, v=v, mask=mask, out=out, shape=shape, dtype=dtype):
+            b, h, n, _ = shape
+            return lib.ssl_masked_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            mask.data_ptr(), out.data_ptr(), None, b, h, n,
+                                            int(dtype == torch.bfloat16), stream)
+
+        limit = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        cases.append((f"{str(dtype)[6:]} at {shape}", launch, [out], [ref], limit,
+                      lambda q=q, k=k, v=v, m=lib_mask: F.scaled_dot_product_attention(
+                          q, k, v, attn_mask=m)))
+    return cases
+
+
+def block_cases(torch, dev, rng):
+    """The self and the cross block at the serving shape, bf16."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
+
+    b, k, _ = BLOCK_SHAPE
+    params = init_lightglue_params(seed=2)
+    for name in list(params):  # non-trivial biases and LayerNorm parameters
+        if name.endswith(".bias") or ".ffn.1." in name:
+            params[name] = params[name] + torch.from_numpy(
+                rng.normal(0, 0.1, tuple(params[name].shape)).astype(np.float32))
+    params = {n: t.to(dev) for n, t in params.items()}
+    x = torch.from_numpy(rng.standard_normal(BLOCK_SHAPE).astype(np.float32)).to(dev, torch.bfloat16)
+    angles = torch.from_numpy(rng.uniform(-3, 3, (b, k, 32)).astype(np.float32)).to(dev)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    mask = _serve_mask(torch, dev, rng, b, k)
+    cases = []
+    for kind in ("self", "cross"):
+        prefix = f"transformers.0.{kind}_attn"
+        if kind == "self":
+            w = lgl.prep_self_weights(params, prefix, torch.bfloat16)
+            ref = lgl.fused_self_block_plain(x, cos, sin, mask, w).float()
+        else:
+            w = lgl.prep_cross_weights(params, prefix, torch.bfloat16)
+            ref = lgl.fused_cross_block_plain(x, mask, w).float()
+        groups = 3 if kind == "self" else 2
+        qkv = torch.empty((groups, b, 4, k, 64), dtype=torch.bfloat16, device=dev)
+        ctx, out = torch.empty_like(x), torch.empty_like(x)
+
+        def launch(lib, stream, kind=kind, w=w, qkv=qkv, ctx=ctx, out=out):
+            ptrs = [t.data_ptr() for t in w] + [qkv.data_ptr(), ctx.data_ptr(), out.data_ptr()]
+            if kind == "self":
+                return lib.ssl_fused_self_block(x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                                mask.data_ptr(), *ptrs, b, k, 1, stream)
+            return lib.ssl_fused_cross_block(x.data_ptr(), mask.data_ptr(), *ptrs, b, k, 1,
+                                             stream)
+
+        cases.append((f"{kind} block at {BLOCK_SHAPE}", launch, [out], [ref], 2e-2, None))
+    return cases
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -244,7 +357,9 @@ def main(argv: list[str]) -> int:
     kernel = args.kernel
     variants = parse(args.variants or KERNELS[kernel][2])
     entries = {"pair": ("ssl_conv_pair_pool", "ssl_conv_pair"), "conv3x3": ("ssl_conv3x3",),
-               "attn_bwd": ("ssl_masked_attention_bwd",)}[kernel]
+               "attn_bwd": ("ssl_masked_attention_bwd",),
+               "attn_fwd": ("ssl_masked_attention",),
+               "block": ("ssl_fused_self_block", "ssl_fused_cross_block")}[kernel]
 
     jobs = {}
     for name, (consts, patches) in variants.items():
@@ -273,8 +388,8 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
-    cases = {"pair": pair_cases, "conv3x3": conv3x3_cases,
-             "attn_bwd": attn_bwd_cases}[kernel](torch, dev, rng)
+    cases = {"pair": pair_cases, "conv3x3": conv3x3_cases, "attn_bwd": attn_bwd_cases,
+             "attn_fwd": attn_fwd_cases, "block": block_cases}[kernel](torch, dev, rng)
 
     def call(lib, launch):
         err = launch(lib, stream)

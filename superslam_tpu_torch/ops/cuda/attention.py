@@ -6,9 +6,11 @@ keys of q k^T / sqrt(64) with masked keys at -1e9, the probabilities cast
 to v's type before the PV product. The forward kernel is
 ``masked_attention.cu``, the backward kernels ``attention_bwd.cu`` (the
 port of the JAX function's custom VJP, ``_sdpa_bwd``); their headers say
-what bounds them on the H100 and how the designs answer that. A CPU tensor
-goes through ``masked_attention_plain`` and
-``masked_attention_backward_plain``.
+what bounds them on the H100 and how the designs answer that (both
+forward kernels, bf16 and f32, are in ``attention.cuh``, which the fused
+LightGlue blocks share; ``fwd_layout`` and ``bwd_layout`` below are the
+address models of the forward and backward kernels). A CPU tensor goes
+through ``masked_attention_plain`` and ``masked_attention_backward_plain``.
 
 One ``torch.autograd.Function`` serves every device, so a result carries a
 ``grad_fn`` on the card as on the CPU. It saves q, k, v and the mask (the
@@ -281,4 +283,82 @@ def bwd_layout(rows: int = BWD_ROWS, walk: int = BWD_WALK, warp_cols: int = BWD_
         b_perm=lambda l, n0, kk, nt, reg: (n0 + 8 * kk + 2 * (l & 3) + reg) * ld + 8 * nt + (l >> 2),
         stage=lambda i: (i >> 4, (i & 15) * 4),
         red=lambda l, m0, nt, hr: (m0 + (l >> 2) + 8 * hr) * rld + 8 * nt + 2 * (l & 3),
+    )
+
+
+# attention.cuh's tiling: the query rows of a block of the bf16 and of the
+# f32 forward kernel, the keys of a tile and the bf16 kernel's key/value
+# ring slots (BQ, FQ, KT and KSTAGES there; edit both together).
+FWD_BF16_ROWS, FWD_F32_ROWS, FWD_KEYS, FWD_BF16_STAGES = 64, 64, 64, 2
+
+
+def fwd_layout(dtype: str = "bf16", rows: int | None = None, keys: int = FWD_KEYS,
+               stages: int = FWD_BF16_STAGES) -> dict:
+    """The shared-memory address model of ``attention.cuh``'s forward
+    kernels (``dtype`` "bf16" or "f32"; ``rows``: the block's query rows,
+    16 a warp, default the source's).
+
+    ``"bf16"`` (``attn_fwd_bf16_kernel``), in bytes: ``tiles``: name ->
+    (offset, rows) of the query tile ``q`` and the key and value tiles of
+    each of the ``stages`` ring slots ``u``, ``k<u>`` then ``v<u>``, each
+    row 64 bf16 = 8 chunks
+    of 16 bytes, chunk ``j`` of row ``r`` stored at chunk ``j ^ (r & 7)``
+    (``address(r, j)``, in a tile); ``copy(i)``: the (row, chunk) that
+    cp.async copy ``i`` of a tile fills; the (row, chunk) each lane ``l``
+    hands ldmatrix: ``q_lane(l, warp, ks)`` (A, k-step ``ks`` of 16
+    columns), ``k_lane(l, ks, hh)`` (B of n-tiles 2 hh and 2 hh + 1 of S),
+    ``v_lane(l, kk, j)`` (ldmatrix.trans: B of output n-tiles 2 j and 2 j +
+    1 over keys 16 kk .. 16 kk + 15).
+
+    ``"f32"`` (``attn_fwd_f32_kernel``), in 4-byte words: ``pitch`` (68),
+    ``planes``: name -> (offset, rows) of the staged ``kb``, ``ks``,
+    ``vb``, ``vs`` (big and small), ``raw`` (offset, words) of the next
+    tile's k and v as cp.async lands them (64 x 64 each, unpadded); the
+    query tile is staged once through the same planes (big rows from
+    ``kb`` on, small rows from ``vb`` on); word offsets in a plane for lane
+    ``l`` (g = l >> 2, t = l & 3): ``q_frag(l, warp, kk, reg)`` (A register
+    ``reg`` of columns 8 kk .., row 16 warp + g + 8 (reg & 1), column 8 kk
+    + t + 4 (reg >> 1)), ``b_rows(l, nt, kk, reg)`` (B of S: row 8 nt + g,
+    column 8 kk + t + 4 reg), ``b_perm(l, kk, nt, reg)`` (B of P V with k
+    permuted: row 8 kk + 2t + reg, column 8 nt + g); ``stage(i)``: the
+    (row, column) of the 4-word chunk that staging index ``i`` writes.
+
+    Both: ``smem_bytes``, ``nthreads``, ``rows``, ``keys``.
+    """
+    if dtype == "bf16":
+        rows = FWD_BF16_ROWS if rows is None else rows
+        rb = 128
+        tiles = {"q": (0, rows)}
+        off = rows * rb
+        for u in range(stages):
+            for name in "kv":
+                tiles[f"{name}{u}"] = (off, keys)
+                off += keys * rb
+        return dict(
+            dtype=dtype, rows=rows, keys=keys, stages=stages, nthreads=2 * rows, row_bytes=rb,
+            tiles=tiles,
+            smem_bytes=off,
+            address=lambda r, j: r * rb + ((j ^ r) & 7) * 16,
+            copy=lambda i: (i >> 3, i & 7),
+            q_lane=lambda l, warp, ks: (16 * warp + (l & 15), 2 * ks + (l >> 4)),
+            k_lane=lambda l, ks, hh: (16 * hh + 8 * (l >> 4) + (l & 7), 2 * ks + ((l >> 3) & 1)),
+            v_lane=lambda l, kk, j: (16 * kk + (l & 15), 2 * j + (l >> 4)),
+        )
+    if dtype != "f32":
+        raise ValueError(f"fwd_layout: dtype {dtype!r}")
+    rows = FWD_F32_ROWS if rows is None else rows
+    ld = 68
+    planes, off = {}, 0
+    for name in ("kb", "ks", "vb", "vs"):
+        planes[name] = (off, keys)
+        off += keys * ld
+    raw = (off, 2 * keys * 64)
+    return dict(
+        dtype=dtype, rows=rows, keys=keys, nthreads=2 * rows, pitch=ld, planes=planes, raw=raw,
+        smem_bytes=4 * (off + raw[1]),
+        q_frag=lambda l, warp, kk, reg: ((16 * warp + (l >> 2) + 8 * (reg & 1)) * ld
+                                         + 8 * kk + (l & 3) + 4 * (reg >> 1)),
+        b_rows=lambda l, nt, kk, reg: (8 * nt + (l >> 2)) * ld + 8 * kk + (l & 3) + 4 * reg,
+        b_perm=lambda l, kk, nt, reg: (8 * kk + 2 * (l & 3) + reg) * ld + 8 * nt + (l >> 2),
+        stage=lambda i: (i >> 4, (i & 15) * 4),
     )

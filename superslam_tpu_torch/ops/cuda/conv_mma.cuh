@@ -2,8 +2,11 @@
 // in shared memory: warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate)
 // fed by ldmatrix.x4 from XOR-swizzled tiles, and the cp.async copies that
 // fill the tiles and the weight ring. Its users are conv_pair_mma.cu, both
-// conv pairs of SuperPoint's encoder, and conv3x3_mma.cu, the single conv.
-// The address model it implements is mirrored by
+// conv pairs of SuperPoint's encoder, and conv3x3_mma.cu, the single conv;
+// the bf16 attention forward (attention.cuh) and the fused LightGlue
+// blocks' linears (lightglue_layer.cu) use its primitives (swz for 128-byte
+// rows, cp_async16, ldsm_x4, ldsm_x4_trans, mma_bf16). The address model
+// it implements is mirrored by
 // superslam_tpu_torch/ops/cuda/conv.py::mma_layout, which
 // tests/test_torch_conv_layout.py enumerates on the CPU.
 //
@@ -57,6 +60,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// The same, each 8 x 8 matrix transposed: lane l receives (row 2 (l % 4),
+// column l / 4) and (row 2 (l % 4) + 1, column l / 4), the B fragment of a
+// row-major (k, n) tile.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

@@ -5,8 +5,10 @@
 ``::fused_cross_block``. The kernels are in ``lightglue_layer.cu`` (three
 launches per block call: projection with the rotary epilogue, attention,
 the message + FFN tail); its header says what bounds them on the H100 and
-how the design answers that. A CPU tensor goes through
-``fused_self_block_plain`` / ``fused_cross_block_plain``.
+how the design answers that. ``gemm_layout`` below is the address model of
+its bf16 linears (mma.sync from swizzled tiles and a cp.async weight ring).
+A CPU tensor goes through ``fused_self_block_plain`` /
+``fused_cross_block_plain``.
 
 The plain versions follow the TPU kernel bodies' rounding points, which
 differ from the unfused route's (``models/lightglue.py::_self_block``):
@@ -284,3 +286,74 @@ def fused_cross_block(x, mask, weights) -> torch.Tensor:
     _build.check(err, "fused_cross_block")
     _build.count("fused_cross_block")
     return out
+
+
+# -- the address model of the bf16 linears ------------------------------------
+
+# lightglue_layer.cu's tiling of the bf16 linears: rows a block, warps, the
+# bytes of a weight ring slot and the slots (BM, NWARPS, SLOT and RING
+# there; edit both together).
+GEMM_ROWS, GEMM_WARPS, GEMM_SLOT, GEMM_RING = 32, 8, 32768, 3
+
+
+def gemm_layout(kernel: str = "tail", rows: int = GEMM_ROWS, warps: int = GEMM_WARPS,
+                slot: int = GEMM_SLOT, ring: int = GEMM_RING) -> dict:
+    """The shared-memory address model of ``lightglue_layer.cu``'s bf16
+    linears, ``kernel`` "proj" (``proj_mma_kernel``) or "tail"
+    (``tail_mma_kernel``), in bytes.
+
+    Keys: ``tiles``: name -> (offset, bytes, chunks a row) of the bf16 row
+    tiles (proj: ``x`` (rows, 256); tail: ``ctx`` (rows, 256) and ``h``
+    (rows, 512), which holds [x | msg] and then gelu(h)), ``ring`` (offset,
+    bytes) of the weight slots, ``red`` (offset, bytes) of LayerNorm's
+    partial sums (tail only), ``smem_bytes``, ``nthreads``;
+    ``address(r, c, cpr)``: the byte offset in a tile (or slot) of 16-byte
+    chunk ``c`` of row ``r``, ``cpr`` chunks a row, stored at chunk ``(c &
+    ~7) | ((c ^ r) & 7)``; ``stream``: the weight matrices in order as
+    (name, k rows, n columns, slices); ``products``: one (A tile, n, first
+    slice, slices) per product; ``slice_rows(n)``: k rows a slice of an
+    n-wide matrix; ``copy(i, n)``: the (row, chunk) of a slot that cp.async
+    copy ``i`` of a slice fills (``i`` = thread + round x nthreads);
+    ``load(i)``: the (row, chunk) of a row tile that copy ``i`` fills;
+    ``warp_chunk(w, n)``: the first chunk (8 columns) of warp ``w``'s
+    columns; ``a_lane(l, mt, kc)``: the (row, chunk) lane ``l`` hands
+    ldmatrix for A of row tile ``mt`` at A chunk ``kc`` (a k-step's first);
+    ``b_lane(l, ks, wc, h)``: the (slice row, chunk) it hands
+    ldmatrix.trans for B of n-tiles 2 h and 2 h + 1 at k-step ``ks`` of a
+    slice, the warp's first chunk ``wc``; ``columns(w, n, nt, t)``: the
+    accumulator columns (c, c + 1) of lane t's n-tile ``nt``.
+    """
+    dim, ff = 256, 512
+    x_bytes, h_bytes = rows * dim * 2, rows * ff * 2
+    if kernel == "proj":
+        tiles = {"x": (0, x_bytes, dim // 8)}
+        ring_at = x_bytes
+        stream = [("Wqkv group", dim, dim, dim * dim * 2 // slot)]
+        products = [("x", dim, 0, stream[0][3])]
+        red = None
+    elif kernel == "tail":
+        tiles = {"ctx": (0, x_bytes, dim // 8), "h": (x_bytes, h_bytes, ff // 8)}
+        ring_at = x_bytes + h_bytes
+        stream = [("Wout", dim, dim, dim * dim * 2 // slot), ("W0", ff, ff, ff * ff * 2 // slot),
+                  ("W3", ff, dim, ff * dim * 2 // slot)]
+        first = [sum(m[3] for m in stream[:i]) for i in range(3)]
+        products = [("ctx", dim, first[0], stream[0][3]), ("h", ff, first[1], stream[1][3]),
+                    ("h", dim, first[2], stream[2][3])]
+        red = (ring_at + ring * slot, 2 * warps * rows * 4)
+    else:
+        raise ValueError(f"gemm_layout: kernel {kernel!r}")
+    end = ring_at + ring * slot + (red[1] if red else 0)
+    return dict(
+        kernel=kernel, rows=rows, warps=warps, slot=slot, ring_slots=ring, nthreads=32 * warps,
+        tiles=tiles, ring=(ring_at, ring * slot), red=red, smem_bytes=end, stream=stream,
+        products=products,
+        address=lambda r, c, cpr: (r * cpr + ((c & ~7) | ((c ^ r) & 7))) * 16,
+        slice_rows=lambda n: slot // (2 * n),
+        copy=lambda i, n: (i // (n // 8), i % (n // 8)),
+        load=lambda i: (i >> 5, i & 31),
+        warp_chunk=lambda w, n: w * (n // warps) // 8,
+        a_lane=lambda l, mt, kc: (16 * mt + (l & 15), kc + (l >> 4)),
+        b_lane=lambda l, ks, wc, h: (16 * ks + (l & 15), wc + 2 * h + (l >> 4)),
+        columns=lambda w, n, nt, t: (w * (n // warps) + 8 * nt + 2 * t,
+                                     w * (n // warps) + 8 * nt + 2 * t + 1),
+    )

@@ -9,8 +9,9 @@ conv_a tile to bf16) and bit-equal between prepared and OIHW weights, NMS
 exact, bf16 attention atol 2e-2, the fused
 LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
 the descriptor gather atol 1e-5, the attention backward within 1e-4 of
-max|plain| in f32 (2e-2 in bf16) on the forward's residuals, and the
-forward's row statistics within 1e-5 of the plain softmax's. The last two tests run the tracking
+max|plain| in f32 (2e-2 in bf16) on the forward's residuals, the f32
+forward within 1e-4 of max|plain| at every length, and the forward's row
+statistics within 1e-5 of the plain softmax's. The last two tests run the tracking
 chains (track_scan, track_kf_scan: plain PyTorch, no kernel of their own)
 on the card against their own CPU results."""
 
@@ -299,19 +300,19 @@ def test_masked_attention_backward_needs_the_residuals(cuda):
     assert _build.launch_counts()["masked_attention_bwd"] == before
 
 
-def _block_case(cuda, dtype, k):
-    """(4, k, 256) activations, rotary angles, ragged masks with one
+def _block_case(cuda, dtype, k, b=4):
+    """(b, k, 256) activations, rotary angles, ragged masks with one
     fully-masked row, and one random layer with non-trivial biases."""
-    rng = np.random.default_rng(k)
+    rng = np.random.default_rng(k + 1000 * (b != 4))
     params = init_lightglue_params(seed=2)
     for name in list(params):
         if name.endswith(".bias") or ".ffn.1." in name:
             params[name] = params[name] + torch.from_numpy(
                 rng.normal(0, 0.1, tuple(params[name].shape)).astype(np.float32))
     params = {n: t.to(cuda) for n, t in params.items()}
-    x = torch.from_numpy(rng.standard_normal((4, k, 256)).astype(np.float32)).to(cuda, dtype)
-    proj = torch.from_numpy(rng.uniform(-3, 3, (4, k, 32)).astype(np.float32)).to(cuda)
-    mask = torch.from_numpy(rng.uniform(size=(4, k)) < 0.7).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((b, k, 256)).astype(np.float32)).to(cuda, dtype)
+    proj = torch.from_numpy(rng.uniform(-3, 3, (b, k, 32)).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.uniform(size=(b, k)) < 0.7).to(cuda)
     mask[1] = False
     return params, x, torch.cos(proj), torch.sin(proj), mask
 
@@ -344,6 +345,59 @@ def test_fused_cross_block_kernel(cuda, dtype, k):
     w = lgl.prep_cross_weights(params, "transformers.0.cross_attn", dtype)
     got = lgl.fused_cross_block(x, mask, w)
     _block_close(got, lgl.fused_cross_block_plain(x, mask, w), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 37, 600])
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("kind", ["self", "cross"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_blocks_at_ragged_row_counts(cuda, dtype, kind, b, k):
+    """B x K rows that are not a multiple of the linears' row tile (one key,
+    37, the serving 600; 2 and 4 batch rows): the projection's rotary
+    epilogue, attention's merged context (and, in the cross block, its
+    partner rows b ^ 1) and the tail, against the plain version."""
+    params, x, cos, sin, mask = _block_case(cuda, dtype, k, b)
+    prefix = f"transformers.0.{kind}_attn"
+    if kind == "self":
+        w = lgl.prep_self_weights(params, prefix, dtype)
+        got = lgl.fused_self_block(x, cos, sin, mask, w)
+        ref = lgl.fused_self_block_plain(x, cos, sin, mask, w)
+    else:
+        w = lgl.prep_cross_weights(params, prefix, dtype)
+        got = lgl.fused_cross_block(x, mask, w)
+        ref = lgl.fused_cross_block_plain(x, mask, w)
+    _block_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 70, 256, 600])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_attention_forward_lengths(cuda, dtype, n):
+    """The forward at one key, under one 64-key tile, across tiles, the
+    training and the serving length: a batch row whose first key tile holds
+    no real key (skipped), a fully-masked one (every key, the mean of v)
+    and a ragged prefix; bf16 within 2e-2, f32 within 1e-4 of max|plain|;
+    with and without the row statistics the same bits, and the statistics
+    within 1e-5 of the plain softmax's."""
+    rng = np.random.default_rng(n + 7)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((3, 4, n, 64)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(3)
+    )
+    mask = torch.from_numpy(rng.uniform(size=(3, n)) > 0.3).to(cuda)
+    mask[0, :64] = False
+    mask[0, -1] = True
+    mask[1] = False
+    mask[2] = torch.arange(n, device=cuda) <= n // 3
+    out, stats = masked_attention_with_stats(q, k, v, mask)
+    assert torch.equal(out, masked_attention(q, k, v, mask)) and out.dtype == dtype
+    ref = masked_attention_plain(q, k, v, mask).float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4 * ref.abs().max().item()), err
+    sref = attention_row_stats_plain(q, k, mask)
+    assert ((stats[0] - sref[0]).abs() <= 1e-5 * sref[0].abs().clamp_min(1.0)).all()
+    assert ((stats[1] - sref[1]).abs() <= 1e-5 * sref[1].abs()).all()
 
 
 @pytest.mark.gpu
