@@ -17,11 +17,17 @@ In order, any failure exiting non-zero:
    conv3x3's four (CIN 1 and 64, bf16 or f32 out), the attention
    backward's four (dq and dk/dv kernels, f32 and bf16), the attention
    forward's four (bf16 and f32, in masked_attention.cu and
-   lightglue_layer.cu) and the fused blocks' two bf16 linears (projection
-   and tail); any spill fails;
+   lightglue_layer.cu), the fused blocks' two bf16 linears (projection
+   and tail) and the NMS kernel's two modes (map and logits); any spill
+   fails;
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
-   max |plain| <= 2e-2 after the pool; NMS: exact; bf16 attention: atol
+   max |plain| <= 2e-2 after the pool; NMS: exact; NMS from SuperPoint's
+   logits (random logits with peaks and the checkpoint's on a rendered
+   frame): the pre-NMS map within 1e-6 abs of the plain softmax's, the
+   NMS'd map exactly ``nms_plain`` of the kernel's own pre-NMS map, the
+   same without the pre-NMS map, and the peaks that differ from the plain
+   composition printed; bf16 attention: atol
    2e-2, plus the fully-masked row against the mean of v; the fused
    LightGlue self and cross blocks: max error over max |plain| <= 2e-2 in
    bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5; the
@@ -43,18 +49,21 @@ In order, any failure exiting non-zero:
    render-trained SuperPoint and synthetic LightGlue weights) on the
    default, fused LightGlue route, checks the poses are finite, the ATE
    against ground truth is <= 0.5 m and the kernels ran exactly
-   1/1/1/9/9 times per frame (conv1a1b, conv_pair, nms, fused_self_block,
-   fused_cross_block; masked_attention 0), and prints the fused step's
-   median ms and the fps; then tracks 5 more frames under torch.profiler
-   and prints the device busy time per frame and the kernels by device
-   time;
+   1/1/1/9/9 times per frame (conv1a1b, conv_pair, scores_nms,
+   fused_self_block, fused_cross_block; nms and masked_attention 0), and
+   prints the fused step's median ms and the fps; then tracks 5 more
+   frames under torch.profiler, prints the device busy time per frame and
+   the kernels by device time, and fails if a softmax kernel ran (the
+   score half is the NMS kernel's logits mode);
 5. runs the first 10 frames again on the unfused route
    (``SUPERSLAM_PALLAS_LG=0``): exactly 1/1/1/18 launches per frame
    (masked_attention 18, the fused blocks 0), ATE <= 0.5 m, and prints the
    largest per-frame position gap between the two routes;
 6. extracts one rendered stereo pair with
    ``SuperPointExtractor(use_kernel=True)``: descriptors within 1e-5 of
-   the default route's, and the gather_normalize kernel launched;
+   the default route's, and the gather_normalize kernel launched; then
+   runs the map-mode entry point ``nms_suppress`` on that pair's pre-NMS
+   map from ``superpoint_dense``: the logits mode's NMS'd map bit for bit;
 7. trains the matcher at full width (9 layers, 256 wide, 4 heads, f32,
    batch 8 pairs, cap 256): the gradient of ``matching_loss`` through the
    kernels against the plain versions (every parameter within 1e-3 of that
@@ -68,10 +77,16 @@ In order, any failure exiting non-zero:
    for the forward / backward / optimizer split;
 8. runs every stage of ``scripts/profile_stages_torch.py`` and checks that
    conv1a1b_full, conv_pair_full and conv3x3 were launched there;
-9. prints one ``{"kernels": [...]}`` line (each kernel's launches are
-   those of the phase that drives it: 4, 5, 6, 7 or 8; row 4 twice, bf16
-   from phase 5 and f32 from phase 7's fixed-batch steps), then, as the
-   last line, ``{"ok": true, "device": {...}}``.
+9. profiles, after every timed phase (a profiler session slows the
+   launches that follow it on the host), the score half on one frame's
+   logits, the logits mode beside the composition it replaces (PyTorch's
+   softmax and depth-to-space, then the map mode), and 10 extractions with
+   ``use_kernel=True`` for the gather kernel's device time;
+10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
+    those of the phase that drives it: 4, 5, 6, 7 or 8; row 4 twice, bf16
+    from phase 5 and f32 from phase 7's fixed-batch steps; ``nms``, the
+    map mode, from phase 6: the main path runs the logits mode), then, as
+    the last line, ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -92,6 +107,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1241, 376
+PAD_W, PAD_H = 1248, 384  # the frontends' 32-pixel quantum
+WIDTH_CELLS, HEIGHT_CELLS = PAD_W // 8, PAD_H // 8
 FX, CX, CY, BF = 718.856, 607.1928, 185.2157, 386.1448  # KITTI 00
 TRAIN_FX = 320.0  # focal length of the committed checkpoints' render domain
 CIRCUIT_FRAMES = 144  # frames per lap of the bench circuit (bench.py)
@@ -111,12 +128,12 @@ ATTENTION_PER_STEP = 18  # 9 layers x (self + cross), forward and backward each
 # Launches per frame on the default (fused) LightGlue route and on the
 # unfused one (SUPERSLAM_PALLAS_LG=0).
 PER_FRAME_FUSED = {
-    "conv1a1b": 1, "conv_pair": 1, "nms": 1, "fused_self_block": 9, "fused_cross_block": 9,
-    "masked_attention": 0, "gather_normalize": 0,
+    "conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "nms": 0, "fused_self_block": 9,
+    "fused_cross_block": 9, "masked_attention": 0, "gather_normalize": 0,
 }
 PER_FRAME_UNFUSED = {
-    "conv1a1b": 1, "conv_pair": 1, "nms": 1, "fused_self_block": 0, "fused_cross_block": 0,
-    "masked_attention": 18, "gather_normalize": 0,
+    "conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "nms": 0, "fused_self_block": 0,
+    "fused_cross_block": 0, "masked_attention": 18, "gather_normalize": 0,
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -137,6 +154,10 @@ KERNEL_INFO = {
     "nms": (
         "superslam_tpu_torch/ops/cuda/nms.cu",
         "superslam_tpu/ops/pallas/nms.py:68",
+    ),
+    "scores_nms": (
+        "superslam_tpu_torch/ops/cuda/nms.cu",
+        "superslam_tpu/ops/pallas/nms.py:68 + superslam_tpu/models/superpoint.py:236-240",
     ),
     "masked_attention": (
         "superslam_tpu_torch/ops/cuda/masked_attention.cu",
@@ -195,6 +216,7 @@ REPORTED_KERNELS = {
     "attn_fwd_f32_kernel": 2,
     "proj_mma_kernel": 1,
     "tail_mma_kernel": 1,
+    "nms_tile_kernel": 2,
 }
 
 
@@ -203,7 +225,10 @@ def _smem_bytes(entry: str) -> int:
     from superslam_tpu_torch.ops.cuda.attention import bwd_layout, fwd_layout
     from superslam_tpu_torch.ops.cuda.conv import CONV3X3_GRAY_SMEM_BYTES, mma_layout
     from superslam_tpu_torch.ops.cuda.lightglue_layer import gemm_layout
+    from superslam_tpu_torch.ops.cuda.nms import tile_layout
 
+    if "nms_tile_kernel" in entry:
+        return tile_layout()["SMEM_BYTES"]
     if "attn_fwd_bf16" in entry:
         return fwd_layout("bf16")["smem_bytes"]
     if "attn_fwd_f32" in entry:
@@ -222,9 +247,9 @@ def _smem_bytes(entry: str) -> int:
 def report_build(build_dir: str) -> None:
     """Print registers, shared memory and spills of every instantiation of
     the mma.sync kernels (the convs, the attention forward and backward, the
-    fused blocks' linears) from nvcc's -Xptxas -v report; fail on any spill
-    (they keep their accumulators in registers) or a missing
-    instantiation."""
+    fused blocks' linears) and of the NMS kernel from nvcc's -Xptxas -v
+    report; fail on any spill (they keep their accumulators or their
+    cell's channels in registers) or a missing instantiation."""
     with open(os.path.join(build_dir, "nvcc.log")) as f:
         lines = f.read().splitlines()
     found = dict.fromkeys(REPORTED_KERNELS, 0)
@@ -328,8 +353,28 @@ def check_row_stats(label: str, got, ref) -> None:
         fail(f"masked_attention: {label} row statistics error {err_m}, {err_l} > 1e-5")
 
 
-def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
-    """Each kernel against its plain version at the main path's shapes."""
+def padded_pair(torch, left, right):
+    """A rendered uint8 stereo pair as the frontends feed SuperPoint: f32 in
+    [0, 1], zero-padded to the 32-pixel quantum, (2, 384, 1248) on the card."""
+    img = np.zeros((2, PAD_H, PAD_W), np.float32)
+    img[:, :HEIGHT, :WIDTH] = np.stack([left, right]).astype(np.float32) / 255.0
+    return torch.from_numpy(img).to("cuda")
+
+
+def frame_logits(torch, sp_params, left, right):
+    """SuperPoint's detector logits (2, 65, 48, 156) of one rendered stereo
+    pair, through the main path's encoder and heads."""
+    from superslam_tpu_torch.models.superpoint import _encoder_and_heads, prepare_superpoint_params
+
+    with torch.no_grad():
+        logits, _ = _encoder_and_heads(prepare_superpoint_params(sp_params, "cuda"),
+                                       padded_pair(torch, left, right), torch.bfloat16)
+    return logits
+
+
+def check_kernels(torch, sp_params, lg_params, frame) -> dict[str, dict]:
+    """Each kernel against its plain version at the main path's shapes;
+    ``frame`` is a rendered stereo pair for the NMS kernel's logits mode."""
     import torch.nn.functional as F
 
     from superslam_tpu_torch.models import lightglue as lg
@@ -353,7 +398,12 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
         pair_operands,
     )
     from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normalize_plain
-    from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
+    from superslam_tpu_torch.ops.cuda.nms import (
+        nms_plain,
+        nms_suppress,
+        scores_nms,
+        scores_nms_plain,
+    )
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -470,6 +520,56 @@ def check_kernels(torch, sp_params, lg_params) -> dict[str, dict]:
 
     lib_ms = time_ms(torch, library_nms)
     record("nms", 0.0, ms, plain_ms, lib_ms, bound(2 * nbytes(s), f32_ops=s.numel() * 17))
+
+    # NMS from SuperPoint's logits at the serving shape (2, 65, 48, 156),
+    # channels_last as the head's convs give them: random logits with peaks,
+    # and the checkpoint's own on a rendered frame (the timed input).
+    x = rng.standard_normal((2, 65, HEIGHT_CELLS, WIDTH_CELLS)) * 4
+    random_logits = torch.from_numpy(x.astype(np.float32)).to(dev)
+    random_logits = random_logits.contiguous(memory_format=torch.channels_last)
+    logits = frame_logits(torch, sp_params, *frame)
+    print(f"kernel scores_nms: the main path's logits {tuple(logits.shape)} {logits.dtype} "
+          f"arrive channels_last: {logits.is_contiguous(memory_format=torch.channels_last)}")
+    worst = 0.0
+    for label, lg_in in (("random logits with peaks", random_logits),
+                         ("the checkpoint's logits on a rendered frame", logits)):
+        out_k, pre_k = scores_nms(lg_in, 4, return_pre=True)
+        out_only, none = scores_nms(lg_in, 4)
+        ref_out, ref_pre = scores_nms_plain(lg_in, 4, return_pre=True)
+        torch.cuda.synchronize()
+        if out_k.shape != ref_out.shape or not torch.isfinite(pre_k).all().item():
+            fail(f"scores_nms: {label}: output {tuple(out_k.shape)} not finite")
+        err = (pre_k - ref_pre).abs().max().item()
+        if not err <= 1e-6:
+            fail(f"scores_nms: {label}: pre-NMS map max abs error {err} > 1e-6")
+        n_bad = (out_k != nms_plain(pre_k, 4)).sum().item()
+        if n_bad:
+            fail(f"scores_nms: {label}: {n_bad} pixels differ from nms_plain of its pre-NMS map")
+        if none is not None or not torch.equal(out_only, out_k):
+            fail(f"scores_nms: {label}: return_pre=False gives another NMS'd map")
+        peaks = (out_k > 0).sum().item()
+        differ = ((out_k > 0) != (ref_out > 0)).sum().item()
+        print(f"kernel scores_nms ({label}): pre-NMS map max abs error {err:.3g} (limit 1e-6), "
+              f"NMS'd map == nms_plain(pre-NMS map) bit for bit, {peaks} peaks, {differ} "
+              "differ from the plain composition's (not gated)")
+        worst = max(worst, err)
+    ms = time_ms(torch, lambda: scores_nms(logits, 4, return_pre=True))
+    print(f"kernel scores_nms: without the pre-NMS map "
+          f"{time_ms(torch, lambda: scores_nms(logits, 4)):.4f} ms")
+    plain_ms = time_ms(torch, lambda: scores_nms_plain(logits, 4, return_pre=True))
+
+    def library_scores():
+        # A composition, not one call: softmax, pixel_shuffle (the same
+        # depth-to-space) and a max_pool2d compare.
+        p = F.pixel_shuffle(torch.softmax(logits, dim=1)[:, :-1], 8)
+        return torch.where(p == F.max_pool2d(p, 9, 1, 4), p, 0.0)
+
+    lib_ms = time_ms(torch, library_scores)
+    record(
+        "scores_nms", worst, ms, plain_ms, lib_ms,
+        bound(nbytes(logits, out_k, pre_k),
+              f32_ops=4.0 * logits.numel() + 19.0 * out_k.numel()),
+    )
 
     # Attention at LightGlue's (2 pair problems x 2 sides, 4 heads, K=600).
     shape = (4, 4, 600, 64)
@@ -854,21 +954,106 @@ def check_extractor_kernel_route(torch, sp_params, left, right) -> int:
     return launches
 
 
+def check_map_mode(torch, sp_params, left, right) -> int:
+    """The map-mode entry point ``nms_suppress`` (the port of the TPU
+    kernel's function) on the pre-NMS map that ``superpoint_dense`` gives
+    for one rendered stereo pair: the same bits as the NMS'd map of the
+    logits mode on the main path. Returns its launches."""
+    from superslam_tpu_torch.models.superpoint import prepare_superpoint_params, superpoint_dense
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.ops.cuda.nms import nms_suppress
+
+    params = prepare_superpoint_params(sp_params, "cuda")
+    with torch.no_grad():
+        scores, _, pre = superpoint_dense(params, padded_pair(torch, left, right),
+                                          return_pre_nms=True)
+        _build.reset_launch_counts()
+        got = nms_suppress(pre, 4)
+        torch.cuda.synchronize()
+    launches = _build.launch_counts()["nms"]
+    n_bad = (got != scores).sum().item()
+    print(f"nms (map mode) on a frame's pre-NMS map: {n_bad} pixels differ from the logits "
+          f"mode's NMS'd map ({(scores > 0).sum().item()} peaks), nms launches {launches}")
+    if n_bad or launches != 1:
+        fail(f"nms: map mode differs from the logits mode in {n_bad} pixels "
+             f"or launched {launches} times")
+    return launches
+
+
+def profile_score_half(torch, sp_params, left, right, n: int = 20) -> None:
+    """Device time and events of the score half on one frame's logits, as
+    the frame ran it before (PyTorch's softmax and depth-to-space, then the
+    map-mode kernel) and as it runs it now (the logits mode)."""
+    from superslam_tpu_torch.ops.cuda.nms import nms_suppress, scores_nms, scores_nms_plain
+
+    logits = frame_logits(torch, sp_params, left, right)
+
+    def composed():
+        for _ in range(n):
+            nms_suppress(scores_nms_plain(logits, 0)[0], 4)
+
+    def fused():
+        for _ in range(n):
+            scores_nms(logits, 4, return_pre=True)
+
+    profile_device(torch, composed, n, "call",
+                   "calls of the composition the logits mode replaces", top=8)
+    profile_device(torch, fused, n, "call", "calls of the logits mode", top=8)
+
+
+def profile_gather(torch, sp_params, left, right, n: int = 10) -> None:
+    """The gather kernel's device time (row 7) inside n stereo extractions
+    through SuperPointExtractor(use_kernel=True)."""
+    from superslam_tpu_torch.frontend.extractor import SuperPointExtractor
+
+    extractor = SuperPointExtractor(sp_params, use_kernel=True, width=WIDTH, height=HEIGHT,
+                                    max_keypoints=MAX_KP, keypoint_threshold=KP_THRESHOLD)
+    rows = profile_device(torch, lambda: [extractor.extract_stereo(left, right) for _ in range(n)],
+                          n, "extraction", "extractions with use_kernel=True", top=0)
+    gather = [e for e in rows if "gather_kernel" in e.key]
+    if not gather:
+        fail("extractor: no gather_normalize kernel in the profile")
+    for e in gather:
+        print(f"extractor (use_kernel=True): {e.key[:60]}: device "
+              f"{device_us(e) / 1e3 / n:.4f} ms a call, {e.count / n:.1f} calls an extraction")
+
+
 def profile_facade(torch, slam, n: int) -> None:
-    """Track the next n frames of the lap under torch.profiler and print
-    where the device time goes."""
+    """Track the next n frames of the lap under torch.profiler, print where
+    the device time goes, and fail if a softmax kernel ran: the score half
+    is the NMS kernel's logits mode (LightGlue's log_softmax stays)."""
     frames, _ = render_sequence(n, WIDTH, HEIGHT, start=N_FRAMES)
 
     def track():
         for i, (left, right) in enumerate(frames):
             slam.track_stereo(left, right, 0.1 * (N_FRAMES + i))
 
-    profile_device(torch, track, n, "frame", "frames")
+    for e in profile_device(torch, track, n, "frame", "frames"):
+        if "softmax" in e.key.lower():
+            kind = "log_softmax" if is_log_softmax(e.key) else "softmax"
+            print(f"profile: {kind} kernel on the frame, {device_us(e) / 1e3 / n:.4f} ms/frame: "
+                  f"{e.key}")
+            if kind == "softmax":
+                fail(f"the frame ran a softmax kernel: {e.key}")
 
 
-def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> None:
-    """Run fn (n units of work) under torch.profiler and print the busy
-    share of the window and the kernels by device time per unit."""
+def is_log_softmax(key: str) -> bool:
+    """Whether a PyTorch softmax kernel's name is log_softmax's: its
+    epilogue (cunn_SoftMaxForward, cunn_SpatialSoftMaxForward) or the
+    is_log_softmax template flag of softmax_warp_forward."""
+    flag = re.search(r"softmax_warp_forward<(?:[^,<>]+,){4}\s*(true|false)", key)
+    return "logsoftmax" in key.lower() or bool(flag and flag.group(1) == "true")
+
+
+def device_us(e) -> float:
+    """A profiler row's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> list:
+    """Run fn (n units of work) under torch.profiler, print the busy share
+    of the window and the kernels by device time per unit, and return the
+    device-side events by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -877,9 +1062,6 @@ def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> N
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # Device-side events only (kernels, memcpys): the CPU-side aten ops
     # also carry the device time of what they launched.
@@ -902,6 +1084,7 @@ def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> N
             f"profile:   {device_us(e) / 1e3 / n:8.4f} ms/{unit}  "
             f"{e.count / n:6.1f} calls/{unit}  {e.key[:90]}"
         )
+    return rows
 
 
 _BATCH_KEYS = ("kpts0", "desc0", "kpts1", "desc1", "mask0", "mask1", "gt_indices")
@@ -1119,9 +1302,9 @@ def main() -> int:
 
     sp = load_safetensors(os.path.join(REPO, "weights", "superpoint_render.safetensors"), "cuda")
     lg = load_safetensors(os.path.join(REPO, "weights", "lightglue_synth.safetensors"), "cuda")
-    kernels = check_kernels(torch, sp, lg)
-
     frames, gt = render_sequence(N_FRAMES, WIDTH, HEIGHT)
+    kernels = check_kernels(torch, sp, lg, frames[0])
+
     for knob in ("SUPERSLAM_PALLAS_LG", "SUPERSLAM_PALLAS_ATTN"):
         os.environ.pop(knob, None)  # the default route: fused
     slam, poses, step_ms, loop_s, counts, n_kf = run_facade(torch, frames, WIDTH, HEIGHT, MAX_KP)
@@ -1144,14 +1327,20 @@ def main() -> int:
     print(f"routes: largest per-frame position gap fused vs unfused over {n_u} frames {gap:.4f} m")
 
     gather_launches = check_extractor_kernel_route(torch, sp, *frames[0])
+    map_nms_launches = check_map_mode(torch, sp, *frames[0])
 
     f32_fwd_launches, bwd_launches = check_training(torch)
     profiler_launches = check_profiler(torch)
+    # Profiles after every timed phase: a profiler session slows the
+    # launches that follow it on the host.
+    profile_score_half(torch, sp, *frames[0])
+    profile_gather(torch, sp, *frames[0])
 
     # Each kernel's launches are those of the phase that drives it.
     launches = {k: counts[k] for k, per in PER_FRAME_FUSED.items() if per}
     launches["masked_attention"] = counts_u["masked_attention"]
     launches["gather_normalize"] = gather_launches
+    launches["nms"] = map_nms_launches
     launches["masked_attention_f32"] = f32_fwd_launches
     launches["masked_attention_bwd"] = bwd_launches
     launches.update(profiler_launches)

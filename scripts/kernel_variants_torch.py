@@ -2,7 +2,7 @@
 """Build variants of a hand-written kernel side by side and time them on the
 card at the main path's shapes.
 
-    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block] [NAME[:EDIT,EDIT...] ...]
+    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block|nms|nms_map] [--source DIR] [NAME[:EDIT,EDIT...] ...]
 
 Kernels (``--kernel``, default ``pair``):
 
@@ -21,7 +21,17 @@ Kernels (``--kernel``, default ``pair``):
   ``scaled_dot_product_attention`` on the same inputs;
 - ``block``: the fused LightGlue self and cross blocks
   (``lightglue_layer.cu``) at (4, 600, 256) bf16, one random layer, 70%
-  real keys and one fully-masked row.
+  real keys and one fully-masked row;
+- ``nms``: the NMS kernel (``nms.cu``) in logits mode at the serving shape,
+  (2, 65, 48, 156) channels_last f32 logits with peaks to the NMS'd and the
+  pre-NMS map, radius 4, beside the composition of ``torch.softmax``,
+  ``pixel_shuffle`` and a ``max_pool2d`` compare; and in map mode on a
+  (2, 384, 1248) map with ties, beside the ``max_pool2d`` compare;
+  ``nms_map`` the map mode alone (an ``nms.cu`` without the logits mode).
+
+``--source DIR`` builds from the kernel sources in DIR instead of this
+checkout's: with an unpacked parent commit's ``superslam_tpu_torch/ops/cuda``
+it times the parent's kernel in the same call as this one's.
 
 A NAME alone is the kernel source as it is. An EDIT is either KEY=VALUE,
 which sets the ``constexpr int KEY`` of the source or of one of its
@@ -33,7 +43,8 @@ blocks per SM; attn_bwd: ``r32:BR=32``, blocks of 32 own rows,
 the bf16 key/value ring of 3 slots, ``q32:BQ=32``, bf16 blocks of 32
 query rows, ``f32q32:FQ=32`` and ``f32q128:FQ=128``, f32 blocks of 32 or
 128; block: ``ring4:RING=4``, a weight ring of 4 slots, ``r16:BM=16`` and
-``r64:BM=64``, row tiles of 16 or 64 rows, ``w16:NWARPS=16``), or the name of
+``r64:BM=64``, row tiles of 16 or 64 rows, ``w16:NWARPS=16``; nms:
+``c4x16:TCX=16``, tiles of 4 x 16 cells, ``c8x16:TCY=8,TCX=16``), or the name of
 a diagnostic patch of ``PATCHES`` (pair: ``noA``, A operands from
 registers, no ldmatrix; ``nomma``, no mma, one ALU operation per product
 instead; ``nostep``, no tap step at all; ``noprologue``, no CUDA-core
@@ -44,19 +55,23 @@ nostep:nostep nomma:nomma noprologue:noprologue``; conv3x3 ``tree
 w8:NWARPS3=8,NPASS3=2,MINB3=2``;
 attn_bwd ``tree r32:BR=32``; attn_fwd ``tree s3:KSTAGES=3 s4:KSTAGES=4
 q32:BQ=32 f32q32:FQ=32 f32q128:FQ=128``; block ``tree ring4:RING=4
-ring5:RING=5 r16:BM=16 r64:BM=64 w16:NWARPS=16``.
+ring5:RING=5 r16:BM=16 r64:BM=64 w16:NWARPS=16``; nms ``tree c4x16:TCX=16
+c8x16:TCY=8,TCX=16``.
 
 Each variant is compiled with the port's nvcc flags into its own library
 under ``build/kernel_variants/<kernel>/`` (one nvcc per variant, all at once)
 and called through the kernel's own C entry point. Unpatched variants are
 held against the plain version (max error / max|plain| <= 2e-2 for the
 convs, the blocks and bf16 attention, 1e-4 for f32 attention and the
-backward). Then every variant is timed: 4 rounds, in
+backward; nms: the pre-NMS map within 1e-6 of the plain softmax's and the
+NMS'd map against ``nms_plain`` of the kernel's own pre-NMS map, the map
+mode exact). Then every variant is timed: 4 rounds, in
 alternating order, of 50 back-to-back launches between two CUDA events, for
 each case. Prints the card and its power limit, registers and spills from
 nvcc's report, and one line per variant and case; conv3x3's cases are also
-timed, in the same turns, through cuDNN (``library``), and attn_fwd's
-through scaled_dot_product_attention. Exits non-zero without a card.
+timed, in the same turns, through cuDNN (``library``), attn_fwd's
+through scaled_dot_product_attention and nms's through the compositions
+above. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -90,11 +105,14 @@ KERNELS = {
     "block": ("lightglue_layer.cu", (FWD, ENGINE, TF32),
               ["tree", "ring4:RING=4", "ring5:RING=5", "r16:BM=16", "r64:BM=64",
                "w16:NWARPS=16"]),
+    "nms": ("nms.cu", (), ["tree", "c4x16:TCX=16", "c8x16:TCY=8,TCX=16"]),
+    "nms_map": ("nms.cu", (), ["tree"]),
 }
 SHAPES = {1: (2, 1, 384, 1248), 64: (2, 64, 192, 624)}
 ATTN_SHAPE = (16, 4, 256, 64)
 SERVE_ATTN_SHAPE = (4, 4, 600, 64)
 BLOCK_SHAPE = (4, 600, 256)
+LOGITS_SHAPE = (2, 65, 48, 156)  # the detector head's logits of a 1248 x 384 stereo pair
 
 # name: (file, text, replacement); the pair kernel's diagnostics.
 PATCHES = {
@@ -137,14 +155,15 @@ def parse(args: list[str]) -> dict[str, tuple[dict[str, str], list[str]]]:
     return variants
 
 
-def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[str]) -> str:
+def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[str],
+                  src: str = SRC) -> str:
     source, headers, _ = KERNELS[kernel]
     d = os.path.join(OUT, kernel, name)
     os.makedirs(d, exist_ok=True)
-    shutil.copy(os.path.join(SRC, "common.cuh"), d)
+    shutil.copy(os.path.join(src, "common.cuh"), d)
     files = {}
     for f in (*headers, source):
-        with open(os.path.join(SRC, f)) as fh:
+        with open(os.path.join(src, f)) as fh:
             files[f] = fh.read()
     for p in patches:
         f, old, new = PATCHES[p]
@@ -337,6 +356,47 @@ def block_cases(torch, dev, rng):
     return cases
 
 
+def nms_cases(torch, dev, rng):
+    """The logits mode with its pre-NMS map (the main path's call: the
+    sub-pixel refinement reads it) and the map mode. A reference may be a
+    function of the variant's outputs: the NMS'd map is held to nms_plain of
+    the kernel's own pre-NMS map."""
+    import torch.nn.functional as F
+
+    from superslam_tpu_torch.ops.cuda.nms import nms_plain, scores_nms_plain
+
+    logits = torch.from_numpy((rng.standard_normal(LOGITS_SHAPE) * 4).astype(np.float32))
+    logits = logits.to(dev).contiguous(memory_format=torch.channels_last)
+    b, _, h, w = LOGITS_SHAPE
+    _, ref_pre = scores_nms_plain(logits, 4, return_pre=True)
+    pre, out = torch.empty_like(ref_pre), torch.empty_like(ref_pre)
+
+    def launch_logits(lib, stream):
+        return lib.ssl_scores_nms(logits.data_ptr(), pre.data_ptr(), out.data_ptr(), b, h, w,
+                                  4, stream)
+
+    def library_logits():
+        p = F.pixel_shuffle(torch.softmax(logits, dim=1)[:, :-1], 8)
+        return torch.where(p == F.max_pool2d(p, 9, 1, 4), p, 0.0)
+
+    s = rng.uniform(0, 1, (2, 384, 1248)) ** 6
+    s = torch.from_numpy((np.round(s * 4096) / 4096).astype(np.float32)).to(dev)
+    s_out = torch.empty_like(s)
+
+    def launch_map(lib, stream):
+        return lib.ssl_nms(s.data_ptr(), s_out.data_ptr(), 2, 384, 1248, 4, stream)
+
+    def library_map():
+        p = F.max_pool2d(s[:, None], 9, 1, 4)[:, 0]
+        return torch.where(s == p, s, 0.0)
+
+    return [
+        (f"logits {LOGITS_SHAPE}", launch_logits, [pre, out],
+         [ref_pre, lambda: nms_plain(pre, 4)], 1e-6, library_logits),
+        ("map (2, 384, 1248)", launch_map, [s_out], [nms_plain(s, 4)], 0.0, library_map),
+    ]
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -344,6 +404,9 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="pair")
+    ap.add_argument("--source", default=SRC,
+                    help="the kernel sources' directory (default: this checkout's); another "
+                         "commit's, unpacked, times its kernel in the same call")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -359,11 +422,12 @@ def main(argv: list[str]) -> int:
     entries = {"pair": ("ssl_conv_pair_pool", "ssl_conv_pair"), "conv3x3": ("ssl_conv3x3",),
                "attn_bwd": ("ssl_masked_attention_bwd",),
                "attn_fwd": ("ssl_masked_attention",),
-               "block": ("ssl_fused_self_block", "ssl_fused_cross_block")}[kernel]
+               "block": ("ssl_fused_self_block", "ssl_fused_cross_block"),
+               "nms": ("ssl_scores_nms", "ssl_nms"), "nms_map": ("ssl_nms",)}[kernel]
 
     jobs = {}
     for name, (consts, patches) in variants.items():
-        src = write_variant(kernel, name, consts, patches)
+        src = write_variant(kernel, name, consts, patches, args.source)
         lib = os.path.join(os.path.dirname(src), "lib.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -389,7 +453,9 @@ def main(argv: list[str]) -> int:
     rng = np.random.default_rng(0)
     stream = torch.cuda.current_stream().cuda_stream
     cases = {"pair": pair_cases, "conv3x3": conv3x3_cases, "attn_bwd": attn_bwd_cases,
-             "attn_fwd": attn_fwd_cases, "block": block_cases}[kernel](torch, dev, rng)
+             "attn_fwd": attn_fwd_cases, "block": block_cases,
+             "nms": nms_cases,
+             "nms_map": lambda *a: nms_cases(*a)[1:]}[kernel](torch, dev, rng)
 
     def call(lib, launch):
         err = launch(lib, stream)
@@ -403,6 +469,7 @@ def main(argv: list[str]) -> int:
             call(lib, launch)
             torch.cuda.synchronize()
             for out, ref in zip(outs, refs):
+                ref = ref() if callable(ref) else ref
                 rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
                 print(f"{name} {label}: max error / max|plain| {rel:.3g} (limit {limit:g})")
                 if not rel <= limit:

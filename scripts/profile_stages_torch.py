@@ -10,10 +10,12 @@ lengths to cancel its host relay; events on the card's own stream need no
 such trick.)
 
 Stages:
-  dense_pallas    superpoint_dense on the kernel route (conv pairs + NMS),
-                  on prepare_superpoint_params' operands as the pipeline
-  dense_xla       the same function with cuDNN convs everywhere and the
-                  plain NMS, composed here from the kernels' plain versions
+  dense_pallas    superpoint_dense on the kernel route (conv pairs, the
+                  score half in the NMS kernel's logits mode), on
+                  prepare_superpoint_params' operands as the pipeline
+  dense_xla       the same function with cuDNN convs everywhere and
+                  PyTorch's softmax, depth-to-space and the plain NMS,
+                  composed here from the kernels' plain versions
                   and the port's tail: a yardstick, not a path of the port
   conv1a1b        conv1a+conv1b, no pool      (kernel conv_pair, CIN 1)
   conv2           conv2a alone                (kernel conv3x3, operands prepared once)
@@ -22,7 +24,9 @@ Stages:
   conv1a1b_pool   conv1a+conv1b+pool          (kernel conv_pair_pool, CIN 1)
   xla_tail        conv3a..heads from the quarter-resolution map (cuDNN)
   conv3           conv3a+conv3b (cuDNN)
-  score_post      softmax + depth-to-space + NMS kernel + descriptor norm
+  score_post      softmax + depth-to-space + NMS in one launch (the NMS
+                  kernel's logits mode) + descriptor norm, from
+                  channels_last logits as the frame's head gives them
   select          select_keypoints (top-K, gather, borders)
   lightglue       lightglue_forward, 2 pair problems, the default route
   lg_self         one unfused self block       lg_cross  one unfused cross block
@@ -144,7 +148,7 @@ def run_stages(
     half = half.contiguous(memory_format=torch.channels_last)
     quarter = torch.zeros((2, 64, height // 4, width // 4), dtype=bf16, device=device)
     quarter = quarter.contiguous(memory_format=torch.channels_last)
-    logits = normal(2, 65, height // 8, width // 8)
+    logits = normal(2, 65, height // 8, width // 8).contiguous(memory_format=torch.channels_last)
     desc_raw = normal(2, 256, height // 8, width // 8, dtype=bf16)
     scores = normal(2, height, width).abs()
     grid = normal(2, height // 8, width // 8, 256, dtype=bf16)

@@ -13,7 +13,12 @@ Routing, as on the TPU's default route:
   parameters carry them;
 - conv3a..the heads are ``F.conv2d`` in the compute dtype, as the JAX
   package leaves them to XLA;
-- NMS goes through the hand-written kernel (``ops/cuda/nms.py``);
+- the score half (softmax over the 65 detector channels, the dustbin
+  dropped, depth-to-space, radius-r NMS) is one launch of the hand-written
+  kernel in logits mode (``ops/cuda/nms.py::scores_nms``): it reads the
+  head's channels_last logits once, keeps the probabilities in its tile and
+  writes the NMS'd and the pre-NMS map once each, where the JAX package
+  lets XLA fuse the softmax and the depth-to-space ahead of its Pallas NMS;
 - the descriptor gather of ``select_keypoints`` is ``torch.gather`` by
   default and the hand-written kernel (``ops/cuda/gather.py``) with
   ``use_kernel=True``, as the JAX package's ``use_pallas``.
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.conv import conv_pair_pool, pair_operands
 from ..ops.cuda.gather import gather_normalize, gather_normalize_plain
-from ..ops.cuda.nms import nms_suppress
+from ..ops.cuda.nms import scores_nms, scores_nms_plain
 
 Params = dict[str, torch.Tensor]
 
@@ -101,19 +106,19 @@ def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
 
 
 def _scores_and_descriptors(
-    logits, desc, nms_radius: int, compute_dtype, return_pre_nms: bool, nms=nms_suppress
+    logits, desc, nms_radius: int, compute_dtype, return_pre_nms: bool, nms=None
 ):
     """The heads' outputs -> (NMS'd heatmap, normalized NHWC descriptor grid
-    [, pre-NMS heatmap]): softmax, depth-to-space, ``nms`` and the
-    channel-wise L2 normalization."""
-    scores = torch.softmax(logits, dim=1)[:, :-1]  # (B, 64, h, w)
-    b, _, h, w = scores.shape
-    # Depth-to-space: channel c = cy*8 + cx -> (B, h*8, w*8).
-    scores = scores.reshape(b, CELL, CELL, h, w).permute(0, 3, 1, 4, 2)
-    scores = scores.reshape(b, h * CELL, w * CELL).contiguous()
-    pre_nms = scores
-    if nms_radius > 0:
-        scores = nms(scores, nms_radius)
+    [, pre-NMS heatmap]): softmax, depth-to-space, NMS and the channel-wise
+    L2 normalization. By default the score half is ``scores_nms`` (one
+    kernel launch on the card); a map-to-map ``nms`` (``nms_plain``, or the
+    map-mode kernel ``nms_suppress``) composes it from PyTorch's softmax
+    and depth-to-space instead."""
+    if nms is None:
+        scores, pre_nms = scores_nms(logits, nms_radius, return_pre_nms)
+    else:
+        pre_nms = scores_nms_plain(logits, 0)[0]  # softmax + depth-to-space
+        scores = nms(pre_nms, nms_radius) if nms_radius > 0 else pre_nms
     sq = torch.sum(torch.square(desc.float()), dim=1, keepdim=True)
     desc = desc * torch.rsqrt(sq + 1e-12).to(compute_dtype)
     desc = desc.permute(0, 2, 3, 1).contiguous()  # NHWC

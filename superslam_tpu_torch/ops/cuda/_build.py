@@ -49,6 +49,7 @@ KERNELS = (
     "conv1a1b",
     "conv_pair",
     "nms",
+    "scores_nms",
     "masked_attention",
     "masked_attention_bwd",
     "fused_self_block",
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "ssl_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # s, out, B, H, W, radius, stream
     "ssl_nms": [_P, _P, _I, _I, _I, _I, _P],
+    # logits, pre (or null), out, B, h, w, radius, stream
+    "ssl_scores_nms": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, mask, out, stats (or null), B, heads, N, is_bf16, stream
     "ssl_masked_attention": [_P] * 6 + [_I, _I, _I, _I, _P],
     # q, k, v, mask, dout, out, stats, dq, dk, dv, B, heads, N, is_bf16, stream

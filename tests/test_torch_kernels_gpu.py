@@ -6,7 +6,8 @@ JAX, so on the GPU host it runs without the JAX package's conftest:
 
 Tolerances: conv pairs within 2e-2 of max|plain| (the kernel rounds the
 conv_a tile to bf16) and bit-equal between prepared and OIHW weights, NMS
-exact, bf16 attention atol 2e-2, the fused
+exact (from logits: the probabilities within 1e-6 of the plain softmax's,
+the suppression of them exact), bf16 attention atol 2e-2, the fused
 LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
 the descriptor gather atol 1e-5, the attention backward within 1e-4 of
 max|plain| in f32 (2e-2 in bf16) on the forward's residuals, the f32
@@ -41,7 +42,7 @@ from superslam_tpu_torch.ops.cuda.gather import gather_normalize, gather_normali
 from superslam_tpu_torch.ops.cuda import _build
 from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
 from superslam_tpu_torch.models.lightglue import init_lightglue_params
-from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress
+from superslam_tpu_torch.ops.cuda.nms import nms_plain, nms_suppress, scores_nms, scores_nms_plain
 
 
 @pytest.fixture
@@ -201,6 +202,83 @@ def test_nms_kernel(cuda):
     s[:, 10, 20:24] = 1.5
     s = torch.from_numpy(s).to(cuda)
     assert torch.equal(nms_suppress(s), nms_plain(s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 37, 70), (3, 40, 64), (2, 50, 130)])
+def test_nms_kernel_partial_tiles(cuda, shape):
+    """Map mode off the 32 x 64 tile, with rows that are not 16-byte
+    aligned (W = 70, 130: the scalar stores) and aligned (W = 64)."""
+    rng = np.random.default_rng(sum(shape))
+    s = rng.uniform(0, 1, shape) ** 6
+    s = torch.from_numpy((np.round(s * 256) / 256).astype(np.float32)).to(cuda)
+    for radius in (0, 1, 4, 8):
+        assert torch.equal(nms_suppress(s, radius), nms_plain(s, radius) if radius else s)
+
+
+def _check_scores_nms(logits, radius):
+    """The logits mode against its plain twin: pre within 1e-6 of the plain
+    softmax's, out exactly the suppression of the kernel's own pre (and pre
+    itself at radius 0), the same out without pre."""
+    before = _build.launch_counts()["scores_nms"]
+    out, pre = scores_nms(logits, radius, return_pre=True)
+    out_only, none = scores_nms(logits, radius)
+    _, ref_pre = scores_nms_plain(logits, radius, return_pre=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["scores_nms"] == before + 2
+    assert none is None and torch.equal(out_only, out)
+    assert pre.shape == out.shape == ref_pre.shape
+    assert (pre - ref_pre).abs().max().item() <= 1e-6
+    assert torch.equal(out, nms_plain(pre, radius) if radius else pre)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [0, 1, 4, 8])
+@pytest.mark.parametrize("b,h,w", [(1, 5, 13), (3, 8, 20), (2, 48, 156), (1, 4, 8), (2, 1, 1)])
+def test_scores_nms_kernel(cuda, b, h, w, radius):
+    """Cells (5, 13) and (48, 156) leave partial tiles both ways, (4, 8) is
+    one whole tile, (1, 1) a single cell; logits with peaks, channels_last
+    as the detector head gives them."""
+    rng = np.random.default_rng(b * 1000 + h * 10 + w + radius)
+    x = rng.standard_normal((b, 65, h, w)) * 4
+    logits = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    _check_scores_nms(logits.contiguous(memory_format=torch.channels_last), radius)
+
+
+@pytest.mark.gpu
+def test_scores_nms_kernel_seams_and_layouts(cuda):
+    """A peak on the last pixel of a tile with its equal across the seam (a
+    two-pixel plateau straddling it, both kept), a uniform plateau over a
+    tile corner, and NCHW logits giving the same bits as channels_last."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 65, 10, 20)).astype(np.float32)
+    # Pixel (31, 63) is channel 63 of cell (3, 7), the last of tile (0, 0);
+    # pixel (31, 64) is channel 56 of cell (3, 8), the first of tile (0, 1).
+    x[:, :, 3, 7] = 0.0
+    x[:, 63, 3, 7] = 12.0
+    x[:, :, 3, 8] = 0.0
+    x[:, 56, 3, 8] = 12.0
+    x[:, :, 3:6, 14:18] = 1.0  # uniform probabilities across the corner of four tiles
+    nchw = torch.from_numpy(x).to(cuda)
+    out = _check_scores_nms(nchw.contiguous(memory_format=torch.channels_last), 4)
+    assert out[0, 31, 63].item() > 0 and out[0, 31, 64].item() == out[0, 31, 63].item()
+    assert (out[:, 28:44, 116:140] > 0).all()  # the plateau's interior: every pixel a tie
+    got, pre = scores_nms(nchw, 4, return_pre=True)
+    ref, ref_pre = scores_nms(nchw.contiguous(memory_format=torch.channels_last), 4, True)
+    assert torch.equal(got, ref) and torch.equal(pre, ref_pre)
+
+
+@pytest.mark.gpu
+def test_scores_nms_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros((1, 65, 4, 8), device=cuda)
+    before = _build.launch_counts()["scores_nms"]
+    for bad in (x.to(torch.bfloat16), x[:, :64], x[0]):
+        with pytest.raises(ValueError):
+            scores_nms(bad)
+    with pytest.raises(ValueError):
+        scores_nms(x, 9)
+    assert _build.launch_counts()["scores_nms"] == before
 
 
 @pytest.mark.gpu
