@@ -18,8 +18,8 @@ In order, any failure exiting non-zero:
    backward's four (dq and dk/dv kernels, f32 and bf16), the attention
    forward's four (bf16 and f32, in masked_attention.cu and
    lightglue_layer.cu), the fused blocks' two bf16 linears (projection
-   and tail) and the NMS kernel's two modes (map and logits); any spill
-   fails;
+   and tail), the NMS kernel's two modes (map and logits) and the pose
+   solve; any spill fails;
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; NMS from SuperPoint's
@@ -44,16 +44,47 @@ In order, any failure exiting non-zero:
    version and, where one exists, a library call as a yardstick (CUDA
    events, median of 20 after 3 warm-ups; for row 4 also the library's
    forward at the training shape);
-4. runs the port's ``SuperSLAM`` facade on 30 rendered frames at the KITTI
-   00 geometry (1241x376, padded to 1248x384; 600 keypoints; the committed
-   render-trained SuperPoint and synthetic LightGlue weights) on the
-   default, fused LightGlue route, checks the poses are finite, the ATE
-   against ground truth is <= 0.5 m and the kernels ran exactly
-   1/1/1/9/9 times per frame (conv1a1b, conv_pair, scores_nms,
-   fused_self_block, fused_cross_block; nms and masked_attention 0), and
-   prints the fused step's median ms and the fps; then tracks 5 more
-   frames under torch.profiler, prints the device busy time per frame and
-   the kernels by device time, and fails if a softmax kernel ran (the
+4. runs the port's ``SuperSLAM`` facade synchronously (depth 0,
+   host-solved: ``SUPERSLAM_PIPELINE=0``, ``SUPERSLAM_DEVICE_TRACKER=0``)
+   on 30 rendered frames at the KITTI 00 geometry (1241x376, padded to
+   1248x384; 600 keypoints; the committed render-trained SuperPoint and
+   synthetic LightGlue weights) on the default, fused LightGlue route,
+   checks the poses are finite, the ATE against ground truth is <= 0.5 m
+   and the kernels ran exactly 1/1/1/9/9 times per frame (conv1a1b,
+   conv_pair, scores_nms, fused_self_block, fused_cross_block; nms,
+   masked_attention and pose_solve 0), and prints the fused step's median
+   ms, the fps and the host estimator's ms a frame (``vo_track_total`` of
+   ``utils/profiler.py``);
+4b. runs the facade as a user gets it on the card, ``SuperSLAM(cfg)`` with
+   no env (depth 3, batch 1, device keyframes), on the same 30 frames: the
+   mode, ATE <= 0.5 m, the sustained fps over frames 1..29 by wall clock,
+   the host estimator's ms; over the dispatches of frames 5..29 (counters
+   reset before frame 5 is submitted, read before the flush) the launches
+   a frame, exactly conv1a1b 1, conv_pair 1, scores_nms 1,
+   fused_self_block 9, fused_cross_block 9 and pose_solve 1 once the
+   matcher launches of the frames that drain through the host re-match
+   path are subtracted (those frames are counted and printed), and every
+   dispatch under ``torch.cuda.set_sync_debug_mode("error")``: any
+   synchronizing call fails the run (keyframe reseeds are counted); then
+   the default and depth 0 once more on new facades, in that order (ABBA
+   with the two phases before), each printing its fps, ATE, host
+   estimator ms and the host ms a frame of the call that issues its device
+   work;
+4c. holds ``pose_solve`` against its plain twin on the card on every frame
+   and keyframe of 4b's window, a frame cut below min_matches (coast) and
+   a noisy one with min_matches + 4 usable matches whose first chi2 round
+   ends the re-solves (one LM solve in the twin): |dR|, |dt| <=
+   1e-3, n and the usable mask exact, the kept count within 1% of n; times
+   it, the plain twin and its bound; and times the two costs of the
+   sync-free design: the device-side promotion select and the re-match of
+   the frames after the first of a dispatch at batch > 1;
+4d. runs the 150-frame rendered circuit's legs through
+   ``scripts/accuracy_suite_torch.py`` (stereo, stereo_sync, stereo_devkf
+   at ATE <= 1.5x the reference's 0.0675, 0.0667, 0.0662 m; stereo_nogate,
+   stereo_passthrough, stereo_devtrack printed), prints each leg's wall
+   time and writes ``ACCURACY_TORCH.json``; then tracks 5 more frames of
+   4's facade under torch.profiler, prints the device busy time per frame
+   and the kernels by device time, and fails if a softmax kernel ran (the
    score half is the NMS kernel's logits mode);
 5. runs the first 10 frames again on the unfused route
    (``SUPERSLAM_PALLAS_LG=0``): exactly 1/1/1/18 launches per frame
@@ -80,13 +111,16 @@ In order, any failure exiting non-zero:
 9. profiles, after every timed phase (a profiler session slows the
    launches that follow it on the host), the score half on one frame's
    logits, the logits mode beside the composition it replaces (PyTorch's
-   softmax and depth-to-space, then the map mode), and 10 extractions with
-   ``use_kernel=True`` for the gather kernel's device time;
+   softmax and depth-to-space, then the map mode), 10 extractions with
+   ``use_kernel=True`` for the gather kernel's device time, and last 5
+   more frames of 4b's default facade (device busy ms a frame and the
+   device's idle share);
 10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
-    those of the phase that drives it: 4, 5, 6, 7 or 8; row 4 twice, bf16
-    from phase 5 and f32 from phase 7's fixed-batch steps; ``nms``, the
-    map mode, from phase 6: the main path runs the logits mode), then, as
-    the last line, ``{"ok": true, "device": {...}}``.
+    those of the phase that drives it: the main path's six from 4b's
+    window, the others from 5, 6, 7 or 8; row 4 twice, bf16 from phase 5
+    and f32 from phase 7's fixed-batch steps; ``nms``, the map mode, from
+    phase 6: the main path runs the logits mode), then, as the last line,
+    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -133,8 +167,23 @@ PER_FRAME_FUSED = {
 }
 PER_FRAME_UNFUSED = {
     "conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "nms": 0, "fused_self_block": 0,
-    "fused_cross_block": 0, "masked_attention": 18, "gather_normalize": 0,
+    "fused_cross_block": 0, "masked_attention": 18, "gather_normalize": 0, "pose_solve": 0,
 }
+PER_FRAME_FUSED["pose_solve"] = 0  # depth 0 is host-solved
+# The facade's default on the card: depth 3, device keyframes, batch 1.
+PER_FRAME_DEFAULT = {**PER_FRAME_FUSED, "pose_solve": 1}
+STEADY_FROM = 5  # the default phase counts launches over frames 5..29
+# The depth-0 phases measure what they measured before the pipelined default.
+DEPTH0_ENV = {"SUPERSLAM_PIPELINE": "0", "SUPERSLAM_DEVICE_TRACKER": "0"}
+# pose_solve against its plain twin: f32 sums in another order, and the LM's
+# stop at an improvement below 1e-4 of the error may fall one iteration apart.
+POSE_ATOL = 1e-3  # m, and rotation-matrix entries
+# f32 operations a correspondence costs in the kernel (pose_solve.cu): the
+# normal equations' ~350 and the trial error's ~45 an LM iteration; ~40 a
+# reprojection for the gate and each chi2 round.
+POSE_OPS_ITER, POSE_OPS_REPROJ = 395, 40
+ACCURACY_LEGS = ("stereo", "stereo_sync", "stereo_devkf", "stereo_nogate",
+                 "stereo_passthrough", "stereo_devtrack")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -195,6 +244,11 @@ KERNEL_INFO = {
         "superslam_tpu_torch/ops/cuda/conv3x3_mma.cu",
         "superslam_tpu/ops/pallas/conv.py:640",
     ),
+    "pose_solve": (
+        "superslam_tpu_torch/ops/cuda/pose_solve.cu",
+        "superslam_tpu/ops/frontend_step.py:381 + superslam_tpu/ops/pose_solver.py:159 "
+        "(XLA, lax.while_loop :198; no pallas_call)",
+    ),
 }
 
 
@@ -217,6 +271,7 @@ REPORTED_KERNELS = {
     "proj_mma_kernel": 1,
     "tail_mma_kernel": 1,
     "nms_tile_kernel": 2,
+    "pose_solve_kernel": 1,
 }
 
 
@@ -229,6 +284,8 @@ def _smem_bytes(entry: str) -> int:
 
     if "nms_tile_kernel" in entry:
         return tile_layout()["SMEM_BYTES"]
+    if "pose_solve_kernel" in entry:
+        return 0  # static only
     if "attn_fwd_bf16" in entry:
         return fwd_layout("bf16")["smem_bytes"]
     if "attn_fwd_f32" in entry:
@@ -852,12 +909,9 @@ KeyFrame.max_frames: 20
 """
 
 
-def run_facade(torch, frames, width: int, height: int, max_kp: int):
-    """Drive the port's facade over rendered frames, with the launch counts
-    set to 0 just before the first frame and read just after the last.
-    Returns (the facade, poses, per-frame fused-step ms, loop seconds after
-    frame 0, launch counts, keyframe count)."""
-    from superslam_tpu_torch.ops.cuda import _build
+def build_slam(width: int = WIDTH, height: int = HEIGHT, max_kp: int = MAX_KP):
+    """The port's facade on the bench circuit's config, with the env as it
+    stands."""
     from superslam_tpu_torch.slam import SuperSLAM
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -870,8 +924,41 @@ def run_facade(torch, frames, width: int, height: int, max_kp: int):
                     max_kp=max_kp, threshold=KP_THRESHOLD,
                 )
             )
-        slam = SuperSLAM(cfg)
+        return SuperSLAM(cfg)
 
+
+def estimator_ms() -> tuple[float, int]:
+    """Mean ms and count of the host estimator's ``vo_track_total`` scope
+    (utils/profiler.py, on under SUPERSLAM_PROFILE=1) since the last call;
+    clears the accumulator, so nothing is dumped at exit."""
+    from superslam_tpu_torch.utils.profiler import Profiler
+
+    prof = Profiler.instance()
+    total, n = prof.stats().get("vo_track_total", (0.0, 0))
+    with prof._lock:
+        prof._acc.clear()
+    return total / max(n, 1), n
+
+
+def facade_mode(slam) -> str:
+    t = slam._tracker
+    if t is None:
+        return "depth 0 (synchronous), host-solved"
+    kind = ("device keyframes" if t.device_kf else "dispatch-frozen device tracking"
+            if t.device_tracking else "host-solved")
+    return f"depth {t.depth}, batch {t.batch}, {kind}"
+
+
+def run_facade(torch, frames, width: int, height: int, max_kp: int):
+    """Drive the port's facade synchronously over rendered frames, with the
+    launch counts set to 0 just before the first frame and read just after
+    the last. Returns (the facade, poses, per-frame fused-step ms, loop
+    seconds after frame 0, launch counts, keyframe count, estimator ms)."""
+    from superslam_tpu_torch.ops.cuda import _build
+
+    slam = build_slam(width, height, max_kp)
+    if slam._tracker is not None:
+        fail(f"the depth-0 phase built a pipelined tracker ({facade_mode(slam)})")
     step_ms: list[float] = []
     process = slam.pipeline.process
 
@@ -886,6 +973,7 @@ def run_facade(torch, frames, width: int, height: int, max_kp: int):
         return result
 
     slam.pipeline.process = timed_process
+    estimator_ms()
     _build.reset_launch_counts()
     t1 = None
     for i, (left, right) in enumerate(frames):
@@ -896,25 +984,28 @@ def run_facade(torch, frames, width: int, height: int, max_kp: int):
             t1 = time.perf_counter()
     loop_s = time.perf_counter() - t1
     counts = _build.launch_counts()
+    est_ms = estimator_ms()
     slam.pipeline.process = process
     slam.estimator.stop_loop_worker()
     poses = slam.estimator.corrected_trajectory()
     n_kf = len(slam.estimator.anchors())
-    return slam, poses, step_ms, loop_s, counts, n_kf
+    return slam, poses, step_ms, loop_s, counts, n_kf, est_ms
 
 
-def check_facade_run(label, poses, gt, step_ms, loop_s, counts, n_kf, per_frame):
-    """Print one facade run's line and hold it to its launch counts and the
-    ATE limit. Returns the ATE result."""
+def check_facade_run(label, slam, poses, gt, step_ms, loop_s, counts, n_kf, per_frame, est_ms):
+    """Print one synchronous facade run's lines and hold it to its launch
+    counts and the ATE limit. Returns the ATE result."""
     from superslam_tpu_torch.eval.metrics import ate
 
     n = len(gt)
     res = ate(poses, gt)
+    print(f"facade ({label}): mode {facade_mode(slam)}")
     print(
         f"facade ({label}): {n} frames {WIDTH}x{HEIGHT}, fused step median "
         f"{statistics.median(step_ms):.3f} ms (first {step_ms[0]:.1f} ms), "
         f"{(n - 1) / loop_s:.2f} fps over frames 1..{n - 1}, ATE {res.rmse:.4f} m, "
-        f"keyframes {n_kf}, launches {counts}"
+        f"keyframes {n_kf}, host estimator {est_ms[0]:.3f} ms a frame ({est_ms[1]} frames), "
+        f"launches {counts}"
     )
     for k, per in per_frame.items():
         if counts[k] != per * n:
@@ -922,6 +1013,342 @@ def check_facade_run(label, poses, gt, step_ms, loop_s, counts, n_kf, per_frame)
     if not np.isfinite(res.rmse) or res.rmse > ATE_LIMIT_M:
         fail(f"{label}: ATE {res.rmse} m > {ATE_LIMIT_M} m")
     return res
+
+
+def run_default_facade(torch, frames, gt):
+    """The facade as a user gets it on the card (``SuperSLAM(cfg)``, no env):
+    depth 3, device keyframes. Over the dispatches of frames 5..29 the
+    launch counts are read (reset before frame 5 is submitted, read before
+    the flush), every dispatch runs under set_sync_debug_mode("error"), the
+    frames that drain through the host re-match path are counted with the
+    matcher launches they add, and each frame's pose_solve inputs are kept
+    for the kernel check. Returns (the facade, the launch counts of the
+    window, the captured pose_solve calls)."""
+    from superslam_tpu_torch.eval.metrics import ate
+    from superslam_tpu_torch.ops import frontend_step
+    from superslam_tpu_torch.ops.cuda import _build
+
+    slam = build_slam()
+    tracker = slam._tracker
+    mode = facade_mode(slam)
+    print(f"facade (default): mode {mode}")
+    if tracker is None or tracker.depth != 3 or tracker.batch != 1 or not tracker.device_kf:
+        fail(f"default facade: {mode}, want depth 3, batch 1, device keyframes")
+
+    window = {"on": False, "rematch_frames": [], "rematch": dict.fromkeys(_build.KERNELS, 0)}
+    match = slam.matcher.match
+
+    def counted_match(*a, **kw):
+        before = _build.launch_counts()
+        out = match(*a, **kw)
+        if window["on"]:
+            window["rematch_frames"].append(len(slam.estimator._frame_records))
+            for k, v in _build.launch_counts().items():
+                window["rematch"][k] += v - before[k]
+        return out
+
+    slam.matcher.match = counted_match
+    dispatch, upload = tracker._dispatch, slam.pipeline.upload
+
+    def guarded(fn):
+        def call(*a, **kw):
+            if not window["on"]:
+                return fn(*a, **kw)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    tracker._dispatch, slam.pipeline.upload = guarded(dispatch), guarded(upload)
+    captured = []
+    solve = frontend_step.pose_solve
+
+    def capturing_solve(*a, **kw):
+        if window["on"]:
+            captured.append(([t.clone() for t in a], kw))
+        return solve(*a, **kw)
+
+    frontend_step.pose_solve = capturing_solve
+    estimator_ms()
+    try:
+        t1 = None
+        for i, (left, right) in enumerate(frames):
+            if i == STEADY_FROM:
+                _build.reset_launch_counts()
+                reseeds = tracker.reseeds
+                window["on"] = True
+            Tcw = slam.track_stereo(left, right, 0.1 * i)
+            if Tcw.shape != (4, 4) or not np.isfinite(Tcw).all():
+                fail(f"default facade: frame {i}: pose {Tcw}")
+            if i == 0:
+                t1 = time.perf_counter()
+        window["on"] = False
+        counts = _build.launch_counts()
+        reseeds = tracker.reseeds - reseeds
+        slam.flush()
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+    finally:
+        frontend_step.pose_solve = solve
+        tracker._dispatch, slam.pipeline.upload = dispatch, upload
+        slam.matcher.match = match
+    est_ms = estimator_ms()
+    poses = slam.estimator.corrected_trajectory()
+    res = ate(poses, gt)
+    n = len(frames)
+    steady = n - STEADY_FROM
+    print(
+        f"facade (default): {n} frames {WIDTH}x{HEIGHT}, {(n - 1) / loop_s:.2f} fps sustained "
+        f"over frames 1..{n - 1} (wall clock, flush included), ATE {res.rmse:.4f} m, keyframes "
+        f"{len(slam.estimator.anchors())}, host estimator {est_ms[0]:.3f} ms a frame "
+        f"({est_ms[1]} frames)"
+    )
+    print(
+        f"facade (default): frames {STEADY_FROM}..{n - 1}: no synchronizing call in the "
+        f"dispatches under set_sync_debug_mode('error'); keyframe reseeds {reseeds}; frames "
+        f"drained through the host re-match path {len(window['rematch_frames'])}: "
+        f"{window['rematch_frames']} (frames 1-2 are dispatched before the first keyframe "
+        f"drains; their matcher "
+        f"launches {dict((k, v) for k, v in window['rematch'].items() if v)}); launches {counts}"
+    )
+    for k, per in PER_FRAME_DEFAULT.items():
+        got = counts[k] - window["rematch"][k]
+        print(f"facade (default): {k}: {got / steady:g} launches a frame over {steady} dispatches")
+        if got != per * steady:
+            fail(f"default facade: {k}: {got} launches in {steady} dispatches, want {per} a frame")
+    if not np.isfinite(res.rmse) or res.rmse > ATE_LIMIT_M:
+        fail(f"default facade: ATE {res.rmse} m > {ATE_LIMIT_M} m")
+    return slam, counts, captured
+
+
+def run_reversed_pair(torch, frames, gt) -> None:
+    """The two modes again, each on a new facade over the same frames, in the
+    reverse order of the phases above (the default first, then depth 0), so
+    that the comparison runs ABBA in one call. Both track with the same
+    loop, flush included, without the checks' instrumentation, and print
+    the sustained fps over frames 1..n-1, the host estimator's ms a frame
+    and the host ms a frame of the call that issues the device work: the
+    default's dispatch (the step's launches, nothing waited for) and depth
+    0's fused step (its launches and the wait for its readback)."""
+    from scripts.accuracy_suite_torch import leg_environment
+
+    for label, env in (("default", {}), ("depth 0", DEPTH0_ENV)):
+        with leg_environment(env):
+            mode, fps, est_ms, issue, n_issue, rmse = sustained_run(torch, frames, gt)
+        print(f"facade order: {label} again ({mode}), after the phases above: {fps:.2f} fps "
+              f"sustained over frames 1..{len(frames) - 1}, host estimator {est_ms:.3f} ms a "
+              f"frame, {issue} ({n_issue} calls), ATE {rmse:.4f} m")
+        if not np.isfinite(rmse) or rmse > ATE_LIMIT_M:
+            fail(f"facade order: {label}: ATE {rmse} m > {ATE_LIMIT_M} m")
+
+
+def sustained_run(torch, frames, gt):
+    """A new facade with the env as it stands over the frames; returns (its
+    mode, fps over frames 1.., estimator ms a frame, the issuing call's host
+    ms a frame as text, that call's count, ATE)."""
+    from superslam_tpu_torch.eval.metrics import ate
+
+    slam = build_slam()
+    tracker = slam._tracker
+    owner, name = (slam.pipeline, "process") if tracker is None else (tracker, "_dispatch")
+    issue, spent = getattr(owner, name), []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return issue(*a, **kw)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    estimator_ms()
+    t1 = None
+    for i, (left, right) in enumerate(frames):
+        slam.track_stereo(left, right, 0.1 * i)
+        if i == 0:
+            t1 = time.perf_counter()
+            spent.clear()
+    slam.flush()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    est_ms = estimator_ms()[0]
+    rmse = ate(slam.estimator.corrected_trajectory(), gt).rmse
+    mode = facade_mode(slam)
+    slam.shutdown()
+    what = "fused step" if tracker is None else "dispatch"
+    issue_ms = f"{what} {1e3 * sum(spent) / max(len(spent), 1):.3f} ms a frame of host time"
+    return mode, (len(frames) - 1) / loop_s, est_ms, issue_ms, len(spent), rmse
+
+
+def cut_matches(args, n: int, usable=None):
+    """A captured pose_solve call's arguments with only the first n matched
+    keyframe features left matched, taken from the usable mask ``usable``
+    when given (the coast case: 6 against the floor of 10; the chi2-stop
+    case: min_matches + 4 usable ones with noisy keypoints)."""
+    args = [t.clone() for t in args]
+    tm = args[7]
+    keep = ((tm >= 0) if usable is None else usable).nonzero().flatten()[:n]
+    cut = tm.new_full(tm.shape, -1)
+    cut[keep] = tm[keep]
+    args[7] = cut
+    return args
+
+
+def check_pose_solve(torch, captured):
+    """pose_solve against its plain twin (both on the card) on the frames and
+    keyframes of the default phase's run, on a frame cut below min_matches
+    (coast) and on one whose first chi2 round stops the re-solves; timed on
+    the run's median frame. Returns the kernel's row of the kernels line."""
+    from superslam_tpu_torch.ops import pose_solver
+    from superslam_tpu_torch.ops.cuda import pose_solve as pose_solve_mod
+    from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve, pose_solve_plain
+
+    if not captured:
+        fail("pose_solve: the default phase captured no call")
+    cases = [(f"frame {i}", a, kw) for i, (a, kw) in enumerate(captured)]
+    a0, kw0 = captured[len(captured) // 2]
+    # The chi2-stop case keeps min_matches + 4 usable matches (so the floor
+    # does not force the stop) and moves the keypoints by 4 px (so the first
+    # round's inliers fall below it).
+    chi2 = cut_matches(a0, kw0["min_matches"] + 4, usable=pose_solve_plain(*a0, **kw0)[3])
+    g = torch.Generator(device="cpu").manual_seed(0)
+    chi2[4] = chi2[4] + (4.0 * torch.randn(chi2[4].shape, generator=g)).to(chi2[4].device)
+    cases += [("coast", cut_matches(a0, 6), kw0), ("chi2 stop", chi2, kw0)]
+    worst = 0.0
+    for label, args, kw in cases:
+        got = pose_solve(*args, **kw)
+        solves = []
+        lm = pose_solve_mod.pose_only_lm_impl
+        pose_solve_mod.pose_only_lm_impl = lambda *a, **k: solves.append(1) or lm(*a, **k)
+        try:
+            ref = pose_solve_plain(*args, **kw)
+        finally:
+            pose_solve_mod.pose_only_lm_impl = lm
+        torch.cuda.synchronize()
+        dR = (got[0] - ref[0]).abs().max().item()
+        dt = (got[1] - ref[1]).abs().max().item()
+        n, n_ref, kept, kept_ref = int(got[2]), int(ref[2]), int(got[4]), int(ref[4])
+        worst = max(worst, dR, dt)
+        if label in ("coast", "chi2 stop") or label == cases[0][0]:
+            print(f"kernel pose_solve: {label}: n {n} (plain {n_ref}), kept {kept} (plain "
+                  f"{kept_ref}), LM solves {len(solves)}, |dR| {dR:.3g}, |dt| {dt:.3g} m")
+        if label == "coast" and not n < kw["min_matches"]:
+            fail(f"pose_solve: the coast case has {n} usable matches")
+        if label == "chi2 stop" and n_ref < kw["min_matches"]:
+            fail(f"pose_solve: the chi2 case has {n_ref} usable matches: the floor stops it")
+        if label == "chi2 stop" and len(solves) != 1:
+            fail(f"pose_solve: the chi2 case ran {len(solves)} solves: no early stop")
+        if not (dR <= POSE_ATOL and dt <= POSE_ATOL and n == n_ref
+                and torch.equal(got[3], ref[3]) and abs(kept - kept_ref) <= max(1, n_ref // 100)):
+            fail(f"pose_solve: {label}: |dR| {dR}, |dt| {dt}, n {n}/{n_ref}, kept "
+                 f"{kept}/{kept_ref}, ok equal {torch.equal(got[3], ref[3])}")
+    print(f"kernel pose_solve: {len(cases)} cases, largest |dR|, |dt| {worst:.3g} (limit "
+          f"{POSE_ATOL}); n and ok exact, kept within 1% of n")
+
+    # What this frame's solve needs: the plain version's LM iterations.
+    iters = []
+    system = pose_solver._system
+
+    def counting(*a, **k):
+        iters.append(1)
+        return system(*a, **k)
+
+    pose_solver._system = counting
+    try:
+        pose_solve_plain(*a0, **kw0)
+    finally:
+        pose_solver._system = system
+    k = a0[4].shape[0]
+    rounds = 1 + (1 if kw0["gate_px"] > 0 else 0) + kw0["chi2_rounds"]
+    ops = float(k) * (POSE_OPS_ITER * len(iters) + POSE_OPS_REPROJ * rounds)
+    io = nbytes(*a0) + 12 * 4 + 2 * 4 + k + k * 2 * 4
+    ms = time_ms(torch, lambda: pose_solve(*a0, **kw0))
+    plain_ms = time_ms(torch, lambda: pose_solve_plain(*a0, **kw0))
+    bnd = bound(io, f32_ops=ops)
+    print(f"kernel pose_solve: K {k}, {len(iters)} LM iterations on the timed frame; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound {bnd[0]:.6f} ms "
+          f"({bnd[1]}: {io} B, {ops:.3g} f32 operations)")
+    return {
+        "name": "pose_solve", "route": "cuda", "source": KERNEL_INFO["pose_solve"][0],
+        "replaces": KERNEL_INFO["pose_solve"][1], "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+    }
+
+
+def time_design_costs(torch, slam, captured) -> None:
+    """The two costs of the sync-free design (ROADMAP section 1 item 2), at
+    the main path's shapes: the promotion's device-side select, which every
+    device-keyframe frame now runs, and the re-match that each frame after
+    the first of a dispatch runs at SUPERSLAM_PIPELINE_BATCH > 1. Device ms
+    by CUDA events, host ms as the enqueue time of 20 calls."""
+    from superslam_tpu_torch.models.lightglue import extract_matches, lightglue_forward
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.ops.frontend_step import promote
+
+    a0, kw0 = captured[len(captured) // 2]
+    k = a0[4].shape[0]
+    dev = a0[4].device
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    desc = torch.nn.functional.normalize(rnd(k, 256), dim=-1)
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    frame = (a0[4], rnd(k, 2) * 0.5, desc, valid, a0[5], a0[6])
+    kf = (rnd(k, 2) * 0.5, torch.nn.functional.normalize(rnd(k, 256), dim=-1), valid, a0[8], a0[9])
+    promo = torch.ones((), dtype=torch.bool, device=dev)
+    R, t = a0[0], a0[1]
+
+    def select():
+        return promote(promo, frame, R, t, kf, kw0["calib"])
+
+    def rematch():
+        la = lightglue_forward(slam.pipeline.lg_params, kf[0][None], kf[1][None],
+                               frame[1][None], frame[2][None], kf[2][None], valid[None])
+        return extract_matches(la, kf[2][None], valid[None], 0.1)[0][0]
+
+    for label, fn in (("promotion select (every frame)", select),
+                      ("re-match (each frame after the first of a dispatch, batch > 1)",
+                       rematch)):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in _build.launch_counts().items() if c}
+            device_ms = time_ms(torch, fn)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host_ms = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+        print(f"design cost: {label}: device {device_ms:.4f} ms, host {host_ms:.4f} ms a call, "
+              f"kernels {launched or 'none of ours'}")
+
+
+def run_accuracy_legs(torch) -> None:
+    """The 150-frame rendered circuit through scripts/accuracy_suite_torch.py:
+    stereo, stereo_sync and stereo_devkf each at ATE <= 1.5 x its reference
+    leg; the other legs printed. Writes ACCURACY_TORCH.json."""
+    from scripts import accuracy_suite_torch as acc
+
+    suite = acc.run_suite(ACCURACY_LEGS, acc.FRAMES, "cuda", log=lambda _m: None)
+    for row in suite["legs"]:
+        limit = "printed only" if row["limit_m"] is None else f"limit {row['limit_m']:.4f} m"
+        print(f"accuracy {row['leg']}: ATE {row['ate_rmse_m']:.4f} m (reference "
+              f"{row['reference_ate_m']} m; {limit}), mode {row['mode']}, {row['frames']} frames "
+              f"in {row['wall_s']:.2f} s ({row['fps']:.2f} fps sustained over frames 1..), "
+              f"keyframes {row['keyframes']}")
+    with open(os.path.join(REPO, "ACCURACY_TORCH.json"), "w") as f:
+        json.dump(suite, f, indent=2)
+        f.write("\n")
+    missed = [r["leg"] for r in suite["legs"] if not r["passed"]]
+    if missed:
+        fail(f"accuracy legs over their limit: {missed}")
 
 
 def check_extractor_kernel_route(torch, sp_params, left, right) -> int:
@@ -1037,6 +1464,21 @@ def profile_facade(torch, slam, n: int) -> None:
                 fail(f"the frame ran a softmax kernel: {e.key}")
 
 
+def profile_default(torch, slam, n: int) -> None:
+    """The default facade (depth 3, device keyframes) on the next n frames of
+    the lap under torch.profiler, its flush included: device busy ms a frame
+    and the device's idle share."""
+    frames, _ = render_sequence(n, WIDTH, HEIGHT, start=N_FRAMES)
+
+    def track():
+        for i, (left, right) in enumerate(frames):
+            slam.track_stereo(left, right, 0.1 * (N_FRAMES + i))
+        slam.flush()
+
+    profile_device(torch, track, n, "frame", "frames of the default facade (depth 3, device "
+                   "keyframes)", top=12)
+
+
 def is_log_softmax(key: str) -> bool:
     """Whether a PyTorch softmax kernel's name is log_softmax's: its
     epilogue (cunn_SoftMaxForward, cunn_SpatialSoftMaxForward) or the
@@ -1077,7 +1519,8 @@ def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> l
     print(
         f"profile: {n} {label}, wall under the profiler {wall_ms / n:.3f} ms/{unit}, "
         f"device busy {busy_ms / n:.3f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}% of "
-        f"that wall), {sum(e.count for e in rows) / n:.0f} device events/{unit}"
+        f"that wall, idle share {100 - 100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in rows) / n:.0f} device events/{unit}"
     )
     for e in rows[:top]:
         print(
@@ -1286,6 +1729,7 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch.cuda.get_device_name: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from scripts.accuracy_suite_torch import leg_environment as pinned_env
     from superslam_tpu_torch.models.weights import load_safetensors
     from superslam_tpu_torch.ops.cuda import _build
 
@@ -1305,23 +1749,35 @@ def main() -> int:
     frames, gt = render_sequence(N_FRAMES, WIDTH, HEIGHT)
     kernels = check_kernels(torch, sp, lg, frames[0])
 
-    for knob in ("SUPERSLAM_PALLAS_LG", "SUPERSLAM_PALLAS_ATTN"):
-        os.environ.pop(knob, None)  # the default route: fused
-    slam, poses, step_ms, loop_s, counts, n_kf = run_facade(torch, frames, WIDTH, HEIGHT, MAX_KP)
-    check_facade_run("fused route", poses, gt, step_ms, loop_s, counts, n_kf, PER_FRAME_FUSED)
+    for knob in ("SUPERSLAM_PALLAS_LG", "SUPERSLAM_PALLAS_ATTN", "SUPERSLAM_PIPELINE",
+                 "SUPERSLAM_PIPELINE_BATCH", "SUPERSLAM_DEVICE_TRACKER", "SUPERSLAM_DEVICE_KF"):
+        os.environ.pop(knob, None)  # the facade's defaults
+    os.environ["SUPERSLAM_PROFILE"] = "1"  # the host estimator's scopes
+    with pinned_env(DEPTH0_ENV):
+        slam, poses, step_ms, loop_s, counts, n_kf, est_ms = run_facade(
+            torch, frames, WIDTH, HEIGHT, MAX_KP
+        )
+    check_facade_run("fused route", slam, poses, gt, step_ms, loop_s, counts, n_kf,
+                     PER_FRAME_FUSED, est_ms)
+    slam_d, counts_d, captured = run_default_facade(torch, frames, gt)
+    run_reversed_pair(torch, frames, gt)
+    del os.environ["SUPERSLAM_PROFILE"]
+    kernels["pose_solve"] = check_pose_solve(torch, captured)
+    time_design_costs(torch, slam_d, captured)
+    del captured
+    run_accuracy_legs(torch)
     profile_facade(torch, slam, 5)
     slam.shutdown()
 
     n_u = N_FRAMES_UNFUSED
-    os.environ["SUPERSLAM_PALLAS_LG"] = "0"
-    slam_u, poses_u, step_ms_u, loop_s_u, counts_u, n_kf_u = run_facade(
-        torch, frames[:n_u], WIDTH, HEIGHT, MAX_KP
-    )
-    del os.environ["SUPERSLAM_PALLAS_LG"]
+    with pinned_env({**DEPTH0_ENV, "SUPERSLAM_PALLAS_LG": "0", "SUPERSLAM_PROFILE": "1"}):
+        slam_u, poses_u, step_ms_u, loop_s_u, counts_u, n_kf_u, est_ms_u = run_facade(
+            torch, frames[:n_u], WIDTH, HEIGHT, MAX_KP
+        )
     slam_u.shutdown()
     check_facade_run(
-        "unfused route", poses_u, gt[:n_u], step_ms_u, loop_s_u, counts_u, n_kf_u,
-        PER_FRAME_UNFUSED,
+        "unfused route", slam_u, poses_u, gt[:n_u], step_ms_u, loop_s_u, counts_u, n_kf_u,
+        PER_FRAME_UNFUSED, est_ms_u,
     )
     gap = max(float(np.linalg.norm(a.t - b.t)) for a, b in zip(poses[:n_u], poses_u))
     print(f"routes: largest per-frame position gap fused vs unfused over {n_u} frames {gap:.4f} m")
@@ -1335,9 +1791,12 @@ def main() -> int:
     # launches that follow it on the host.
     profile_score_half(torch, sp, *frames[0])
     profile_gather(torch, sp, *frames[0])
+    profile_default(torch, slam_d, 5)
+    slam_d.shutdown()
 
-    # Each kernel's launches are those of the phase that drives it.
-    launches = {k: counts[k] for k, per in PER_FRAME_FUSED.items() if per}
+    # Each kernel's launches are those of the phase that drives it: the main
+    # path's from the default facade's frames 5..29.
+    launches = {k: counts_d[k] for k, per in PER_FRAME_DEFAULT.items() if per}
     launches["masked_attention"] = counts_u["masked_attention"]
     launches["gather_normalize"] = gather_launches
     launches["nms"] = map_nms_launches

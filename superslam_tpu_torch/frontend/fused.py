@@ -3,10 +3,16 @@
 Port of ``superslam_tpu/frontend/fused.py``: wraps
 ``ops.frontend_step.fused_stereo_step`` with the host-side state it needs
 (the last keyframe's device-resident features, the program's own outputs
-from the frame that became a keyframe) and the packed-block decode. It
-produces the (StereoFrame, frame-to-keyframe MatchResult) pair the
-estimator consumes. The LightGlue checkpoint is cast and the fused blocks'
-and the conv pairs' kernel operands are prepared once at construction.
+from the frame that became a keyframe, and for device tracking its world
+points) and the packed-block decode. It produces the (StereoFrame,
+frame-to-keyframe MatchResult) pair the estimator consumes. The LightGlue
+checkpoint is cast and the fused blocks' and the conv pairs' kernel
+operands are prepared once at construction.
+
+On the card every host-to-device copy goes through pinned memory without
+blocking the host (a copy from pageable memory waits for every queued
+kernel): frames through a ring of pinned slots (``upload``), anything else
+through ``to_device``.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from ..ops.frontend_step import PACK_SCALE, fused_stereo_step
 from ..utils.device import resolve_device
 from ..utils.profiler import profile_scope
 from .extractor import pad_to_multiple
-from .features import PaddedFeatures
+from .features import PaddedFeatures, keyframe_world_arrays
 
 
 def decode_packed(
@@ -96,11 +102,24 @@ class FusedStereoPipeline:
         self._kf_kpts = torch.zeros((self.K, 2), dtype=torch.float32, device=self.device)
         self._kf_desc = torch.zeros((self.K, 256), dtype=torch.float32, device=self.device)
         self._kf_valid = torch.zeros((self.K,), dtype=torch.bool, device=self.device)
+        # World points of the keyframe's stereo features (device tracking):
+        # uploaded once per keyframe so the step can run the pose-only LM
+        # against them without a host round trip.
+        self._kf_xw = torch.zeros((self.K, 3), dtype=torch.float32, device=self.device)
+        self._kf_depth_ok = torch.zeros((self.K,), dtype=torch.bool, device=self.device)
+        # The frame upload ring: pinned host slots, each with the event of
+        # its last copy (a pipelined tracker asks for depth x batch + 1).
+        self.upload_slots = 2
+        self._slots: list[tuple[torch.Tensor, torch.cuda.Event]] = []
+        self._next_slot = 0
 
-    def _prepare_np(self, left: np.ndarray, right: np.ndarray) -> np.ndarray:
-        """Host uint8 (2, padH, padW) batch: the upload is uint8 and the
-        normalization happens on the device."""
-        batch = np.zeros((2, self.pad_h, self.pad_w), np.uint8)
+    def _prepare_np(
+        self, left: np.ndarray, right: np.ndarray, out: np.ndarray | None = None
+    ) -> np.ndarray:
+        """Host uint8 (2, padH, padW) batch, written into ``out`` when given:
+        the upload is uint8 and the normalization happens on the device."""
+        batch = np.empty((2, self.pad_h, self.pad_w), np.uint8) if out is None else out
+        batch.fill(0)
         for i, img in enumerate((left, right)):
             a = np.asarray(img)
             if a.ndim == 3:
@@ -117,11 +136,40 @@ class FusedStereoPipeline:
             ]
         return batch
 
+    def upload(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
+        """The padded uint8 (2, padH, padW) pair on the device. On the card it
+        is prepared straight into the next pinned slot of the ring and copied
+        without blocking the host; a slot is rewritten only after its last
+        copy has run (at once in steady state, the ring being deeper than
+        the frames in flight)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(self._prepare_np(left, right))
+        while len(self._slots) < self.upload_slots:
+            host = torch.empty((2, self.pad_h, self.pad_w), dtype=torch.uint8, pin_memory=True)
+            self._slots.append((host, torch.cuda.Event()))
+        host, copied = self._slots[self._next_slot]
+        self._next_slot = (self._next_slot + 1) % len(self._slots)
+        copied.synchronize()
+        self._prepare_np(left, right, out=host.numpy())
+        dev = host.to(self.device, non_blocking=True)
+        copied.record()
+        return dev
+
+    def to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the pipeline's device; on the card through pinned
+        memory and a copy that does not block the host (PyTorch's pinned
+        allocator keeps the block until the copy has run)."""
+        arr = np.asarray(arr)
+        t = torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def process(
         self, left: np.ndarray, right: np.ndarray, timestamp: float
     ) -> tuple[StereoFrame, MatchResult]:
         with profile_scope("fe_extract_stereo"):
-            images = torch.from_numpy(self._prepare_np(left, right)).to(self.device)
+            images = self.upload(left, right)
             packed, desc_dev, kpts_dev, valid_dev = fused_stereo_step(
                 self.sp_params,
                 self.lg_params,
@@ -158,3 +206,10 @@ class FusedStereoPipeline:
             self._kf_valid = feats.valid
         else:
             self._kf_valid = torch.arange(self.K, device=self.device) < feats.n
+
+    def set_keyframe_world(self, frame: StereoFrame) -> None:
+        """Upload the new keyframe's world points for device tracking (see
+        features.keyframe_world_arrays for the grounding contract)."""
+        xw, depth_ok = keyframe_world_arrays(frame, self.calib, self.K)
+        self._kf_xw = self.to_device(xw)
+        self._kf_depth_ok = self.to_device(depth_ok)

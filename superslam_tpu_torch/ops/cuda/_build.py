@@ -58,11 +58,13 @@ KERNELS = (
     "conv_pair_full",
     "conv1a1b_full",
     "conv3x3",
+    "pose_solve",
 )
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, stream
     "ssl_conv_pair_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -85,6 +87,12 @@ _SIGNATURES = {
     "ssl_fused_cross_block": [_P] * 15 + [_I, _I, _I, _P],
     # grid, cells, out, B, G, K, D, is_bf16, stream
     "ssl_gather_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # R_prev, t_prev, R_pred, t_pred, kl, disp, stereo_ok, tm, kf_xw, kf_dok,
+    # pose, stats, ok, uv, K, fx, fy, cx, cy, baseline, min_matches,
+    # inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px, chi2_px,
+    # chi2_rounds, track_iters, stream
+    "ssl_pose_solve": [_P] * 14 + [_I] + [_F] * 5 + [_I] + [_F] * 3 + [_I] + [_F] * 2
+    + [_I, _I, _P],
 }
 
 

@@ -23,24 +23,28 @@ Packed row layout (int16, shape (PACK_ROWS, K)):
 ``track_scan`` (with ``_frame_solve`` and ``_reorthonormalize``) is the
 port of the JAX package's on-device tracking chain: the prior-gated
 pose-only LM per frame with coast-on-loss, held against the JAX function
-and the host tracker in ``tests/test_torch_pose_solver.py``.
+and the host tracker in ``tests/test_torch_pose_solver.py``; each frame's
+solve is one launch of ``ops/cuda/pose_solve.cu`` on the card.
 ``track_kf_scan`` is its zero-lag form with the keyframe in the carry, and
 ``fused_stereo_track_step_multi`` / ``fused_stereo_track_kf_step_multi`` are
 the device-tracked steps built on the two (extraction + matching + pose in
 one call), held against the JAX functions in
-``tests/test_torch_frontend_step.py``. No pipeline and no facade path calls
-the device-tracked steps yet: the pipelined tracker that dispatches them is
-not ported.
+``tests/test_torch_frontend_step.py`` and dispatched by
+``frontend/pipelined.py``. On the card nothing in them reads a value back
+to the host: the only host read of a frame is the pipeline's packed
+readback.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..models.lightglue import extract_matches, lightglue_forward
 from ..models.superpoint import select_keypoints, superpoint_dense
 from ..utils.env import env_flag, env_float, env_int
-from .pose_solver import pose_only_lm_impl
+from .cuda.pose_solve import pose_solve, reprojection
 from .precision import highest_f32_matmuls
 
 PACK_ROWS = 4
@@ -79,11 +83,17 @@ def _superpoint_stereo_features(
 
 
 def _norm_frame(true_width: int, true_height: int, device):
-    scale = max(true_width, true_height) / 2.0
-    center = torch.tensor(
-        [true_width / 2.0, true_height / 2.0], dtype=torch.float32, device=device
+    return _norm_center(true_width, true_height, torch.device(device)), (
+        max(true_width, true_height) / 2.0
     )
-    return center, scale
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_center(true_width: int, true_height: int, device: torch.device) -> torch.Tensor:
+    """The LightGlue frame's center, made once per size and device: a tensor
+    built from a Python list is a copy from pageable memory, which on the
+    card waits for every queued kernel."""
+    return torch.tensor([true_width / 2.0, true_height / 2.0], dtype=torch.float32, device=device)
 
 
 def _stereo_gates(kl, kr, vl, stereo_m, min_disparity: float):
@@ -249,69 +259,22 @@ def _frame_solve(
     tm_s,  # (K,) integer: frame keypoint matched to KF feature i, or -1
     kf_xw,  # (K, 3) world points of the KF features
     kf_depth_ok,  # (K,) bool
-    *,
-    calib,
-    min_matches,
-    inv_sig_uLv,
-    disp_sigma0,
-    disp_cond,
-    mono,
-    gate_px,
-    chi2_px,
-    chi2_rounds,
-    track_iters,
+    **solve_kw,
 ):
     """One frame's prior-gated pose solve (the solve semantics are
-    documented on track_scan). Returns (R_s, t_s, n, ok, resid): the solved
-    pose, the usable-match count, the usable-match mask, and the
-    reprojection-residual closure ``resid(R, t) -> (px_dist (K,), z_ok
-    (K,))`` for support counting."""
-    fx, fy, cx, cy, _ = calib
-    fi = torch.clamp(tm_s, min=0).to(torch.int64)
-    uL = kl_s[:, 0][fi]
-    v = kl_s[:, 1][fi]
-    d = disp_s[fi]
-    ok = (tm_s >= 0) & ok_s[fi] & kf_depth_ok
-    meas = torch.stack([uL, uL - d, v], dim=1)
-    dc = torch.clamp(d, min=1e-3)
-    ratio = disp_cond / dc
-    if mono:
-        inv_sig_uR = torch.zeros_like(dc)
-    else:
-        inv_sig_uR = 1.0 / (disp_sigma0 * torch.sqrt(1.0 + ratio * ratio))
-    uLv = torch.full_like(dc, inv_sig_uLv)
-    inv_sig = torch.stack([uLv, inv_sig_uR, uLv], dim=1)
-    n = torch.sum(ok)
+    documented on track_scan), through ``ops/cuda/pose_solve.py``: one
+    kernel launch on the card, the plain version on the CPU. Returns
+    (R_s, t_s, n, ok, resid): the solved pose, the usable-match count, the
+    usable-match mask, and the reprojection-residual closure
+    ``resid(R, t) -> (px_dist (K,), z_ok (K,))`` for support counting."""
+    R_s, t_s, n, ok, _kept, uv = pose_solve(
+        R_prev, t_prev, R_pred, t_pred, kl_s, disp_s, ok_s, tm_s, kf_xw, kf_depth_ok,
+        **solve_kw,
+    )
 
     def resid(R, t):
-        p = (kf_xw - t) @ R  # rows are R^T (X - t), camera frame
-        z = p[:, 2]
-        zok = z > 0.1
-        zs = torch.where(zok, z, torch.ones_like(z))
-        uL_hat = fx * p[:, 0] / zs + cx
-        v_hat = fy * p[:, 1] / zs + cy
-        return torch.hypot(uL_hat - uL, v_hat - v), zok
+        return reprojection(R, t, kf_xw, uv, solve_kw["calib"])
 
-    def solve(R, t, keep):
-        return pose_only_lm_impl(
-            R, t, kf_xw, meas, inv_sig, keep.to(torch.float32), calib, track_iters
-        )
-
-    keep = ok
-    if gate_px > 0:
-        r0, zok0 = resid(R_pred, t_pred)
-        k0 = ok & zok0 & (r0 < gate_px)
-        keep = torch.where(torch.sum(k0) >= min_matches, k0, ok)
-    R_s, t_s = solve(R_prev, t_prev, keep)
-    for _ in range(chi2_rounds):
-        r, zok = resid(R_s, t_s)
-        k2 = ok & zok & (r < chi2_px)
-        # A round without enough inliers ends the re-solves (the JAX scan
-        # body runs and discards the remaining rounds instead).
-        if int(torch.sum(k2)) < min_matches:
-            break
-        keep = k2
-        R_s, t_s = solve(R_s, t_s, keep)
     return R_s, t_s, n, ok, resid
 
 
@@ -533,21 +496,29 @@ def track_kf_scan(
     Speculative hybrid (track_m0 is not None): the caller already matched
     every frame against the ENTRY keyframe in one batched LightGlue forward.
     Those matches are exact until the first promotion inside this call; only
-    frames after one re-run the pair-batch-1 forward. The JAX package
-    selects with ``lax.cond`` on a carried flag; here the promotion bit is
-    read from the device once per frame and the choice is a Python ``if``.
+    frames after one need the pair-batch-1 forward. The JAX package
+    selects with ``lax.cond`` on a carried flag. Here nothing is read from
+    the device: on the card every frame after the first in a call runs the
+    re-match (9 + 9 block launches) and ``torch.where`` selects with the
+    carried bit; the CPU plain path reads the bit and skips the re-match it
+    would discard. The promotion likewise selects the new keyframe state
+    with the device's promo bit.
 
     Returns (track_out (S, TRACK_KF_COLS) f32, track_m (S, K) int32,
     new_kf_state, new_pose_carry)."""
     gate_px, chi2_px, chi2_rounds = _track_gate_defaults(gate_px, chi2_px, chi2_rounds)
-    fx, fy, cx, cy, baseline = calib
     R_prev, t_prev, Rr, tr = pose_carry
     kf_nk, kf_d, kf_v, kf_xw, kf_dok, since = kf_state
     hybrid = track_m0 is not None
-    fresh = True  # the carried keyframe is still the one track_m0 was matched against
+    on_card = kl.device.type != "cpu"
+    # Whether the carried keyframe is still the one track_m0 was matched
+    # against: a device bit, never read on the card.
+    fresh = torch.ones((), dtype=torch.bool, device=kl.device)
     rows, matches = [], []
     for s in range(kl.shape[0]):
-        if hybrid and fresh:
+        if hybrid and (s == 0 or (not on_card and bool(fresh))):
+            # Frame 0 always matches the entry keyframe; the CPU twin reads
+            # the bit and skips the re-match it would discard.
             tm_s = track_m0[s].to(torch.int32)
         else:
             la = lightglue_forward(
@@ -555,6 +526,8 @@ def track_kf_scan(
                 vl[s][None],
             )
             tm_s = extract_matches(la, kf_v[None], vl[s][None], match_threshold)[0][0]
+            if hybrid:
+                tm_s = torch.where(fresh, track_m0[s].to(torch.int32), tm_s)
 
         R_pred = R_prev @ Rr
         t_pred = R_prev @ tr + t_prev
@@ -596,23 +569,39 @@ def track_kf_scan(
         )
         matches.append(tm_s)
 
-        # Promotion: this frame's features become the keyframe; world points
-        # ground through the accepted solve (Xw = R Xc + t). The one read of
-        # the device per frame.
-        if bool(promo):
-            z = (fx * baseline) / torch.clamp(disparity[s], min=1e-3)
-            x = (kl[s][:, 0] - cx) * z / fx
-            y = (kl[s][:, 1] - cy) * z / fy
-            kf_xw = torch.stack([x, y, z], dim=1) @ R_new.T + t_new
-            kf_nk, kf_d, kf_v, kf_dok = nkl[s], dl[s], vl[s], stereo_ok[s]
-            since = torch.zeros_like(since1)
-            fresh = False
-        else:
-            since = since1
+        kf_nk, kf_d, kf_v, kf_xw, kf_dok = promote(
+            promo, (kl[s], nkl[s], dl[s], vl[s], disparity[s], stereo_ok[s]), R_new, t_new,
+            (kf_nk, kf_d, kf_v, kf_xw, kf_dok), calib,
+        )
+        since = torch.where(promo, torch.zeros_like(since1), since1)
+        fresh = fresh & ~promo
         R_prev, t_prev = R_new, t_new
 
     new_kf_state = (kf_nk, kf_d, kf_v, kf_xw, kf_dok, since)
     return torch.stack(rows), torch.stack(matches), new_kf_state, (R_prev, t_prev, Rr, tr)
+
+
+def promote(promo, frame, R_new, t_new, kf, calib):
+    """The promotion of track_kf_scan: where the device bit ``promo`` is
+    set, the frame's features (kl, nkl, dl, vl, disparity, stereo_ok) become
+    the keyframe (nk, desc, valid, xw, depth_ok), their world points
+    grounded through the accepted solve (Xw = R Xc + t); elsewhere the
+    keyframe stays. Selected on the device, as the JAX scan does: nothing
+    is read back."""
+    fx, fy, cx, cy, baseline = calib
+    kl_s, nkl_s, dl_s, vl_s, disp_s, sok_s = frame
+    kf_nk, kf_d, kf_v, kf_xw, kf_dok = kf
+    z = (fx * baseline) / torch.clamp(disp_s, min=1e-3)
+    x = (kl_s[:, 0] - cx) * z / fx
+    y = (kl_s[:, 1] - cy) * z / fy
+    xw_new = torch.stack([x, y, z], dim=1) @ R_new.T + t_new
+    return (
+        torch.where(promo, nkl_s, kf_nk),
+        torch.where(promo, dl_s, kf_d),
+        torch.where(promo, vl_s, kf_v),
+        torch.where(promo, xw_new, kf_xw),
+        torch.where(promo, sok_s, kf_dok),
+    )
 
 
 @torch.no_grad()

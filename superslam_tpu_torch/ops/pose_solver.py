@@ -10,7 +10,9 @@ from the device per iteration. The numpy / C++ solvers remain the f64
 oracles (``tests/test_torch_pose_solver.py``).
 
 SE(3) is (R (3, 3), t (3,)) with the same rotation-first right retraction
-as ``geometry/se3.py``. Nothing here is wired into the facade yet.
+as ``geometry/se3.py``. This is the plain version of the solve: on the card
+the tracking chains run the whole per-frame solve, this loop included, as
+one kernel (``ops/cuda/pose_solve.py``).
 """
 
 from __future__ import annotations

@@ -1,17 +1,21 @@
-"""The SuperSLAM facade of the port: stereo, synchronous, host-solved.
+"""The SuperSLAM facade of the port: stereo, pipelined, device-tracked on
+the card.
 
-Port of ``superslam_tpu/slam.py`` for the first slice: YAML config ->
-env bridging -> calibration -> one fused SuperPoint + LightGlue step per
-frame on the device (``frontend/fused.py``), the host ``VoEstimator``
-(FrameTracker, WindowSmoother, keyframe gate) and trajectory/map export.
+Port of ``superslam_tpu/slam.py``: YAML config -> env bridging ->
+calibration -> the fused SuperPoint + LightGlue step on the device
+(``frontend/fused.py``), the host ``VoEstimator`` (FrameTracker,
+WindowSmoother, keyframe gate) and trajectory/map export. The defaults
+are the JAX package's with its TPU replaced by the card:
+``SUPERSLAM_PIPELINE`` depth 3 (``frontend/pipelined.py``; 0 or 1 is the
+synchronous loop), ``SUPERSLAM_PIPELINE_BATCH`` 1, and device tracking with
+zero-lag device keyframes on a CUDA device, host-solved on the CPU
+(``utils/env.py::device_tracker_wanted``, ``SUPERSLAM_DEVICE_KF``).
 
 Not ported yet, and refused with ``NotImplementedError`` rather than run
 differently (ROADMAP queue 1):
 - RGB-D configs (``DepthMapFactor``);
-- loop closure (``SUPERSLAM_ENABLE_LOOP`` with a ``loop:`` block);
-- the pipelined tracker (``SUPERSLAM_PIPELINE`` > 1); the port's default
-  pipeline depth is 0, the synchronous loop;
-- device tracking (``SUPERSLAM_DEVICE_TRACKER`` truthy).
+- loop closure (``SUPERSLAM_ENABLE_LOOP`` with a ``loop:`` block).
+The viewer is absent.
 
 The facade runs on CUDA unless ``device="cpu"`` is given; without a GPU
 and without that argument it raises.
@@ -28,6 +32,7 @@ from .config import Config, apply_tuning_overrides, read_calib
 from .core.vo_estimator import VoEstimator
 from .frontend.fused import FusedStereoPipeline
 from .frontend.matcher import LightGlueMatcher
+from .frontend.pipelined import PipelinedStereoTracker
 from .geometry.se3 import Pose3
 from .io.trajectory import save_map_ply, save_trajectory_kitti, save_trajectory_tum
 from .models.lightglue import init_lightglue_params
@@ -51,18 +56,6 @@ class SuperSLAM:
             raise NotImplementedError(
                 "loop closure is not ported to superslam_tpu_torch yet "
                 "(ROADMAP queue 1, loop closure)"
-            )
-        depth = int(os.environ.get("SUPERSLAM_PIPELINE", "0"))
-        if depth > 1:
-            raise NotImplementedError(
-                f"SUPERSLAM_PIPELINE={depth}: the pipelined tracker is not ported "
-                "to superslam_tpu_torch yet (ROADMAP queue 1, pipelined tracker); "
-                "the port runs the synchronous loop (depth 0)"
-            )
-        if device_tracker_wanted():
-            raise NotImplementedError(
-                "SUPERSLAM_DEVICE_TRACKER: device tracking is not ported to "
-                "superslam_tpu_torch yet (ROADMAP queue 1, pipelined tracker)"
             )
         apply_tuning_overrides(cfg)
         self.calib = read_calib(cfg)
@@ -123,11 +116,36 @@ class SuperSLAM:
         self._timestamps: list[float] = []
         self._live_poses: list[Pose3] = []
 
+        # Pipelined tracking (SUPERSLAM_PIPELINE=depth, default 3): the host
+        # estimator runs while later frames' steps are on the device; the
+        # per-call return is the constant-velocity prediction and
+        # corrected_trajectory() stays exact. SUPERSLAM_PIPELINE=0 forces the
+        # synchronous loop. SUPERSLAM_PIPELINE_BATCH=S puts S frames in one
+        # step and one readback.
+        self._tracker = None
+        depth = int(os.environ.get("SUPERSLAM_PIPELINE", "3"))
+        batch = int(os.environ.get("SUPERSLAM_PIPELINE_BATCH", "1"))
+        if depth > 1:
+            self._tracker = PipelinedStereoTracker(
+                self.pipeline,
+                self.estimator,
+                depth=depth,
+                batch=max(1, batch),
+                device_tracking=device_tracker_wanted(self.device),
+            )
+
     # -- tracking -------------------------------------------------------------
     def track_stereo(
         self, left: np.ndarray, right: np.ndarray, timestamp: float
     ) -> np.ndarray:
-        """Track one stereo pair; returns the 4x4 Tcw matrix."""
+        """Track one stereo pair; returns the 4x4 Tcw matrix (with the
+        pipelined tracker, the constant-velocity prediction for this frame;
+        the estimate lands within depth x batch frames)."""
+        if self._tracker is not None:
+            pose = self._tracker.track(left, right, timestamp)
+            self._timestamps.append(timestamp)
+            self._live_poses.append(pose)
+            return pose.inverse().matrix()
         frame, kf_matches = self.pipeline.process(left, right, timestamp)
         pose = self.estimator.track(frame, None, kf_matches=kf_matches)
         # If this frame became the keyframe, its device features become the
@@ -147,7 +165,13 @@ class SuperSLAM:
     def loop_closure_count(self) -> int:
         return self.estimator.loop_closure_count()
 
+    def flush(self) -> None:
+        """Drain the pipelined tracker (nothing to do when synchronous)."""
+        if self._tracker is not None:
+            self._tracker.flush()
+
     def save_trajectory(self, path: str, fmt: str = "kitti") -> None:
+        self.flush()
         self.estimator.stop_loop_worker()
         traj = self.estimator.corrected_trajectory()
         if fmt.lower() == "kitti":
@@ -158,10 +182,12 @@ class SuperSLAM:
             raise ValueError(f"unknown trajectory format: {fmt}")
 
     def save_map(self, path: str) -> None:
+        self.flush()
         self.estimator.stop_loop_worker()
         save_map_ply(path, self.estimator.map.cloud(self.estimator.anchors()))
 
     def shutdown(self) -> None:
+        self.flush()
         self.estimator.stop_loop_worker()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -38,10 +38,15 @@ def env_flag(key: str, default: bool = False) -> bool:
     return v not in ("", "0", "false", "False")
 
 
-def device_tracker_wanted() -> bool:
-    """Whether the per-frame pose solve runs inside the fused device
-    program. The JAX package defaults it on for TPU backends; the port has
-    no device tracker yet (ROADMAP queue 1), so it is off unless
-    SUPERSLAM_DEVICE_TRACKER is set, and the facade refuses a truthy
-    setting."""
-    return env_flag("SUPERSLAM_DEVICE_TRACKER", False)
+def device_tracker_wanted(device) -> bool:
+    """Whether the per-frame pose solve runs inside the fused device step
+    (ops.frontend_step.track_kf_scan / track_scan), for a facade on
+    ``device`` (a torch.device or its name; the port's rule takes it as an
+    argument where the JAX package asks its default backend).
+    SUPERSLAM_DEVICE_TRACKER=0/1 overrides. Otherwise it is on for a CUDA
+    device, as the JAX package's default is on for its TPU backend, and off
+    on the CPU, as the JAX default is off on its CPU."""
+    v = os.environ.get("SUPERSLAM_DEVICE_TRACKER")
+    if v is not None:
+        return v not in ("", "0", "false", "False")
+    return str(device).split(":")[0] == "cuda"

@@ -12,9 +12,13 @@ LightGlue blocks within 2e-2 of max|plain| in bf16 and atol 1e-3 in f32,
 the descriptor gather atol 1e-5, the attention backward within 1e-4 of
 max|plain| in f32 (2e-2 in bf16) on the forward's residuals, the f32
 forward within 1e-4 of max|plain| at every length, and the forward's row
-statistics within 1e-5 of the plain softmax's. The last two tests run the tracking
-chains (track_scan, track_kf_scan: plain PyTorch, no kernel of their own)
-on the card against their own CPU results."""
+statistics within 1e-5 of the plain softmax's, the per-frame pose solve
+within 1e-3 (m and rotation-matrix entries; f32 sums in another order, and
+the LM's stop on a 1e-4 relative improvement may fall one iteration apart)
+with n and the usable mask exact and the kept count within 1% of n. The
+last two tests run the tracking chains (track_scan, track_kf_scan: their
+per-frame solve is the pose_solve kernel) on the card against their own
+CPU results."""
 
 import numpy as np
 import pytest
@@ -573,3 +577,66 @@ def test_track_kf_scan_on_the_card_matches_cpu(cuda):
     np.testing.assert_allclose(got[:, :12], ref[:, :12], atol=1e-4, rtol=0)
     np.testing.assert_array_equal(got[:, 12:], ref[:, 12:])
     np.testing.assert_array_equal(got_m, ref_m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", ["clean", "gate_fallback", "coast", "chi2_stop", "nan_measurement", "mono",
+             "no_gate", "k1", "k1024"],
+)
+def test_pose_solve_kernel(cuda, case):
+    """The per-frame pose solve against its plain twin on the constructed
+    frames of tests/test_torch_pose_solve_model.py."""
+    from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve, pose_solve_plain
+    from test_torch_pose_solve_model import KW, _frame, _poses
+
+    rng = np.random.default_rng(7)
+    kw, poses = dict(KW), _poses()
+    if case == "k1":
+        frame = _frame(rng, k=1, usable=0)  # one feature, unmatched: no step is taken
+    elif case == "k1024":
+        frame = _frame(rng, k=1024, usable=900, noise_px=0.5)
+    elif case == "coast":
+        frame = _frame(rng, usable=6)
+    elif case == "chi2_stop":
+        frame = _frame(rng, usable=12, noise_px=3.0)
+    else:
+        frame = _frame(rng, k=600, usable=500, noise_px=0.5)
+        frame["tm"][::7] = (frame["tm"][::7] + 101) % 600  # outliers
+    if case == "gate_fallback":
+        poses = _poses(t_pred=(2.0, 0.0, 0.2))
+    if case == "nan_measurement":
+        frame["kl"][5] = np.nan
+    if case == "mono":
+        kw["mono"] = True
+    if case == "no_gate":
+        kw.update(gate_px=0.0, chi2_rounds=0)
+    names = ("kl", "disp", "stereo_ok", "tm", "kf_xw", "kf_dok")
+    args = [torch.from_numpy(a) for a in poses] + [torch.from_numpy(frame[n]) for n in names]
+    ref = pose_solve_plain(*args, **kw)
+    before = _build.launch_counts()["pose_solve"]
+    got = pose_solve(*(a.to(cuda) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["pose_solve"] == before + 1
+    R, t, n, ok, kept, uv = (x.cpu() for x in got)
+    assert int(n) == int(ref[2])
+    assert torch.equal(ok, ref[3])
+    torch.testing.assert_close(uv, ref[5], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(R, ref[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(t, ref[1], rtol=0, atol=1e-3)
+    assert abs(int(kept) - int(ref[4])) <= max(1, int(ref[2]) // 100)
+    if case in ("nan_measurement", "k1"):
+        assert torch.equal(R, args[0]) and torch.equal(t, args[1])  # every step rejected
+
+
+@pytest.mark.gpu
+def test_pose_solve_rejects_what_the_kernel_does_not_take(cuda):
+    from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve
+    from test_torch_pose_solve_model import KW, _frame, _poses
+
+    frame = _frame(np.random.default_rng(0), k=1025, usable=10)
+    names = ("kl", "disp", "stereo_ok", "tm", "kf_xw", "kf_dok")
+    args = [torch.from_numpy(a).to(cuda) for a in _poses()] + [
+        torch.from_numpy(frame[n]).to(cuda) for n in names]
+    with pytest.raises(ValueError, match="1024"):
+        pose_solve(*args, **KW)
