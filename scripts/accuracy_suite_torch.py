@@ -23,9 +23,18 @@ Legs (env; reference ATE from ACCURACY.json's CPU legs):
   stereo_passthrough  lightglue.weights_file: __passthrough__ 0.1034  printed
   stereo_devtrack     SUPERSLAM_DEVICE_TRACKER=1 SUPERSLAM_DEVICE_KF=0
                       (dispatch-frozen; R2 in the reference)  1.4381  printed
+  stereo_devkf_nohybrid  SUPERSLAM_DEVICE_TRACKER=1
+                      SUPERSLAM_DEVICE_KF_HYBRID=0 (every frame
+                      re-matches inside the scan)             0.0662  printed
+  stereo_devkf_passthrough  SUPERSLAM_DEVICE_TRACKER=1 with the
+                      passthrough matcher                     0.1059  printed
+  stereo_covis03      SUPERSLAM_KF_COVIS=0.3 (sparser keyframes) 2.3216  printed
 The printed-only legs the reference ran host-solved on its CPU
-(nogate, passthrough) also pin SUPERSLAM_DEVICE_TRACKER=0. A gated leg
-passes at ATE <= 1.5 x its reference leg.
+(nogate, passthrough, covis03) also pin SUPERSLAM_DEVICE_TRACKER=0. A
+gated leg passes at ATE <= 1.5 x its reference leg. The artifact records
+which build of the host estimator's C++ core the run loaded (its path,
+size, SHA-1, the flags the Makefile builds it with and this host's CPU):
+the dispatch-frozen leg reads another ATE with each build.
 
 Usage (on the card; ``--device cpu`` for a CPU run, where 150 frames take
 many minutes):
@@ -101,6 +110,17 @@ LEGS = {
     "stereo_devtrack": (
         {"SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_DEVICE_KF": "0"},
         "lightglue_synth.safetensors", 1.4381, False,
+    ),
+    "stereo_devkf_nohybrid": (
+        {"SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_DEVICE_KF_HYBRID": "0"},
+        "lightglue_synth.safetensors", 0.0662, False,
+    ),
+    "stereo_devkf_passthrough": (
+        {"SUPERSLAM_DEVICE_TRACKER": "1"}, "__passthrough__", 0.1059, False,
+    ),
+    "stereo_covis03": (
+        {**HOST_SOLVED, "SUPERSLAM_KF_COVIS": "0.3"}, "lightglue_synth.safetensors", 2.3216,
+        False,
     ),
 }
 GATE_FACTOR = 1.5
@@ -230,6 +250,35 @@ def card_info(device: str) -> dict:
     return {"platform": "gpu", "card": card, "kind": torch.cuda.get_device_name(0)}
 
 
+def host_core_build() -> dict:
+    """Which build of the host estimator's C++ core (csrc/) this process
+    loads: its path (SUPERSLAM_NATIVE_SO or csrc/libsuperslam_core.so),
+    size and SHA-1, the compile command the Makefile gives for it, and
+    this host's CPU (the default flags carry -march=native)."""
+    import hashlib
+    import platform
+
+    from superslam_tpu_torch import native
+
+    info = {"path": os.path.relpath(native._SO, REPO), "loaded": native.available()}
+    if os.path.exists(native._SO):
+        with open(native._SO, "rb") as f:
+            blob = f.read()
+        info.update(bytes=len(blob), sha1=hashlib.sha1(blob).hexdigest())
+    make = subprocess.run(["make", "-n", "-B", "-C", native._CSRC], capture_output=True,
+                          text=True, timeout=60)
+    info["make_command"] = next((ln.strip() for ln in make.stdout.splitlines()
+                                 if "-shared" in ln), None)
+    cpu = platform.processor() or platform.machine()
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in f
+                        if ln.split(":")[0].strip() in ("model name", "Model", "CPU part")), cpu)
+    info["host_cpu"] = cpu
+    info["machine"] = platform.machine()
+    return info
+
+
 def run_suite(legs, frames: int = FRAMES, device: str = "cuda", checkpoints=(),
               log=print) -> dict:
     """Render the circuit once and run each leg (and each checkpoint's
@@ -255,6 +304,7 @@ def run_suite(legs, frames: int = FRAMES, device: str = "cuda", checkpoints=(),
         "suite": "rendered-world accuracy, superslam_tpu_torch",
         "frames": frames,
         "device": card_info(device),
+        "host_core": host_core_build(),
         "weights": "superpoint_render + lightglue_synth (weights/; stereo_passthrough = "
         "analytic-matcher ablation)",
         "legs": rows,

@@ -59,6 +59,7 @@ KERNELS = (
     "conv1a1b_full",
     "conv3x3",
     "pose_solve",
+    "track_frame",
 )
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -93,6 +94,16 @@ _SIGNATURES = {
     # chi2_rounds, track_iters, stream
     "ssl_pose_solve": [_P] * 14 + [_I] + [_F] * 5 + [_I] + [_F] * 3 + [_I] + [_F] * 2
     + [_I, _I, _P],
+    # carry, kl, disp, stereo_ok, tm, tm_rematch, kf_xw, kf_dok, nkl, dl, vl,
+    # kf_nk, kf_desc, kf_valid, since, kf_fresh, row, match_out, small,
+    # stats, out_kf_nk, out_kf_desc, out_kf_valid, out_kf_xw, out_kf_dok,
+    # out_fresh, K, desc_bytes, fx, fy, cx, cy, baseline, min_matches,
+    # inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px, chi2_px,
+    # chi2_rounds, track_iters, keyframes, accept_frac, support_px,
+    # kf_min_frames, kf_max_frames, kf_min_matches, covis_ratio, fx_baseline,
+    # stream
+    "ssl_track_frame": [_P] * 26 + [_I, _I] + [_F] * 5 + [_I] + [_F] * 3 + [_I] + [_F] * 2
+    + [_I] * 3 + [_F] * 2 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 

@@ -1,15 +1,18 @@
 """One frame's prior-gated pose-only LM solve in one launch.
 
-``pose_solve`` is what the device tracking chains
-(``ops/frontend_step.py::track_scan``, ``track_kf_scan``) run for each
-frame: the port of ``superslam_tpu/ops/frontend_step.py::_frame_solve``
-around ``superslam_tpu/ops/pose_solver.py::pose_only_lm_impl`` (XLA there,
-the LM a ``lax.while_loop``). On a CUDA tensor it launches the kernel
-``pose_solve.cu`` (its header says what bounds it on the H100 and how the
-design answers that): the whole solve, early exits included, on the
+``pose_solve`` is the solve of each frame of the device tracking chains
+(``ops/frontend_step.py::track_scan``, ``track_kf_scan``): the port of
+``superslam_tpu/ops/frontend_step.py::_frame_solve`` around
+``superslam_tpu/ops/pose_solver.py::pose_only_lm_impl`` (XLA there, the LM
+a ``lax.while_loop``). The chains run it inside their whole per-frame body,
+one launch of ``track_frame.cu`` (``ops/cuda/track_frame.py``); this is
+its own entry point. On a CUDA tensor it launches the kernel
+``pose_solve.cu`` (the solve of ``pose_solve.cuh``, whose header says how
+the block computes it): the whole solve, early exits included, on the
 device, with no value read by the host. A CPU tensor goes through the
 plain version ``pose_solve_plain``, the same function in PyTorch, whose
-LM reads its exit test from the tensor once an iteration.
+LM reads its exit test from the tensor once an iteration; the tracking
+kernel's twin calls it.
 
 The kernel sums in another order than PyTorch, so it agrees with the plain
 version to f32 rounding: chip_smoke.py and tests/test_torch_kernels_gpu.py

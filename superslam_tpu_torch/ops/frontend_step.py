@@ -20,12 +20,12 @@ Packed row layout (int16, shape (PACK_ROWS, K)):
      gates failed
   3: track match index into the KF set (-1 = none; plain integer)
 
-``track_scan`` (with ``_frame_solve`` and ``_reorthonormalize``) is the
-port of the JAX package's on-device tracking chain: the prior-gated
-pose-only LM per frame with coast-on-loss, held against the JAX function
-and the host tracker in ``tests/test_torch_pose_solver.py``; each frame's
-solve is one launch of ``ops/cuda/pose_solve.cu`` on the card.
-``track_kf_scan`` is its zero-lag form with the keyframe in the carry, and
+``track_scan`` is the port of the JAX package's on-device tracking chain:
+the prior-gated pose-only LM per frame with coast-on-loss, held against
+the JAX function and the host tracker in ``tests/test_torch_pose_solver.py``.
+``track_kf_scan`` is its zero-lag form with the keyframe in the carry. The
+body of each frame of both, the solve with everything around it, is one
+launch of ``ops/cuda/track_frame.cu`` on the card (``track_frame``); and
 ``fused_stereo_track_step_multi`` / ``fused_stereo_track_kf_step_multi`` are
 the device-tracked steps built on the two (extraction + matching + pose in
 one call), held against the JAX functions in
@@ -44,13 +44,11 @@ import torch
 from ..models.lightglue import extract_matches, lightglue_forward
 from ..models.superpoint import select_keypoints, superpoint_dense
 from ..utils.env import env_flag, env_float, env_int
-from .cuda.pose_solve import pose_solve, reprojection
+from .cuda.track_frame import TRACK_COLS, TRACK_KF_COLS, track_frame
 from .precision import highest_f32_matmuls
 
 PACK_ROWS = 4
 PACK_SCALE = 16.0  # 1/16 px fixed point in the int16 readback
-TRACK_COLS = 13  # R row-major (9) + t (3) + n_matches (1)
-TRACK_KF_COLS = 16  # R row-major (9) + t (3) + n + support + accept + promo
 
 
 def _superpoint_stereo_features(
@@ -236,48 +234,6 @@ def fused_stereo_step(
 # -- the tracking chain ---------------------------------------------------------
 
 
-def _reorthonormalize(R):
-    """Project a near-rotation back onto SO(3) (Gram-Schmidt). The tracking
-    carry multiplies thousands of f32 exponentials across a run; without
-    this the prior drifts off the manifold linearly in frame count."""
-    c0 = R[:, 0]
-    c0 = c0 / torch.sqrt(c0 @ c0 + 1e-20)
-    c1 = R[:, 1] - (c0 @ R[:, 1]) * c0
-    c1 = c1 / torch.sqrt(c1 @ c1 + 1e-20)
-    c2 = torch.linalg.cross(c0, c1)
-    return torch.stack([c0, c1, c2], dim=1)
-
-
-def _frame_solve(
-    R_prev,
-    t_prev,
-    R_pred,
-    t_pred,
-    kl_s,  # (K, 2) this frame's left keypoints (pixels)
-    disp_s,  # (K,)
-    ok_s,  # (K,) bool stereo-gate pass
-    tm_s,  # (K,) integer: frame keypoint matched to KF feature i, or -1
-    kf_xw,  # (K, 3) world points of the KF features
-    kf_depth_ok,  # (K,) bool
-    **solve_kw,
-):
-    """One frame's prior-gated pose solve (the solve semantics are
-    documented on track_scan), through ``ops/cuda/pose_solve.py``: one
-    kernel launch on the card, the plain version on the CPU. Returns
-    (R_s, t_s, n, ok, resid): the solved pose, the usable-match count, the
-    usable-match mask, and the reprojection-residual closure
-    ``resid(R, t) -> (px_dist (K,), z_ok (K,))`` for support counting."""
-    R_s, t_s, n, ok, _kept, uv = pose_solve(
-        R_prev, t_prev, R_pred, t_pred, kl_s, disp_s, ok_s, tm_s, kf_xw, kf_depth_ok,
-        **solve_kw,
-    )
-
-    def resid(R, t):
-        return reprojection(R, t, kf_xw, uv, solve_kw["calib"])
-
-    return R_s, t_s, n, ok, resid
-
-
 @torch.no_grad()
 @highest_f32_matmuls()
 def track_scan(
@@ -320,28 +276,20 @@ def track_scan(
     mono=True zeroes the uR residual weight (an RGB-D step has no
     frame-side depth): pass disparity=0 and stereo_ok=valid in that mode."""
     gate_px, chi2_px, chi2_rounds = _track_gate_defaults(gate_px, chi2_px, chi2_rounds)
-
-    R_prev, t_prev, Rr, tr = carry
-    rows = []
+    solve_kw = dict(
+        calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
+        disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono, gate_px=gate_px,
+        chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+    )
+    track_out = torch.empty((kl.shape[0], TRACK_COLS), dtype=torch.float32, device=kl.device)
+    kf_state = (None, None, None, kf_xw, kf_depth_ok, None)
+    tm = track_m.to(torch.int32)
     for s in range(kl.shape[0]):
-        # Constant-velocity prediction: the GATING pose, and the coast.
-        R_pred = R_prev @ Rr
-        t_pred = R_prev @ tr + t_prev
-        R_s, t_s, n, _ok, _resid = _frame_solve(
-            R_prev, t_prev, R_pred, t_pred, kl[s], disparity[s], stereo_ok[s], track_m[s],
-            kf_xw, kf_depth_ok,
-            calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
-            disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono, gate_px=gate_px,
-            chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+        _row, _tm, carry, _kf, _fresh, _raw = track_frame(
+            carry, (kl[s], None, None, None, disparity[s], stereo_ok[s]), tm[s], kf_state,
+            out=(track_out[s], None), **solve_kw,
         )
-        use = n >= min_matches
-        R_new = _reorthonormalize(torch.where(use, R_s, R_pred))
-        t_new = torch.where(use, t_s, t_pred)
-        Rr = torch.where(use, R_prev.T @ R_new, Rr)
-        tr = torch.where(use, R_prev.T @ (t_new - t_prev), tr)
-        rows.append(torch.cat([R_new.reshape(9), t_new, n.to(torch.float32)[None]]))
-        R_prev, t_prev = R_new, t_new
-    return torch.stack(rows), (R_prev, t_prev, Rr, tr)
+    return track_out, carry
 
 
 def _track_gate_defaults(gate_px, chi2_px, chi2_rounds):
@@ -499,109 +447,56 @@ def track_kf_scan(
     frames after one need the pair-batch-1 forward. The JAX package
     selects with ``lax.cond`` on a carried flag. Here nothing is read from
     the device: on the card every frame after the first in a call runs the
-    re-match (9 + 9 block launches) and ``torch.where`` selects with the
+    re-match (9 + 9 block launches) and the frame's kernel selects with the
     carried bit; the CPU plain path reads the bit and skips the re-match it
-    would discard. The promotion likewise selects the new keyframe state
-    with the device's promo bit.
+    would discard. The kernel likewise writes the new keyframe state from
+    the frame or the old keyframe by its own promo bit.
+
+    Each frame's body after the match is one ``track_frame`` call: one
+    launch of ``ops/cuda/track_frame.cu`` on the card, its plain twin on
+    the CPU.
 
     Returns (track_out (S, TRACK_KF_COLS) f32, track_m (S, K) int32,
     new_kf_state, new_pose_carry)."""
     gate_px, chi2_px, chi2_rounds = _track_gate_defaults(gate_px, chi2_px, chi2_rounds)
-    R_prev, t_prev, Rr, tr = pose_carry
-    kf_nk, kf_d, kf_v, kf_xw, kf_dok, since = kf_state
+    solve_kw = dict(
+        calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
+        disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=False, gate_px=gate_px,
+        chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+        keyframes=dict(accept_frac=accept_frac, support_px=support_px,
+                       kf_min_frames=kf_min_frames, kf_max_frames=kf_max_frames,
+                       kf_min_matches=kf_min_matches, covis_ratio=covis_ratio),
+    )
     hybrid = track_m0 is not None
     on_card = kl.device.type != "cpu"
+    S, K = kl.shape[0], kl.shape[1]
+    track_out = torch.empty((S, TRACK_KF_COLS), dtype=torch.float32, device=kl.device)
+    matches = torch.empty((S, K), dtype=torch.int32, device=kl.device)
     # Whether the carried keyframe is still the one track_m0 was matched
-    # against: a device bit, never read on the card.
-    fresh = torch.ones((), dtype=torch.bool, device=kl.device)
-    rows, matches = [], []
-    for s in range(kl.shape[0]):
+    # against: a device bit, never read on the card; None is the entry
+    # keyframe.
+    fresh = None
+    for s in range(S):
+        rematch = None
         if hybrid and (s == 0 or (not on_card and bool(fresh))):
             # Frame 0 always matches the entry keyframe; the CPU twin reads
             # the bit and skips the re-match it would discard.
             tm_s = track_m0[s].to(torch.int32)
         else:
+            kf_nk, kf_d, kf_v = kf_state[:3]
             la = lightglue_forward(
                 lg_params, kf_nk[None], kf_d[None], nkl[s][None], dl[s][None], kf_v[None],
                 vl[s][None],
             )
             tm_s = extract_matches(la, kf_v[None], vl[s][None], match_threshold)[0][0]
             if hybrid:
-                tm_s = torch.where(fresh, track_m0[s].to(torch.int32), tm_s)
-
-        R_pred = R_prev @ Rr
-        t_pred = R_prev @ tr + t_prev
-        R_s, t_s, n, ok, resid = _frame_solve(
-            R_prev, t_prev, R_pred, t_pred, kl[s], disparity[s], stereo_ok[s], tm_s, kf_xw,
-            kf_dok,
-            calib=calib, min_matches=min_matches, inv_sig_uLv=1.0 / track_sigma_px,
-            disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=False, gate_px=gate_px,
-            chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+                # The kernel selects with the carried bit.
+                tm_s, rematch = track_m0[s].to(torch.int32), tm_s
+        _row, _tm, pose_carry, kf_state, fresh, _raw = track_frame(
+            pose_carry, (kl[s], nkl[s], dl[s], vl[s], disparity[s], stereo_ok[s]), tm_s,
+            kf_state, rematch=rematch, fresh=fresh, out=(track_out[s], matches[s]), **solve_kw,
         )
-
-        # Support-based acceptance: VoEstimator._attempt's rule.
-        r, zok = resid(R_s, t_s)
-        support = torch.sum(ok & zok & (r < support_px))
-        finite = torch.isfinite(t_s).all() & torch.isfinite(R_s).all()
-        accept = (n >= min_matches) & finite
-        if accept_frac > 0:
-            floor = torch.clamp(accept_frac * n.float(), min=float(min_matches))
-            accept = accept & (support.float() >= floor)
-
-        R_new = _reorthonormalize(torch.where(accept, R_s, R_pred))
-        t_new = torch.where(accept, t_s, t_pred)
-        Rr = torch.where(accept, R_prev.T @ R_new, Rr)
-        tr = torch.where(accept, R_prev.T @ (t_new - t_prev), tr)
-
-        # Keyframe gate (should_insert_keyframe, exact semantics).
-        since1 = since + 1
-        nref = torch.clamp(torch.sum(kf_dok), min=1)
-        ratio_low = n.float() < covis_ratio * nref.float()
-        gate = (since1 >= kf_min_frames) & (
-            (since1 >= kf_max_frames) | (n < kf_min_matches) | ratio_low
-        )
-        promo = accept & gate
-        rows.append(
-            torch.cat(
-                [R_new.reshape(9), t_new,
-                 torch.stack([n.float(), support.float(), accept.float(), promo.float()])]
-            )
-        )
-        matches.append(tm_s)
-
-        kf_nk, kf_d, kf_v, kf_xw, kf_dok = promote(
-            promo, (kl[s], nkl[s], dl[s], vl[s], disparity[s], stereo_ok[s]), R_new, t_new,
-            (kf_nk, kf_d, kf_v, kf_xw, kf_dok), calib,
-        )
-        since = torch.where(promo, torch.zeros_like(since1), since1)
-        fresh = fresh & ~promo
-        R_prev, t_prev = R_new, t_new
-
-    new_kf_state = (kf_nk, kf_d, kf_v, kf_xw, kf_dok, since)
-    return torch.stack(rows), torch.stack(matches), new_kf_state, (R_prev, t_prev, Rr, tr)
-
-
-def promote(promo, frame, R_new, t_new, kf, calib):
-    """The promotion of track_kf_scan: where the device bit ``promo`` is
-    set, the frame's features (kl, nkl, dl, vl, disparity, stereo_ok) become
-    the keyframe (nk, desc, valid, xw, depth_ok), their world points
-    grounded through the accepted solve (Xw = R Xc + t); elsewhere the
-    keyframe stays. Selected on the device, as the JAX scan does: nothing
-    is read back."""
-    fx, fy, cx, cy, baseline = calib
-    kl_s, nkl_s, dl_s, vl_s, disp_s, sok_s = frame
-    kf_nk, kf_d, kf_v, kf_xw, kf_dok = kf
-    z = (fx * baseline) / torch.clamp(disp_s, min=1e-3)
-    x = (kl_s[:, 0] - cx) * z / fx
-    y = (kl_s[:, 1] - cy) * z / fy
-    xw_new = torch.stack([x, y, z], dim=1) @ R_new.T + t_new
-    return (
-        torch.where(promo, nkl_s, kf_nk),
-        torch.where(promo, dl_s, kf_d),
-        torch.where(promo, vl_s, kf_v),
-        torch.where(promo, xw_new, kf_xw),
-        torch.where(promo, sok_s, kf_dok),
-    )
+    return track_out, matches, kf_state, pose_carry
 
 
 @torch.no_grad()

@@ -6,7 +6,12 @@
   render seed 1, 640x352, fx 320, baseline 0.3), quantized as
   write_kitti_sequence writes its PNGs, and the same ground truth.
 - A 4-frame stereo_sync leg runs through the runner's command line and
-  writes the artifact's keys.
+  writes the artifact's keys, the loaded host-core build among them.
+- Every leg's reference ATE is ACCURACY.json's leg of the same name; the
+  three legs that ride the device-keyframe and keyframe-gate code
+  (stereo_devkf_nohybrid, stereo_devkf_passthrough, stereo_covis03) are
+  printed, not gated, with the reference's envs; a 3-frame
+  stereo_devkf_nohybrid leg runs the device-keyframe scan on the CPU.
 - The 150-frame gated legs on the CPU are marked slow (they take many
   minutes here; on the card chip_smoke.py runs them every time).
 """
@@ -72,6 +77,35 @@ def test_short_leg_writes_the_artifact(tmp_path, monkeypatch):
                 "keyframes", "reference_ate_m", "env"):
         assert key in row, key
     assert np.isfinite(row["ate_rmse_m"])
+    core = suite["host_core"]
+    assert core["path"] == "csrc/libsuperslam_core.so" and core["loaded"]
+    assert len(core["sha1"]) == 40 and core["bytes"] > 0 and core["host_cpu"]
+    assert "-shared" in core["make_command"]
+
+
+def test_legs_carry_the_reference_legs():
+    import os
+
+    with open(os.path.join(acc.REPO, "ACCURACY.json")) as f:
+        ref = {row["leg"]: row["ate_rmse_m"] for row in json.load(f)["legs"]}
+    for leg, (_env, _lg, ate, _gated) in acc.LEGS.items():
+        assert ate == ref[leg], leg
+    gated = {leg for leg, spec in acc.LEGS.items() if spec[3]}
+    assert gated == {"stereo", "stereo_sync", "stereo_devkf"}
+    assert acc.LEGS["stereo_devkf_nohybrid"][0] == {
+        "SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_DEVICE_KF_HYBRID": "0"}
+    assert acc.LEGS["stereo_devkf_passthrough"][:2] == (
+        {"SUPERSLAM_DEVICE_TRACKER": "1"}, "__passthrough__")
+    assert acc.LEGS["stereo_covis03"][0] == {
+        "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_KF_COVIS": "0.3"}
+
+
+def test_short_device_keyframe_leg_on_the_cpu():
+    """stereo_devkf_nohybrid over 3 frames on the CPU: the pipelined tracker
+    with device keyframes (the scan's plain twin here), printed only."""
+    row = acc.run_leg("stereo_devkf_nohybrid", acc.render_circuit(3), "cpu")
+    assert row["mode"] == {"depth": 3, "batch": 1, "device_tracking": True, "device_kf": True}
+    assert row["limit_m"] is None and row["passed"] and np.isfinite(row["ate_rmse_m"])
 
 
 @pytest.mark.slow

@@ -15,10 +15,13 @@ forward within 1e-4 of max|plain| at every length, and the forward's row
 statistics within 1e-5 of the plain softmax's, the per-frame pose solve
 within 1e-3 (m and rotation-matrix entries; f32 sums in another order, and
 the LM's stop on a 1e-4 relative improvement may fall one iteration apart)
-with n and the usable mask exact and the kept count within 1% of n. The
-last two tests run the tracking chains (track_scan, track_kf_scan: their
-per-frame solve is the pose_solve kernel) on the card against their own
-CPU results."""
+with n and the usable mask exact and the kept count within 1% of n; the
+per-frame tracking kernel (track_frame: the solve, the acceptance, the
+carry, the keyframe gate and the promotion) the same on its solve, and on
+that solve every count, bit and copied keyframe array exactly the twin's
+epilogue's (each world point within 1e-5 of its norm). The tracking chains
+(track_scan, track_kf_scan: one track_frame launch a frame) run on the
+card against their own CPU results."""
 
 import numpy as np
 import pytest
@@ -530,15 +533,12 @@ def test_track_scan_on_the_card_matches_cpu(cuda):
     np.testing.assert_allclose(outs[1][1, 9:12], [0.30, 0.0, 0.02], atol=1e-3)
 
 
-@pytest.mark.gpu
-def test_track_kf_scan_on_the_card_matches_cpu(cuda):
-    """Three frames of exact projections of 64 landmarks with the keyframe
-    in the carry and the passthrough matcher: the chain on CUDA tensors
-    gives the CPU result within 1e-4, the same counts and decision bits
-    (frame 2 promotes itself) and the same matches."""
-    from superslam_tpu_torch.ops.frontend_step import track_kf_scan
-
-    rng = np.random.default_rng(3)
+def _kf_scan_scene(seed, s_frames, since):
+    """s_frames frames of exact projections of 64 landmarks (the camera
+    sliding 0.05 m a frame), their keyframe at the origin in the carry with
+    identical descriptors for the passthrough matcher, and the scan's
+    settings (the gate fires on the covis ratio once since + 1 reaches 2)."""
+    rng = np.random.default_rng(seed)
     k, fx, cx, cy, base, wd, hd = 64, 100.0, 64.0, 48.0, 0.3, 128, 96
     z0 = rng.uniform(4.0, 10.0, k)
     xw = np.stack([(rng.uniform(10, wd - 10, k) - cx) * z0 / fx,
@@ -547,23 +547,36 @@ def test_track_kf_scan_on_the_card_matches_cpu(cuda):
 
     def project(shift):
         p = xw - np.array([shift, 0.0, 0.6 * shift])
-        return np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1), fx * base / p[:, 2]
+        return (np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1),
+                fx * base / p[:, 2])
 
-    views = [project(0.05 * (s + 1)) for s in range(3)]
+    views = [project(0.05 * (s + 1)) for s in range(s_frames)]
     kl = np.stack([v[0] for v in views]).astype(np.float32)
     desc = rng.normal(0, 1, (k, 256)).astype(np.float32)
     desc /= np.linalg.norm(desc, axis=1, keepdims=True)
     frames = [
-        kl, ((kl - center) / scale).astype(np.float32), np.tile(desc, (3, 1, 1)),
-        np.ones((3, k), bool), np.stack([v[1] for v in views]).astype(np.float32),
-        np.ones((3, k), bool),
+        kl, ((kl - center) / scale).astype(np.float32), np.tile(desc, (s_frames, 1, 1)),
+        np.ones((s_frames, k), bool), np.stack([v[1] for v in views]).astype(np.float32),
+        np.ones((s_frames, k), bool),
     ]
     state = [((project(0.0)[0] - center) / scale).astype(np.float32), desc, np.ones(k, bool),
-             xw.astype(np.float32), np.ones(k, bool), np.zeros((), np.int32)]
+             xw.astype(np.float32), np.ones(k, bool), np.asarray(since, np.int32)]
     carry = [np.eye(3, dtype=np.float32), np.zeros(3, np.float32)] * 2
     kw = dict(calib=(fx, fx, cx, cy, base), min_matches=10, track_sigma_px=10.0, disp_sigma0=8.0,
               disp_cond=fx * base / 40.0, match_threshold=0.1, accept_frac=0.4, support_px=4.0,
               kf_min_frames=2, kf_max_frames=99, kf_min_matches=30, covis_ratio=2.0)
+    return frames, state, carry, kw
+
+
+@pytest.mark.gpu
+def test_track_kf_scan_on_the_card_matches_cpu(cuda):
+    """Three frames of exact projections of 64 landmarks with the keyframe
+    in the carry and the passthrough matcher: the chain on CUDA tensors
+    gives the CPU result within 1e-4, the same counts and decision bits
+    (frame 2 promotes itself) and the same matches."""
+    from superslam_tpu_torch.ops.frontend_step import track_kf_scan
+
+    frames, state, carry, kw = _kf_scan_scene(3, 3, since=0)
     outs = []
     for dev in ("cpu", cuda):
         params = init_lightglue_params(0, passthrough=True, device=dev)
@@ -640,3 +653,172 @@ def test_pose_solve_rejects_what_the_kernel_does_not_take(cuda):
         torch.from_numpy(frame[n]).to(cuda) for n in names]
     with pytest.raises(ValueError, match="1024"):
         pose_solve(*args, **KW)
+
+
+def _track_frame_case(case):
+    """The frames of tests/test_torch_track_frame_model.py as the kernel
+    and its twin take them, and the epilogue's settings."""
+    from test_torch_track_frame_model import GATE, SOLVE_KW, _FRAME, _KF, _case
+
+    kw, gate, k = dict(SOLVE_KW), dict(GATE), 128
+    args = dict(seed=20)
+    if case in ("coast", "scan_coast"):
+        args["usable"] = 6
+    elif case == "support":
+        args["noise_px"], gate["support_px"] = 3.0, 1.0
+    elif case == "nan":
+        args["t_prev"] = (np.nan, 0.0, 0.1)
+    elif case == "promo_max_frames":
+        args["since"], gate["kf_max_frames"] = 4, 5
+    elif case == "promo_covis":
+        args["since"], gate["covis_ratio"] = 1, 0.9
+    elif case == "k600":
+        args["k"], args["usable"] = 600, 500
+    elif case == "bytewise_desc":
+        args["k"] = 127  # 127 x 7 bf16 descriptors: not a whole number of 16-byte vectors
+    frame, kf, carry, tm = _case(**args)
+    if case == "bytewise_desc":
+        rng = np.random.default_rng(0)
+        frame["dl"] = rng.normal(size=(args["k"], 7)).astype(np.float32)
+        kf["desc"] = rng.normal(size=(args["k"], 7)).astype(np.float32)
+    if case == "mono":
+        kw["mono"] = True
+    t = torch.from_numpy
+    tensors = (tuple(t(c) for c in carry), tuple(t(frame[n]) for n in _FRAME), t(tm),
+               tuple(t(kf[n]) for n in _KF))
+    return tensors, kw, (None if case in ("scan", "scan_coast", "mono") else gate)
+
+
+def _on(dev, tree):
+    if isinstance(tree, tuple):
+        return tuple(_on(dev, x) for x in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _check_track_frame(got, args, kw, gate, rematch=None, fresh=None):
+    """The kernel's outputs against the twin: the raw solve and the poses
+    within 1e-3 of the full twin's; n, kept, support, accept, promo, since,
+    fresh, the match used and the new keyframe state exactly as the twin's
+    epilogue computes them on the kernel's own raw solve (desc, nk, valid,
+    depth_ok bit-equal; xw within 1e-5 of |xw|; the poses within 1e-5)."""
+    from superslam_tpu_torch.ops.cuda.track_frame import (
+        track_frame_epilogue_plain,
+        track_frame_plain,
+    )
+
+    cpu = lambda x: _on("cpu", x)  # noqa: E731
+    got = cpu(got)
+    carry, frame, tm, state = args
+    ref = track_frame_plain(carry, frame, tm, state, keyframes=gate, rematch=rematch,
+                            fresh=fresh, **kw)
+    row, used, pose, new_state, new_fresh, raw = got
+    assert int(raw[2]) == int(ref[5][2])
+    assert abs(int(raw[3]) - int(ref[5][3])) <= max(1, int(ref[5][2]) // 100)
+    for a, b in ((raw[0], ref[5][0]), (raw[1], ref[5][1]), (row[:12], ref[0][:12])):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3, equal_nan=True)
+    on_raw = track_frame_epilogue_plain(
+        (raw[0], raw[1], raw[2].long(), raw[3]), carry, frame, tm, state, calib=kw["calib"],
+        min_matches=kw["min_matches"], keyframes=gate, rematch=rematch, fresh=fresh)
+    torch.testing.assert_close(row[12:], on_raw[0][12:], rtol=0, atol=0)
+    torch.testing.assert_close(row[:12], on_raw[0][:12], rtol=0, atol=1e-5, equal_nan=True)
+    assert torch.equal(used, on_raw[1].to(torch.int32))
+    for a, b in zip(pose, on_raw[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5, equal_nan=True)
+    if gate is None:
+        assert new_fresh is None
+        return row
+    for i, (a, b) in enumerate(zip(new_state, on_raw[3])):
+        if i == 3:  # a point's error over its norm (far points: |xw| ~ 1e5 m)
+            assert ((a - b).abs().amax(1) / b.norm(dim=1).clamp(min=1.0)).max() <= 1e-5
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), i
+    assert bool(new_fresh) == bool(on_raw[4])
+    return row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case", ["clean", "coast", "support", "nan", "promo_max_frames", "promo_covis", "k600",
+             "bytewise_desc", "scan", "scan_coast", "mono"],
+)
+def test_track_frame_kernel(cuda, case):
+    """One frame through the kernel (both epilogues) against its twin on the
+    constructed frames of tests/test_torch_track_frame_model.py; one
+    launch, no pose_solve launch."""
+    from superslam_tpu_torch.ops.cuda.track_frame import track_frame
+
+    args, kw, gate = _track_frame_case(case)
+    if case == "bytewise_desc":
+        carry, frame, tm, state = args
+        frame = (*frame[:2], frame[2].to(torch.bfloat16), *frame[3:])
+        state = (state[0], state[1].to(torch.bfloat16), *state[2:])
+        args = (carry, frame, tm, state)
+    before = _build.launch_counts()
+    got = track_frame(*_on(cuda, args), keyframes=gate, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["track_frame"] == before["track_frame"] + 1
+    assert after["pose_solve"] == before["pose_solve"]
+    row = _check_track_frame(got, args, kw, gate)
+    if case.startswith("promo"):
+        assert row[15] == 1
+    if case in ("coast", "support", "nan", "scan_coast"):
+        assert row[12] < 10 or row[14] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fresh", [None, True, False])
+def test_track_frame_kernel_hybrid_select(cuda, fresh):
+    """The hybrid's two match vectors: the entry match while fresh (or with
+    no bit, frame 0), the re-match after a promotion."""
+    from superslam_tpu_torch.ops.cuda.track_frame import track_frame
+
+    args, kw, gate = _track_frame_case("clean")
+    carry, frame, tm, state = args
+    entry = torch.where(torch.arange(tm.numel()) % 3 == 0, torch.full_like(tm, -1), tm)
+    bit = None if fresh is None else torch.tensor(fresh)
+    got = track_frame(*_on(cuda, (carry, frame, entry, state)), keyframes=gate,
+                      rematch=tm.to(cuda), fresh=_on(cuda, bit), **kw)
+    torch.cuda.synchronize()
+    _check_track_frame(got, (carry, frame, entry, state), kw, gate, rematch=tm, fresh=bit)
+    assert torch.equal(got[1].cpu(), entry if fresh in (None, True) else tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_frames", [1, 2])
+def test_track_kf_scan_hybrid_on_the_card_matches_cpu(cuda, s_frames):
+    """The hybrid scan (batched entry matches handed in) on the card against
+    the CPU: one track_frame launch a frame and no pose_solve; at S = 2 the
+    first frame promotes, so the second takes the re-match inside its
+    kernel."""
+    from superslam_tpu_torch.ops.frontend_step import track_kf_scan
+
+    frames, state, carry, kw = _kf_scan_scene(5, s_frames, since=1)
+    k = state[0].shape[0]
+    m0 = np.tile(np.arange(k, dtype=np.int32), (s_frames, 1))
+    m0[:, ::5] = -1  # the entry matches differ from the re-match's identity
+    outs = []
+    for dev in ("cpu", cuda):
+        params = init_lightglue_params(0, passthrough=True, device=dev)
+        before = _build.launch_counts()
+        out, tm, st, pose = track_kf_scan(
+            params, *(torch.from_numpy(a).to(dev) for a in frames),
+            tuple(torch.from_numpy(a).to(dev) for a in state),
+            tuple(torch.from_numpy(a).to(dev) for a in carry), track_m0=torch.from_numpy(m0).to(dev),
+            **kw)
+        after = _build.launch_counts()
+        outs.append((out.cpu().numpy(), tm.cpu().numpy(), [a.cpu() for a in st]))
+    assert after["track_frame"] - before["track_frame"] == s_frames
+    assert after["pose_solve"] == before["pose_solve"]
+    (ref, ref_m, ref_st), (got, got_m, got_st) = outs
+    assert list(got[:, 15]) == [1.0] + [0.0] * (s_frames - 1)
+    np.testing.assert_allclose(got[:, :12], ref[:, :12], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got[:, 12:], ref[:, 12:])
+    np.testing.assert_array_equal(got_m, ref_m)
+    if s_frames == 2:
+        assert (got_m[1][::5] >= 0).any()  # the re-match, not the entry match
+    for i, (a, b) in enumerate(zip(got_st, ref_st)):
+        if i == 3:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(a, b), i
