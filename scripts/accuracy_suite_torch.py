@@ -1,17 +1,20 @@
 #!/usr/bin/env python
 """Rendered-circuit accuracy legs through the PyTorch/CUDA port's facade.
 
-The port's counterpart of ``scripts/accuracy_suite.py`` for its stereo
-legs. It renders the 150-frame sprite-room circuit in memory through the
-port's ``eval/synthetic_sequence.py`` with ``scripts/make_synthetic_sequence.py``'s
+The port's counterpart of ``scripts/accuracy_suite.py``. It renders the
+150-frame sprite-room circuit in memory through the port's
+``eval/synthetic_sequence.py`` with ``scripts/make_synthetic_sequence.py``'s
 defaults (640x352, fx 320, baseline 0.3, 300 sprites, seed 0; frames
 quantized to uint8 exactly as ``write_kitti_sequence`` writes its PNGs, so
 every leg sees the reference legs' pixels) and that script's config
 template (512 keypoints, threshold 0.010, ``superpoint_render`` +
-``lightglue_synth``). Each leg drives ``SuperSLAM(config, device=...)``
-in-process with its environment, and is scored with the port's
-``eval/metrics.py`` (Umeyama-aligned ATE, RPE at 1 m, the KITTI segment
-metric) against the rendered ground truth.
+``lightglue_synth``, a ``loop:`` block). The RGB-D legs render the same lap
+with depth as ``write_tum_sequence`` writes it (gray round(x * 255), depth
+uint16 clip(Z * 5000), times i / 30) and add ``DepthMapFactor: 5000.0``.
+Each leg drives ``SuperSLAM(config, device=...)`` in-process with its
+environment, and is scored with the port's ``eval/metrics.py``
+(Umeyama-aligned ATE, RPE at 1 m, the KITTI segment metric) against the
+rendered ground truth.
 
 Legs (env; reference ATE from ACCURACY.json's CPU legs):
   stereo              SUPERSLAM_DEVICE_TRACKER=0: depth 3, host-solved
@@ -29,16 +32,27 @@ Legs (env; reference ATE from ACCURACY.json's CPU legs):
   stereo_devkf_passthrough  SUPERSLAM_DEVICE_TRACKER=1 with the
                       passthrough matcher                     0.1059  printed
   stereo_covis03      SUPERSLAM_KF_COVIS=0.3 (sparser keyframes) 2.3216  printed
+  stereo_loop         SUPERSLAM_ENABLE_LOOP=1, SUPERSLAM_DEVICE_TRACKER=0
+                      (laps=1.06 revisits the start)           0.0348  gated,
+                      and at least one loop closure
+  stereo_loop_randomplace  as stereo_loop with loop.weights_file a missing
+                      file (a random-init recognizer)          0.0348  printed
+  stereo_loop_devkf   SUPERSLAM_ENABLE_LOOP=1 on the card's default   printed
+  rgbd                SUPERSLAM_DEVICE_TRACKER=0 (the reference ran host-solved
+                      on its CPU)                              0.0969  gated
+  rgbd_devtrack       the card's default (device-tracked mono chain) printed,
+                      with its gap to rgbd
 The printed-only legs the reference ran host-solved on its CPU
 (nogate, passthrough, covis03) also pin SUPERSLAM_DEVICE_TRACKER=0. A
-gated leg passes at ATE <= 1.5 x its reference leg. The artifact records
+gated leg passes at ATE <= 1.5 x its reference leg. Every row counts the
+host estimator's pose solves (``host_solves``) and the loop closures. The artifact records
 which build of the host estimator's C++ core the run loaded (its path,
 size, SHA-1, the flags the Makefile builds it with and this host's CPU):
 the dispatch-frozen leg reads another ATE with each build.
 
 Usage (on the card; ``--device cpu`` for a CPU run, where 150 frames take
 many minutes):
-  python3 scripts/accuracy_suite_torch.py                       # the six legs
+  python3 scripts/accuracy_suite_torch.py                       # every leg
   python3 scripts/accuracy_suite_torch.py --legs stereo_devkf --frames 40  # 40 of the lap
   python3 scripts/accuracy_suite_torch.py --lg-checkpoints lightglue_synth.safetensors
 
@@ -122,8 +136,30 @@ LEGS = {
         {**HOST_SOLVED, "SUPERSLAM_KF_COVIS": "0.3"}, "lightglue_synth.safetensors", 2.3216,
         False,
     ),
+    "stereo_loop": (
+        {**HOST_SOLVED, "SUPERSLAM_ENABLE_LOOP": "1"}, "lightglue_synth.safetensors", 0.0348, True,
+    ),
+    "stereo_loop_randomplace": (
+        {**HOST_SOLVED, "SUPERSLAM_ENABLE_LOOP": "1"}, "lightglue_synth.safetensors", 0.0348,
+        False,
+    ),
+    "stereo_loop_devkf": (
+        {"SUPERSLAM_ENABLE_LOOP": "1"}, "lightglue_synth.safetensors", None, False,
+    ),
+    "rgbd": (HOST_SOLVED, "lightglue_synth.safetensors", 0.0969, True),
+    "rgbd_devtrack": ({}, "lightglue_synth.safetensors", None, False),
 }
 GATE_FACTOR = 1.5
+RGBD_LEGS = ("rgbd", "rgbd_devtrack")
+DEPTH_FACTOR, RGBD_FPS = 5000.0, 30.0  # write_tum_sequence's
+# Config lines a leg adds to the template (which ends in its loop: block).
+CONFIG_EXTRA = {
+    # JAX accuracy_suite.py:256-265: the recognizer's checkpoint a missing
+    # file, so load_params falls back to a random init.
+    "stereo_loop_randomplace": "  weights_file: __random_init_ablation__\n",
+    "rgbd": f"DepthMapFactor: {DEPTH_FACTOR}\n",
+    "rgbd_devtrack": f"DepthMapFactor: {DEPTH_FACTOR}\n",
+}
 
 
 def render_circuit(frames: int = FRAMES):
@@ -151,7 +187,31 @@ def render_circuit(frames: int = FRAMES):
     return pairs, times, poses
 
 
-def write_config(path: str, lg_weights: str) -> str:
+def render_rgbd_circuit(frames: int = FRAMES):
+    """The same lap seen by the RGB-D camera, as write_tum_sequence writes it
+    (make_synthetic_sequence.py --format tum): (gray uint8, depth uint16)
+    pairs, their timestamps (rgb.txt's %.6f of i / 30) and the poses."""
+    from superslam_tpu_torch.eval.synthetic_sequence import (
+        circuit_trajectory,
+        make_room_world,
+        render_view,
+    )
+    from superslam_tpu_torch.geometry.stereo_camera import StereoCalib
+
+    world = make_room_world(np.random.default_rng(SEED), n_sprites=SPRITES)
+    calib = StereoCalib(fx=FX, fy=FX, cx=WIDTH / 2.0, cy=HEIGHT / 2.0, baseline=BASELINE)
+    poses = circuit_trajectory(FRAMES)[:frames]
+    rng = np.random.default_rng(SEED + 1)
+    pairs = []
+    for p in poses:
+        img, depth = render_view(world, p, calib, HEIGHT, WIDTH, rng, return_depth=True)
+        pairs.append((np.round(img * 255).astype(np.uint8),
+                      np.clip(depth * DEPTH_FACTOR, 0, 65535).astype(np.uint16)))
+    times = [float(f"{i / RGBD_FPS:.6f}") for i in range(frames)]
+    return pairs, times, poses
+
+
+def write_config(path: str, lg_weights: str, extra: str = "") -> str:
     with open(path, "w") as f:
         f.write(
             CONFIG_TMPL.format(
@@ -160,6 +220,7 @@ def write_config(path: str, lg_weights: str) -> str:
                 sp_weights="superpoint_render.safetensors", lg_weights=lg_weights,
                 max_kp=MAX_KEYPOINTS,
             )
+            + extra
         )
     return path
 
@@ -186,7 +247,8 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
     gated = gated and lg_weights is None  # a checkpoint face-off is printed only
     pairs, times, gt = circuit
     with tempfile.TemporaryDirectory() as tmp, leg_environment(env):
-        cfg = write_config(os.path.join(tmp, "config.yaml"), lg_weights or default_lg)
+        cfg = write_config(os.path.join(tmp, "config.yaml"), lg_weights or default_lg,
+                           CONFIG_EXTRA.get(name, ""))
         slam = SuperSLAM(cfg, device=device)
         tracker = slam._tracker
         mode = {
@@ -195,12 +257,19 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
             "device_tracking": bool(tracker and tracker.device_tracking),
             "device_kf": bool(tracker and tracker.device_kf),
         }
+        loop = slam.loop_enabled
+        solves = []
+        solve = slam.estimator.tracker.track_arrays
+        slam.estimator.tracker.track_arrays = lambda *a, **k: solves.append(1) or solve(*a, **k)
+        track = slam.track_rgbd if name in RGBD_LEGS else slam.track_stereo
         t0 = time.perf_counter()
-        for i, ((left, right), ts) in enumerate(zip(pairs, times)):
-            slam.track_stereo(left, right, ts)
+        for i, (frame, ts) in enumerate(zip(pairs, times)):
+            track(*frame, ts)
             if i == 0:
                 t1 = time.perf_counter()  # frame 0 carries the first calls' set-up
+        # Drain the tracker and the loop worker before reading the trajectory.
         slam.flush()
+        slam.estimator.stop_loop_worker()
         if slam.device.type == "cuda":
             import torch
 
@@ -209,6 +278,8 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
         wall = end - t0
         est = slam.estimator.corrected_trajectory()
         n_kf = len(slam.estimator.anchors())
+        n_loops = slam.loop_closure_count()
+        slam.estimator.tracker.track_arrays = solve
         slam.shutdown()
     a = ate(est, gt)
     r = rpe(est, gt, delta_m=1.0)
@@ -225,6 +296,9 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
         "r_rel_deg_per_m": float(r_rel),
         "frames": min(len(est), len(gt)),
         "keyframes": n_kf,
+        "host_solves": len(solves),
+        "loop_enabled": loop,
+        "loop_closures": n_loops,
         "wall_s": wall,
         "fps": (len(pairs) - 1) / (end - t1) if len(pairs) > 1 else None,
         "reference_ate_m": ref,
@@ -233,6 +307,8 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
     if lg_weights:
         row["checkpoint"] = lg_weights
     row["passed"] = bool(np.isfinite(a.rmse)) and (not gated or a.rmse <= GATE_FACTOR * ref)
+    if gated and name == "stereo_loop":
+        row["passed"] = row["passed"] and n_loops >= 1
     return row
 
 
@@ -281,16 +357,22 @@ def host_core_build() -> dict:
 
 def run_suite(legs, frames: int = FRAMES, device: str = "cuda", checkpoints=(),
               log=print) -> dict:
-    """Render the circuit once and run each leg (and each checkpoint's
-    stereo leg); returns the artifact."""
-    circuit = render_circuit(frames)
+    """Render the circuit once (and once with depth, for the RGB-D legs) and
+    run each leg (and each checkpoint's stereo leg); returns the artifact.
+    rgbd_devtrack's row carries its gap to rgbd's ATE when both ran."""
+    stereo = render_circuit(frames) if checkpoints or set(legs) - set(RGBD_LEGS) else None
+    rgbd = render_rgbd_circuit(frames) if set(legs) & set(RGBD_LEGS) else None
     rows = []
     for leg in legs:
-        rows.append(run_leg(leg, circuit, device))
+        rows.append(run_leg(leg, rgbd if leg in RGBD_LEGS else stereo, device))
         log(f"[suite] {json.dumps(rows[-1])}")
+    by_leg = {r["leg"]: r for r in rows}
+    if "rgbd" in by_leg and "rgbd_devtrack" in by_leg:
+        by_leg["rgbd_devtrack"]["gap_to_rgbd_m"] = (
+            by_leg["rgbd_devtrack"]["ate_rmse_m"] - by_leg["rgbd"]["ate_rmse_m"])
     faceoff = []
     for ckpt in checkpoints:
-        row = run_leg("stereo", circuit, device, lg_weights=ckpt)
+        row = run_leg("stereo", stereo, device, lg_weights=ckpt)
         row["leg"] = f"stereo_lg_{os.path.splitext(ckpt)[0]}"
         side = os.path.join(REPO, "weights", ckpt + ".json")
         if os.path.exists(side):  # the checkpoint's training record
@@ -306,7 +388,8 @@ def run_suite(legs, frames: int = FRAMES, device: str = "cuda", checkpoints=(),
         "device": card_info(device),
         "host_core": host_core_build(),
         "weights": "superpoint_render + lightglue_synth (weights/; stereo_passthrough = "
-        "analytic-matcher ablation)",
+        "analytic-matcher ablation); eigenplaces_resnet18_512 for the loop legs "
+        "(stereo_loop_randomplace = random-init recognizer)",
         "legs": rows,
     }
     if faceoff:

@@ -11,11 +11,12 @@ Every TPU kernel on its path is a hand-written Hopper kernel under
 Layering (bottom-up):
   geometry/  SE(3) + stereo camera (host numpy)
   ops/       the fused per-frame step, precision control, CUDA kernels
-  models/    SuperPoint / LightGlue as functions on tensors
-  frontend/  extractor + matcher backends, the fused stereo pipeline
+  models/    SuperPoint / LightGlue / EigenPlaces as functions on tensors
+  frontend/  extractor, matcher and recognizer backends, the fused stereo
+             and RGB-D pipelines and their pipelined trackers
   core/      device-free estimation core (tracker, smoother, pose graph)
   io/, eval/ trajectory writers, ATE/RPE metrics, rendered sequences
-  slam.py    the SuperSLAM facade (stereo, synchronous, host-solved)
+  slam.py    the SuperSLAM facade (stereo and RGB-D, loop closure)
 """
 
 __version__ = "0.1.0"

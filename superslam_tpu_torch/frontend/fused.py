@@ -67,6 +67,48 @@ def decode_packed(
     return frame, matches
 
 
+class UploadRing:
+    """Frame uploads through a ring of pinned host slots, each with the
+    event of its last copy. On the card a frame is prepared straight into
+    the next slot and copied without blocking the host; a slot is rewritten
+    only after its last copy has run (at once in steady state, the ring
+    being deeper than the frames in flight). Every upload is a fresh device
+    tensor, so a caller may hold it (the loop-closure worker reads a
+    keyframe's upload long after the step that consumed it)."""
+
+    def __init__(self, shape: tuple, device: torch.device, slots: int = 2):
+        self.shape, self.device, self.slots = tuple(shape), device, slots
+        self._slots: list[tuple[torch.Tensor, torch.cuda.Event]] = []
+        self._next = 0
+
+    def upload(self, prepare) -> torch.Tensor:
+        """``prepare(out=None)`` writes the uint8 frame into ``out`` (a host
+        array of ``shape``) or returns a new one."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(prepare())
+        while len(self._slots) < self.slots:
+            host = torch.empty(self.shape, dtype=torch.uint8, pin_memory=True)
+            self._slots.append((host, torch.cuda.Event()))
+        host, copied = self._slots[self._next]
+        self._next = (self._next + 1) % len(self._slots)
+        copied.synchronize()
+        prepare(out=host.numpy())
+        dev = host.to(self.device, non_blocking=True)
+        copied.record()
+        return dev
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on the card through pinned memory and a
+    copy that does not block the host (PyTorch's pinned allocator keeps the
+    block until the copy has run)."""
+    arr = np.asarray(arr)
+    t = torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class FusedStereoPipeline:
     def __init__(
         self,
@@ -107,11 +149,17 @@ class FusedStereoPipeline:
         # against them without a host round trip.
         self._kf_xw = torch.zeros((self.K, 3), dtype=torch.float32, device=self.device)
         self._kf_depth_ok = torch.zeros((self.K,), dtype=torch.bool, device=self.device)
-        # The frame upload ring: pinned host slots, each with the event of
-        # its last copy (a pipelined tracker asks for depth x batch + 1).
-        self.upload_slots = 2
-        self._slots: list[tuple[torch.Tensor, torch.cuda.Event]] = []
-        self._next_slot = 0
+        # The frame upload ring (a pipelined tracker asks for depth x batch
+        # + 1 slots).
+        self._ring = UploadRing((2, self.pad_h, self.pad_w), self.device)
+
+    @property
+    def upload_slots(self) -> int:
+        return self._ring.slots
+
+    @upload_slots.setter
+    def upload_slots(self, n: int) -> None:
+        self._ring.slots = n
 
     def _prepare_np(
         self, left: np.ndarray, right: np.ndarray, out: np.ndarray | None = None
@@ -137,33 +185,11 @@ class FusedStereoPipeline:
         return batch
 
     def upload(self, left: np.ndarray, right: np.ndarray) -> torch.Tensor:
-        """The padded uint8 (2, padH, padW) pair on the device. On the card it
-        is prepared straight into the next pinned slot of the ring and copied
-        without blocking the host; a slot is rewritten only after its last
-        copy has run (at once in steady state, the ring being deeper than
-        the frames in flight)."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(self._prepare_np(left, right))
-        while len(self._slots) < self.upload_slots:
-            host = torch.empty((2, self.pad_h, self.pad_w), dtype=torch.uint8, pin_memory=True)
-            self._slots.append((host, torch.cuda.Event()))
-        host, copied = self._slots[self._next_slot]
-        self._next_slot = (self._next_slot + 1) % len(self._slots)
-        copied.synchronize()
-        self._prepare_np(left, right, out=host.numpy())
-        dev = host.to(self.device, non_blocking=True)
-        copied.record()
-        return dev
+        """The padded uint8 (2, padH, padW) pair on the device (UploadRing)."""
+        return self._ring.upload(lambda out=None: self._prepare_np(left, right, out=out))
 
     def to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the pipeline's device; on the card through pinned
-        memory and a copy that does not block the host (PyTorch's pinned
-        allocator keeps the block until the copy has run)."""
-        arr = np.asarray(arr)
-        t = torch.from_numpy(arr if arr.flags.c_contiguous else arr.copy())
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return to_device(arr, self.device)
 
     def process(
         self, left: np.ndarray, right: np.ndarray, timestamp: float

@@ -6,6 +6,8 @@ its host re-match and rescue paths.
   already live on the card; the matcher consumes them directly.
 - Host path: numpy descriptor rows are padded to the static K and
   uploaded.
+- Keyframe records keep device descriptors on the device
+  (``retain_for_matching``): the loop verifier matches them there.
 - Keypoints are normalized wrapper-side as (kpt - size/2)/(max(w,h)/2);
   the output is matches0 [K] (-1 = unmatched) + mscores0, turned into
   (query, train) index pairs.
@@ -99,8 +101,24 @@ class LightGlueMatcher:
     def descriptors_to_host(self, d: Any) -> np.ndarray:
         return host_descriptors(d)
 
-    def retain_for_matching(self, feats: Any) -> np.ndarray:
-        """Keyframe-record form of a frame's descriptors: float32 host rows
-        (one copy per keyframe). The records feed loop closure only, which
-        the port does not run yet, so nothing reads them on the card."""
+    def retain_for_matching(self, feats: Any) -> Any:
+        """Keyframe-record form of a frame's descriptors.
+
+        Device-backed features stay on the device: the loop verifier's
+        ``match`` consumes PaddedFeatures directly, so the record costs no
+        copy to the host per keyframe and no upload per verification. A
+        batched step's slot (LazySlotFeatures) is materialized into its own
+        PaddedFeatures so the record never holds a whole (S, K, D) block.
+        Host inputs fall back to float32 rows (the reference's
+        descriptors_to_host, src/LightGlue.cc:443-460)."""
+        desc = getattr(feats, "desc", None)
+        if isinstance(desc, torch.Tensor):
+            return PaddedFeatures(
+                kpts=feats.kpts,
+                desc=desc,
+                n=feats.n,
+                width=feats.width,
+                height=feats.height,
+                valid=feats.valid,
+            )
         return host_descriptors(feats)

@@ -32,9 +32,11 @@ newest frame, and corrected_trajectory() is exact throughout.
 What differs from the JAX package: the readbacks are non-blocking copies
 into pinned host tensors with an event (``_AsyncHost``); there is no
 fetcher thread pool; and there is no fallback from device keyframes to
-dispatch-frozen tracking when the step fails: the error propagates. Loop
-closure (loop descriptors from the device frame, gray copies) is not
-ported.
+dispatch-frozen tracking when the step fails: the error propagates.
+
+Loop closure: with ``loop_descriptor_fn`` the in-flight record keeps the
+frame's device upload and a keyframe hands the estimator's loop worker a
+lazy descriptor over it (no image crosses to the host).
 """
 
 from __future__ import annotations
@@ -107,6 +109,15 @@ def _track_statics(calib) -> dict:
     }
 
 
+def pose_carry(pipeline, pose: Pose3, rel: Pose3):
+    """Host poses -> the device tracking carry (R, t, rel_R, rel_t) f32, one
+    upload through ``pipeline.to_device`` (the four views lie back to back
+    in it, as the tracking kernel takes them)."""
+    flat = np.concatenate([pose.R.ravel(), pose.t, rel.R.ravel(), rel.t]).astype(np.float32)
+    dev = pipeline.to_device(flat)
+    return dev[:9].view(3, 3), dev[9:12], dev[12:21].view(3, 3), dev[21:24]
+
+
 def _decode_device_pose(row: np.ndarray) -> Pose3:
     """One track row -> Twc (see ops.frontend_step.track_scan)."""
     return Pose3(
@@ -125,6 +136,7 @@ class _InFlight:
     valid: Any
     kf_ref_id: int | None
     pose: _AsyncHost | None = None  # device-tracking track rows
+    left_dev: Any = None  # the device-resident (2, H, W) uint8 upload
     kf_epoch: int = -1  # device-kf mode: kf-state epoch at dispatch
 
 
@@ -136,12 +148,18 @@ class PipelinedStereoTracker:
         depth: int = 3,
         batch: int = 1,
         device_tracking: bool = False,
+        loop_descriptor_fn=None,
     ):
         self.pipeline = pipeline
         self.estimator = estimator
         self.depth = max(1, int(depth))
         self.batch = max(1, int(batch))
         pipeline.upload_slots = max(pipeline.upload_slots, self.depth * self.batch + 1)
+        # The loop worker's descriptor source: a callable over the device
+        # upload (recognizer.compute_global_descriptor_from_device). When
+        # set, keyframes hand the worker a lazy closure over the frame's
+        # upload; each upload is a fresh tensor, held until then.
+        self.loop_descriptor_fn = loop_descriptor_fn
         # On-device pose solve (SUPERSLAM_DEVICE_TRACKER): the step also runs
         # the pose-only LM per frame and the host estimator adopts the solved
         # pose instead of calling FrameTracker. The LM carry (previous pose +
@@ -192,12 +210,7 @@ class PipelinedStereoTracker:
         self._have_kf = False
 
     def _pose_carry(self):
-        """Host poses -> the device tracking carry (R, t, rel_R, rel_t) f32,
-        one upload."""
-        p, r = self._last_pose, self._last_rel
-        flat = np.concatenate([p.R.ravel(), p.t, r.R.ravel(), r.t]).astype(np.float32)
-        dev = self.pipeline.to_device(flat)
-        return dev[:9].view(3, 3), dev[9:12], dev[12:21].view(3, 3), dev[21:24]
+        return pose_carry(self.pipeline, self._last_pose, self._last_rel)
 
     def _seed_kf_state(self) -> None:
         """(Re)build the device keyframe carry from the host's newest
@@ -348,13 +361,14 @@ class PipelinedStereoTracker:
         fut = _AsyncHost(packed, self._host_blocks, n_real)
         pose_fut = None if track_out is None else _AsyncHost(track_out, self._host_blocks, n_real)
         kf_ref = self.estimator._last_keyframe_id if self._have_kf else None
-        for s, (_dev, ts) in enumerate(staged[:n_real]):
+        for s, (dev, ts) in enumerate(staged[:n_real]):
             # The batched outputs go in whole; LazySlotFeatures slices a
             # frame's rows only if something (keyframe adoption, host
             # re-match) actually reads them.
             self._pending.append(
                 _InFlight(
                     ts, fut, s, desc, kpts, valid, kf_ref, pose=pose_fut,
+                    left_dev=dev if self.loop_descriptor_fn is not None else None,
                     kf_epoch=self._kf_epoch if used_kf_program else -1,
                 )
             )
@@ -406,6 +420,10 @@ class PipelinedStereoTracker:
             # gate on the next epoch-valid frame. (The first keyframe is
             # unaffected: _init_first_keyframe runs before any gate.)
             device_promote = False
+        provider = None
+        if self.loop_descriptor_fn is not None and item.left_dev is not None:
+            fn, dev = self.loop_descriptor_fn, item.left_dev
+            provider = lambda: fn(dev[0])  # noqa: E731 (evaluated on the worker)
         prev = self._last_pose
         pose = self.estimator.track(
             frame,
@@ -413,6 +431,7 @@ class PipelinedStereoTracker:
             kf_matches=kf_matches if kf_ref is not None else None,
             kf_ref_id=kf_ref,
             device_pose=device_pose,
+            descriptor_provider=provider,
             device_accept=device_accept,
             device_promote=device_promote,
         )

@@ -4,9 +4,10 @@ The committed ``weights/*.safetensors`` are torch state dicts: OIHW conv
 kernels and (out, in) linear weights, stored in fp16 (written by
 ``superslam_tpu/models/weights.py::save_params_torch_layout``). The port
 keeps that layout, so loading is a dtype cast and a device move. The JAX
-package holds the same parameters as HWIO convs and (in, out) linears;
-``from_jax_params`` carries its dicts over (the inverse of its
-``convert_torch_layout``) and ``to_jax_params`` carries the port's back;
+package holds the same parameters (SuperPoint, LightGlue, EigenPlaces) as
+HWIO convs and (in, out) linears; ``from_jax_params`` carries its dicts
+over (the inverse of its ``convert_torch_layout``; EigenPlaces' 0-d GeM
+exponent passes as it is) and ``to_jax_params`` carries the port's back;
 ``save_params`` writes the committed format, so a checkpoint trained by
 either package loads in the other.
 

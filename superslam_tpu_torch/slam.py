@@ -1,21 +1,29 @@
-"""The SuperSLAM facade of the port: stereo, pipelined, device-tracked on
-the card.
+"""The SuperSLAM facade of the port: stereo and RGB-D, pipelined,
+device-tracked on the card, with optional loop closure.
 
 Port of ``superslam_tpu/slam.py``: YAML config -> env bridging ->
 calibration -> the fused SuperPoint + LightGlue step on the device
-(``frontend/fused.py``), the host ``VoEstimator`` (FrameTracker,
-WindowSmoother, keyframe gate) and trajectory/map export. The defaults
-are the JAX package's with its TPU replaced by the card:
-``SUPERSLAM_PIPELINE`` depth 3 (``frontend/pipelined.py``; 0 or 1 is the
-synchronous loop), ``SUPERSLAM_PIPELINE_BATCH`` 1, and device tracking with
-zero-lag device keyframes on a CUDA device, host-solved on the CPU
-(``utils/env.py::device_tracker_wanted``, ``SUPERSLAM_DEVICE_KF``).
+(``frontend/fused.py`` for stereo, ``frontend/fused_rgbd.py`` for RGB-D,
+selected by the presence of ``DepthMapFactor``), the host ``VoEstimator``
+(FrameTracker, WindowSmoother, keyframe gate) and trajectory/map export.
+The defaults are the JAX package's with its TPU replaced by the card:
+``SUPERSLAM_PIPELINE`` depth 3 (``frontend/pipelined.py``,
+``frontend/pipelined_rgbd.py``; 0 or 1 is the synchronous loop),
+``SUPERSLAM_PIPELINE_BATCH`` 1, and device tracking on a CUDA device,
+host-solved on the CPU (``utils/env.py::device_tracker_wanted``): stereo
+with zero-lag device keyframes (``SUPERSLAM_DEVICE_KF``), RGB-D with the
+dispatch-frozen mono chain.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than run
-differently (ROADMAP queue 1):
-- RGB-D configs (``DepthMapFactor``);
-- loop closure (``SUPERSLAM_ENABLE_LOOP`` with a ``loop:`` block).
-The viewer is absent.
+Loop closure (``SUPERSLAM_ENABLE_LOOP`` with a ``loop:`` block): EigenPlaces
+(``frontend/recognizer.py``) and a dedicated LightGlue matcher for the
+loop worker's geometric verification, behind the estimator's async
+worker; the pipelined trackers hand the worker each keyframe's device
+upload for its descriptor. Unlike the JAX facade, a failing loop init
+raises instead of carrying on VO-only (a missing weights file still falls
+back to a random init inside ``load_params``).
+
+Not ported: the viewer, and ``SUPERSLAM_XLA_SMOOTHER`` (the on-device window
+solver; ``core/window_smoother.py`` refuses it).
 
 The facade runs on CUDA unless ``device="cpu"`` is given; without a GPU
 and without that argument it raises.
@@ -28,13 +36,18 @@ import os
 import numpy as np
 import torch
 
-from .config import Config, apply_tuning_overrides, read_calib
+from .config import Config, apply_tuning_overrides, read_calib, read_dist_coeffs
+from .core.loop_closer import LoopCloser, LoopParams
 from .core.vo_estimator import VoEstimator
 from .frontend.fused import FusedStereoPipeline
+from .frontend.fused_rgbd import FusedRgbdPipeline
 from .frontend.matcher import LightGlueMatcher
 from .frontend.pipelined import PipelinedStereoTracker
+from .frontend.pipelined_rgbd import PipelinedRgbdTracker
+from .frontend.recognizer import EigenPlacesRecognizer
 from .geometry.se3 import Pose3
 from .io.trajectory import save_map_ply, save_trajectory_kitti, save_trajectory_tum
+from .models.eigenplaces import init_eigenplaces_params
 from .models.lightglue import init_lightglue_params
 from .models.superpoint import init_superpoint_params
 from .models.weights import load_params
@@ -47,16 +60,6 @@ class SuperSLAM:
         self.device = resolve_device(device)
         cfg = Config.load(config_path)
         self.cfg = cfg
-        if cfg.has("DepthMapFactor"):
-            raise NotImplementedError(
-                "RGB-D (DepthMapFactor) is not ported to superslam_tpu_torch yet "
-                "(ROADMAP queue 1, RGB-D)"
-            )
-        if os.environ.get("SUPERSLAM_ENABLE_LOOP") and cfg.get("loop") is not None:
-            raise NotImplementedError(
-                "loop closure is not ported to superslam_tpu_torch yet "
-                "(ROADMAP queue 1, loop closure)"
-            )
         apply_tuning_overrides(cfg)
         self.calib = read_calib(cfg)
 
@@ -85,34 +88,81 @@ class SuperSLAM:
         else:
             lg_params = load_params(lg_file, lambda: init_lightglue_params(), self.device)
 
+        def matcher() -> LightGlueMatcher:
+            return LightGlueMatcher(
+                lg_params,
+                image_width=lg_w,
+                image_height=lg_h,
+                max_keypoints=sp_max_kp,
+                threshold=lg_thresh,
+                device=self.device,
+            )
+
         # One matcher shared by the estimator's re-match paths.
-        self.matcher = LightGlueMatcher(
-            lg_params,
-            image_width=lg_w,
-            image_height=lg_h,
-            max_keypoints=sp_max_kp,
-            threshold=lg_thresh,
-            device=self.device,
-        )
-        # Hot path: the fused one-step/one-readback pipeline.
-        self.pipeline = FusedStereoPipeline(
-            sp_params,
-            lg_params,
-            self.calib,
-            width=lg_w,
-            height=lg_h,
-            max_keypoints=sp_max_kp,
-            keypoint_threshold=sp_thresh,
-            remove_borders=sp_borders,
-            match_threshold=lg_thresh,
-            device=self.device,
-        )
+        self.matcher = matcher()
+        # Stereo vs RGB-D keyed on DepthMapFactor (SuperSLAM.cc:89-108). Hot
+        # path: the fused one-step/one-readback pipeline of either mode.
+        self._rgbd = cfg.has("DepthMapFactor")
+        self.pipeline = self.rgbd_pipeline = None
+        if self._rgbd:
+            self.rgbd_pipeline = FusedRgbdPipeline(
+                sp_params,
+                lg_params,
+                self.calib,
+                width=lg_w,
+                height=lg_h,
+                depth_factor=float(cfg.get("DepthMapFactor")),
+                max_depth=float(cfg.get("ThDepth", 40.0)) * self.calib.baseline,
+                dist_coeffs=read_dist_coeffs(cfg),
+                max_keypoints=sp_max_kp,
+                keypoint_threshold=sp_thresh,
+                remove_borders=sp_borders,
+                match_threshold=lg_thresh,
+                device=self.device,
+            )
+        else:
+            self.pipeline = FusedStereoPipeline(
+                sp_params,
+                lg_params,
+                self.calib,
+                width=lg_w,
+                height=lg_h,
+                max_keypoints=sp_max_kp,
+                keypoint_threshold=sp_thresh,
+                remove_borders=sp_borders,
+                match_threshold=lg_thresh,
+                device=self.device,
+            )
         window_size = int(cfg.get("Backend.window_size", 0) or 0)
         self.estimator = VoEstimator(self.matcher, self.calib, window_size)
         self.estimator.set_keyframe_params(
             float(cfg.get("KeyFrame.covis_ratio", 0.7)),
             int(cfg.get("KeyFrame.max_frames", 20)),
         )
+
+        # Optional pose-graph loop closure (SuperSLAM.cc:119-143). No catch:
+        # a failed init raises rather than running VO-only unnoticed.
+        self.loop_enabled = False
+        self._recognizer = None
+        if os.environ.get("SUPERSLAM_ENABLE_LOOP") and cfg.get("loop") is not None:
+            ep_params = load_params(
+                weights("loop", "eigenplaces_resnet18_512.safetensors"),
+                lambda: init_eigenplaces_params(),
+                self.device,
+            )
+            self._recognizer = EigenPlacesRecognizer(
+                ep_params, image_size=int(cfg.get("loop.image_width", 512)), device=self.device
+            )
+            params = LoopParams()
+            if cfg.get("loop.min_inliers") is not None:
+                params.min_inliers = int(cfg.get("loop.min_inliers"))
+            if cfg.get("loop.min_score") is not None:
+                params.min_score = float(cfg.get("loop.min_score"))
+            # A dedicated matcher instance for the loop worker's thread.
+            lc = LoopCloser(matcher(), self.calib, self._recognizer, params)
+            self.estimator.enable_loop_closure(lc, async_=True)
+            self.loop_enabled = True
+
         self._timestamps: list[float] = []
         self._live_poses: list[Pose3] = []
 
@@ -125,13 +175,25 @@ class SuperSLAM:
         self._tracker = None
         depth = int(os.environ.get("SUPERSLAM_PIPELINE", "3"))
         batch = int(os.environ.get("SUPERSLAM_PIPELINE_BATCH", "1"))
+        # Loop descriptors straight from the device-resident frame: the
+        # pipelined trackers hand the worker a closure over the step's own
+        # uint8 upload instead of a host gray copy.
+        loop_fn = None
+        if self._recognizer is not None:
+            rec = self._recognizer
+
+            def loop_fn(gray_dev, _rec=rec, _h=lg_h, _w=lg_w):
+                return _rec.compute_global_descriptor_from_device(gray_dev, _h, _w)
+
         if depth > 1:
-            self._tracker = PipelinedStereoTracker(
-                self.pipeline,
+            tracker = PipelinedRgbdTracker if self._rgbd else PipelinedStereoTracker
+            self._tracker = tracker(
+                self.rgbd_pipeline if self._rgbd else self.pipeline,
                 self.estimator,
                 depth=depth,
                 batch=max(1, batch),
                 device_tracking=device_tracker_wanted(self.device),
+                loop_descriptor_fn=loop_fn,
             )
 
     # -- tracking -------------------------------------------------------------
@@ -142,24 +204,32 @@ class SuperSLAM:
         pipelined tracker, the constant-velocity prediction for this frame;
         the estimate lands within depth x batch frames)."""
         if self._tracker is not None:
-            pose = self._tracker.track(left, right, timestamp)
-            self._timestamps.append(timestamp)
-            self._live_poses.append(pose)
-            return pose.inverse().matrix()
+            return self._record(self._tracker.track(left, right, timestamp), timestamp)
         frame, kf_matches = self.pipeline.process(left, right, timestamp)
-        pose = self.estimator.track(frame, None, kf_matches=kf_matches)
+        gray = left if self.loop_enabled else None
+        pose = self.estimator.track(frame, gray, kf_matches=kf_matches)
         # If this frame became the keyframe, its device features become the
         # pipeline's track-match reference.
         if self.estimator._last_keyframe is frame:
             self.pipeline.set_keyframe(frame.descriptors_left)
+        return self._record(pose, timestamp)
+
+    def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
+        """Track one gray + depth frame; returns the 4x4 Tcw matrix, as
+        track_stereo."""
+        if self._tracker is not None:
+            return self._record(self._tracker.track(gray, depth, timestamp), timestamp)
+        frame, kf_matches = self.rgbd_pipeline.process(gray, depth, timestamp)
+        img = gray if self.loop_enabled else None
+        pose = self.estimator.track(frame, img, kf_matches=kf_matches)
+        if self.estimator._last_keyframe is frame:
+            self.rgbd_pipeline.set_keyframe(frame.descriptors_left)
+        return self._record(pose, timestamp)
+
+    def _record(self, pose: Pose3, timestamp: float) -> np.ndarray:
         self._timestamps.append(timestamp)
         self._live_poses.append(pose)
         return pose.inverse().matrix()
-
-    def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float):
-        raise NotImplementedError(
-            "RGB-D is not ported to superslam_tpu_torch yet (ROADMAP queue 1, RGB-D)"
-        )
 
     # -- outputs --------------------------------------------------------------
     def loop_closure_count(self) -> int:

@@ -12,6 +12,10 @@
   (stereo_devkf_nohybrid, stereo_devkf_passthrough, stereo_covis03) are
   printed, not gated, with the reference's envs; a 3-frame
   stereo_devkf_nohybrid leg runs the device-keyframe scan on the CPU.
+- The RGB-D legs' render is the JAX package's write_tum_sequence's
+  (render_view with depth on the same poses and render seed, gray
+  round(x * 255), depth uint16 clip(Z * 5000), times i / 30); 3-frame
+  rgbd and stereo_loop legs run on the CPU.
 - The 150-frame gated legs on the CPU are marked slow (they take many
   minutes here; on the card chip_smoke.py runs them every time).
 """
@@ -84,14 +88,25 @@ def test_short_leg_writes_the_artifact(tmp_path, monkeypatch):
 
 
 def test_legs_carry_the_reference_legs():
+    """Every leg that has a reference carries ACCURACY.json's ATE of the
+    leg of the same name; the two the reference has no leg for
+    (stereo_loop_devkf, rgbd_devtrack: the card's defaults) carry none and
+    are printed."""
     import os
 
     with open(os.path.join(acc.REPO, "ACCURACY.json")) as f:
         ref = {row["leg"]: row["ate_rmse_m"] for row in json.load(f)["legs"]}
     for leg, (_env, _lg, ate, _gated) in acc.LEGS.items():
-        assert ate == ref[leg], leg
+        assert ate == ref.get(leg), leg
+    assert {leg for leg, spec in acc.LEGS.items() if spec[2] is None} == {
+        "stereo_loop_devkf", "rgbd_devtrack"}
     gated = {leg for leg, spec in acc.LEGS.items() if spec[3]}
-    assert gated == {"stereo", "stereo_sync", "stereo_devkf"}
+    assert gated == {"stereo", "stereo_sync", "stereo_devkf", "stereo_loop", "rgbd"}
+    assert acc.LEGS["stereo_loop"][0] == {
+        "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_ENABLE_LOOP": "1"}
+    assert acc.LEGS["rgbd"][0] == {"SUPERSLAM_DEVICE_TRACKER": "0"}
+    assert acc.LEGS["rgbd_devtrack"][0] == {}
+    assert acc.LEGS["stereo_loop_devkf"][0] == {"SUPERSLAM_ENABLE_LOOP": "1"}
     assert acc.LEGS["stereo_devkf_nohybrid"][0] == {
         "SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_DEVICE_KF_HYBRID": "0"}
     assert acc.LEGS["stereo_devkf_passthrough"][:2] == (
@@ -106,6 +121,41 @@ def test_short_device_keyframe_leg_on_the_cpu():
     row = acc.run_leg("stereo_devkf_nohybrid", acc.render_circuit(3), "cpu")
     assert row["mode"] == {"depth": 3, "batch": 1, "device_tracking": True, "device_kf": True}
     assert row["limit_m"] is None and row["passed"] and np.isfinite(row["ate_rmse_m"])
+
+
+def test_rgbd_render_matches_the_jax_package():
+    from superslam_tpu.eval.synthetic_sequence import (
+        circuit_trajectory,
+        make_room_world,
+        render_view,
+    )
+    from superslam_tpu.geometry import StereoCalib
+
+    pairs, times, gt = acc.render_rgbd_circuit(3)
+    world = make_room_world(np.random.default_rng(0), n_sprites=300)
+    calib = StereoCalib(fx=320.0, fy=320.0, cx=320.0, cy=176.0, baseline=0.3)
+    poses = circuit_trajectory(150)
+    rng = np.random.default_rng(1)
+    for i, (gray, depth) in enumerate(pairs):
+        img, z = render_view(world, poses[i], calib, 352, 640, rng, return_depth=True)
+        np.testing.assert_array_equal(gray, np.round(img * 255).astype(np.uint8))
+        np.testing.assert_array_equal(depth, np.clip(z * 5000.0, 0, 65535).astype(np.uint16))
+        np.testing.assert_array_equal(gt[i].t, poses[i].t)
+    assert depth.dtype == np.uint16 and (depth > 0).mean() > 0.2  # the sprites have depth
+    assert times == [0.0, float(f"{1 / 30:.6f}"), float(f"{2 / 30:.6f}")]
+
+
+@pytest.mark.parametrize("leg", ["rgbd", "stereo_loop"])
+def test_short_rgbd_and_loop_legs_on_the_cpu(leg):
+    """3 frames of the RGB-D leg (the facade's track_rgbd, host-solved) and
+    of the loop leg (EigenPlaces and the async worker on; no revisit in 3
+    frames, so no closure, and the gate's closure count is not applied to
+    a partial lap)."""
+    row = acc.run_leg(leg, (acc.render_rgbd_circuit if leg == "rgbd" else acc.render_circuit)(3),
+                      "cpu")
+    assert row["mode"] == {"depth": 3, "batch": 1, "device_tracking": False, "device_kf": False}
+    assert row["loop_enabled"] == (leg == "stereo_loop") and row["loop_closures"] == 0
+    assert row["frames"] == 3 and row["host_solves"] >= 2 and np.isfinite(row["ate_rmse_m"])
 
 
 @pytest.mark.slow

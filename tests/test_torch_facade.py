@@ -262,20 +262,3 @@ def test_device_tracker_wanted(monkeypatch, device, env, want):
             monkeypatch.setenv("SUPERSLAM_DEVICE_TRACKER", env)
         assert device_tracker_wanted(torch.device(device)) is want
         assert device_tracker_wanted(device) is want
-
-
-@pytest.mark.parametrize(
-    "env,extra",
-    [
-        ({}, "DepthMapFactor: 5000.0\n"),
-        ({"SUPERSLAM_ENABLE_LOOP": "1"}, "loop:\n  image_width: 128\n"),
-    ],
-    ids=["rgbd", "loop"],
-)
-def test_facade_refuses_unported_paths(config_path, tmp_path, monkeypatch, env, extra):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    p = tmp_path / "cfg.yaml"
-    p.write_text(open(config_path).read() + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SuperSLAM(str(p), device="cpu")

@@ -822,3 +822,100 @@ def test_track_kf_scan_hybrid_on_the_card_matches_cpu(cuda, s_frames):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
         else:
             assert torch.equal(a, b), i
+
+
+# -- the RGB-D step's shapes: batch 1 at 480x640, K = 1000 (configs/TUM1.yaml) --------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,h,w", [(1, 480, 640), (64, 240, 320)])
+def test_conv_pair_pool_kernel_at_the_rgbd_shape(cuda, cin, h, w):
+    """One image a step: conv1a1b on the 480x640 gray frame, conv_pair on
+    its pooled output's shape."""
+    args = _pair_case(cuda, cin, 1, h, w)
+    got, ref = conv_pair_pool(*args), conv_pair_pool_plain(*args)
+    assert got.shape == ref.shape == (1, 64, h // 2, w // 2)
+    assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_scores_nms_kernel_at_the_rgbd_shape(cuda):
+    """SuperPoint's logits of one 480x640 frame, (1, 65, 60, 80)
+    channels_last."""
+    rng = np.random.default_rng(60)
+    logits = torch.from_numpy((rng.standard_normal((1, 65, 60, 80)) * 4).astype(np.float32))
+    out = _check_scores_nms(logits.to(cuda).contiguous(memory_format=torch.channels_last), 4)
+    assert out.shape == (1, 480, 640)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["self", "cross"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_blocks_at_the_rgbd_shape(cuda, dtype, kind):
+    """One keyframe-frame pair problem (2 rows) of K = 1000, past the 600 of
+    the stereo path, against the plain version."""
+    params, x, cos, sin, mask = _block_case(cuda, dtype, 1000, b=2)
+    prefix = f"transformers.0.{kind}_attn"
+    if kind == "self":
+        w = lgl.prep_self_weights(params, prefix, dtype)
+        got = lgl.fused_self_block(x, cos, sin, mask, w)
+        ref = lgl.fused_self_block_plain(x, cos, sin, mask, w)
+    else:
+        w = lgl.prep_cross_weights(params, prefix, dtype)
+        got = lgl.fused_cross_block(x, mask, w)
+        ref = lgl.fused_cross_block_plain(x, mask, w)
+    _block_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dist", [None, (0.262383, -0.953104, -0.005358, 0.002628, 1.163314)],
+                         ids=["pinhole", "tum1_dist"])
+def test_rgbd_mono_scan_at_k1000_on_the_card_matches_cpu(cuda, dist):
+    """The RGB-D step's tracking half at K = 1000: exact projections of 1000
+    landmarks (700 of them with keyframe depth, 50 unmatched), TUM1's
+    intrinsics, undistorted on the device when distorted (the keypoints
+    are then TUM1-distorted projections), track_scan with mono set over two
+    frames; the card gives the CPU result within 1e-4, the same counts and
+    a pose within 1e-3 of the truth."""
+    from superslam_tpu_torch.ops.frontend_step import track_scan
+    from superslam_tpu_torch.ops.rgbd_step import undistort_points
+
+    rng = np.random.default_rng(10)
+    k, fx, fy, cx, cy = 1000, 517.306408, 516.469215, 318.64304, 255.313989
+    calib = (fx, fy, cx, cy, 0.3)
+    z = rng.uniform(3, 8, k)  # in view: uniform over the 640x480 image at the origin
+    xw = np.stack([(rng.uniform(20, 620, k) - cx) * z / fx, (rng.uniform(20, 460, k) - cy) * z / fy,
+                   z], 1)
+    truth = [np.array([0.02, 0.0, 0.03]), np.array([0.04, 0.01, 0.06])]
+    kl = []
+    for t in truth:
+        p = xw - t
+        x, y = p[:, 0] / p[:, 2], p[:, 1] / p[:, 2]
+        if dist is not None:
+            k1, k2, p1, p2, k3 = dist
+            r2 = x * x + y * y
+            radial = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+            x, y = (x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x),
+                    y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)
+        kl.append(np.stack([fx * x + cx, fy * y + cy], 1))
+    kl = np.stack(kl).astype(np.float32)
+    tm = np.tile(np.arange(k, dtype=np.int32), (2, 1))
+    tm[:, 950:] = -1
+    dok = np.arange(k) < 700
+    carry = [np.eye(3, dtype=np.float32), np.zeros(3, np.float32)] * 2
+    outs = []
+    for dev in ("cpu", cuda):
+        klt = torch.from_numpy(kl).to(dev)
+        if dist is not None:
+            klt = undistort_points(klt, calib, dist)
+        out, _ = track_scan(
+            klt, torch.zeros_like(klt[..., 0]), torch.ones((2, k), dtype=torch.bool, device=dev),
+            torch.from_numpy(tm).to(dev), torch.from_numpy(xw.astype(np.float32)).to(dev),
+            torch.from_numpy(dok).to(dev), tuple(torch.from_numpy(c).to(dev) for c in carry),
+            calib=calib, min_matches=10, track_sigma_px=10.0, disp_sigma0=1.0, disp_cond=1.0,
+            mono=True)
+        outs.append(out.cpu().numpy())
+    ref, got = outs
+    assert got.shape == (2, 13) and (got[:, 12] == ref[:, 12]).all() and (got[:, 12] >= 600).all()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[1, 9:12], truth[1], atol=1e-3)

@@ -13,7 +13,9 @@ The kernel runs only on the card. Here:
   cases: the prior gate and its fallback, a frame below min_matches that
   coasts in the tracking chain, a chi2 round that ends the re-solves, the
   LM's early exit, and the rejection of non-finite steps, each held to the
-  JAX package's _frame_solve (1e-4 on poses, exact on counts).
+  JAX package's _frame_solve (1e-4 on poses, exact on counts);
+- the premise of chip_smoke.py's mono check: in f64 the twin's answer does
+  not depend on the order of the correspondences.
 """
 
 import numpy as np
@@ -281,3 +283,31 @@ def test_non_finite_steps_are_rejected(monkeypatch):
     assert runs == [_iterations_to_lambda_stop()], runs
     np.testing.assert_array_equal(R, np.eye(3, dtype=np.float32))
     np.testing.assert_array_equal(t, np.array([0.03, 0.0, 0.05], np.float32))
+
+
+def test_twin_in_f64_does_not_depend_on_the_order_of_correspondences():
+    """chip_smoke.py's mono check measures each frame's allowance by running
+    the f32 twin over permutations of the keyframe features: a permutation
+    changes only the order of the sums. Run in f64 on a mono frame at K 1000
+    the twin gives the same pose (within 1e-9) and kept count under every
+    permutation, so what the f32 runs spread is rounding alone."""
+    rng = np.random.default_rng(5)
+    frame = _frame(rng, k=1000, usable=900, noise_px=0.5)
+    kw = {**KW, "mono": True}
+    args = [torch.from_numpy(a).double() for a in _poses()] + [
+        torch.from_numpy(frame[n]) for n in ("kl", "disp", "stereo_ok", "tm", "kf_xw", "kf_dok")]
+    args[4], args[5], args[8] = args[4].double(), args[5].double(), args[8].double()
+    outs = []
+    for seed in range(4):
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(1000)) if seed else (
+            torch.arange(1000))
+        a = [*args[:7], args[7][perm], args[8][perm], args[9][perm]]
+        R, t, n, _ok, kept, _uv = ps.pose_solve_plain(*a, **kw)
+        outs.append((R.numpy(), t.numpy(), int(n), int(kept)))
+    R0, t0, n0, kept0 = outs[0]
+    assert n0 == 900 and kept0 >= 10
+    np.testing.assert_allclose(t0, [0.1, 0.0, 0.2], atol=2e-2)
+    for R, t, n, kept in outs[1:]:
+        assert (n, kept) == (n0, kept0)
+        np.testing.assert_allclose(R, R0, atol=1e-9, rtol=0)
+        np.testing.assert_allclose(t, t0, atol=1e-9, rtol=0)

@@ -12,9 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from superslam_tpu.models import eigenplaces as jep
 from superslam_tpu.models import lightglue as jlg
 from superslam_tpu.models import superpoint as jsp
 from superslam_tpu.models.weights import load_safetensors as jax_load
+from superslam_tpu_torch.models import eigenplaces as tep
 from superslam_tpu_torch.models import lightglue as tlg
 from superslam_tpu_torch.models import superpoint as tsp
 from superslam_tpu_torch.models.weights import (
@@ -55,8 +57,9 @@ def test_loader_matches_jax_loader(name):
             lambda: jlg.init_lightglue_params(3, passthrough=True),
             lambda: tlg.init_lightglue_params(3, passthrough=True),
         ),
+        (lambda: jep.init_eigenplaces_params(0), lambda: tep.init_eigenplaces_params(0)),
     ],
-    ids=["superpoint", "lightglue", "lightglue_passthrough"],
+    ids=["superpoint", "lightglue", "lightglue_passthrough", "eigenplaces"],
 )
 def test_from_jax_params_equals_port_init(jax_init, port_init):
     carried = from_jax_params({k: np.asarray(v) for k, v in jax_init().items()})
@@ -85,6 +88,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import scripts.kernel_variants_torch\n"
         "import superslam_tpu_torch.frontend.pipelined, superslam_tpu_torch.ops.cuda.pose_solve\n"
         "import scripts.accuracy_suite_torch\n"
+        "import superslam_tpu_torch.ops.rgbd_step, superslam_tpu_torch.ops.retrieval\n"
+        "import superslam_tpu_torch.frontend.fused_rgbd, superslam_tpu_torch.frontend.rgbd_frontend\n"
+        "import superslam_tpu_torch.frontend.pipelined_rgbd, superslam_tpu_torch.frontend.recognizer\n"
+        "import superslam_tpu_torch.models.eigenplaces, superslam_tpu_torch.io.undistort\n"
         "scripts.profile_stages_torch.run_stages(['lg_attn'], 'cpu', 32, 64, 16, 0, 1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superslam_tpu' or m.startswith('superslam_tpu.'))\n"
