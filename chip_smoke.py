@@ -91,7 +91,8 @@ In order, any failure exiting non-zero:
    reference's 0.0675, 0.0667, 0.0662, 0.0348 and 0.0969 m; stereo_nogate,
    stereo_passthrough, stereo_devtrack, stereo_devkf_nohybrid,
    stereo_devkf_passthrough, stereo_covis03, rgbd_devtrack (with its gap to
-   rgbd), stereo_loop_randomplace and stereo_loop_devkf printed), prints each
+   rgbd), stereo_loop_randomplace, stereo_loop_devkf and stereo_xla_smoother
+   (the stereo leg with the device window solver) printed), prints each
    leg's wall time, host pose solves and loop closures and the host-core
    build it loaded, and writes ``ACCURACY_TORCH.json``;
 4e. RGB-D at configs/TUM1.yaml's geometry (640x480, its intrinsics, 1000
@@ -114,7 +115,26 @@ In order, any failure exiting non-zero:
    against host-image descriptor, cosine >= 0.999, one descriptor timed,
    and ``DeviceCosineIndex`` against the host index over 200 descriptors
    (the same ids in the same order); no loop worker runs inside a
-   sync-checked window (4d's have stopped); then tracks 5 more frames of
+   sync-checked window (4d's have stopped);
+4f. multi-sequence batched tracking (``parallel/``): the five frame kernels
+   at the S = 4 step's shapes (conv1a1b and conv_pair at batch 8,
+   scores_nms at (8, 65, 48, 156), the fused blocks at (16, 600, 256), bf16
+   and f32) against their plain versions with the limits of 3, timed;
+   ``MultiSequenceTracker`` at S = 4 on the bench circuit (sequence s is
+   frames 36 s .. 36 s + 29 of the lap), S = 4, 1, 1, 4 (ABBA, sequence-
+   frames a second over steps 1..29): exactly 1/1/1/9/9 launches a step for
+   all four sequences (nothing else), each sequence's ATE <= 0.5 m and its
+   largest position gap to the sequence run alone through
+   ``FusedStereoPipeline`` and ``VoEstimator`` <= 0.05 m;
+   ``batched_track_scan`` at Q 1, 4 and 16 sequences of 3 frames, K 600
+   (tests/test_parallel.py's scene, the last sequence coasting): exactly 3
+   launches of ``track_frame_batched`` a call, poses within 1e-4 of the
+   plain twin's, counts exact, one launch timed at each Q beside its bound;
+   the default facade with ``SUPERSLAM_XLA_SMOOTHER=1`` over the 30 frames
+   (ATE <= 0.5 m; every window it solved on the card solved again by the
+   host LM, poses within 0.02 m and 0.02 in rotation; ms a solve by CUDA
+   events against the host LM's); ``SuperSLAM(cfg, use_viewer=True)`` over 5
+   frames (depth 0, 5 poses drawn, ``close()`` returns); then tracks 5 more frames of
    4's facade under torch.profiler, prints the device busy time per frame
    and the kernels by device time, and fails if a softmax kernel ran (the
    score half is the NMS kernel's logits mode);
@@ -151,14 +171,16 @@ In order, any failure exiting non-zero:
    and of track_frame (both epilogues, and promoting) on 4b's median frame,
    5 more frames of 4b's
    default facade (device busy ms a frame, the device's idle share, and
-   its device events a frame against depth 0's from 4d), and last 5 more
-   frames of 4e's default RGB-D facade (the same figures);
+   its device events a frame against depth 0's from 4d), 5 more frames of
+   4e's default RGB-D facade (the same figures), and last 5 more steps of
+   4f's S = 4 tracker (device busy ms a step, idle share);
 10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
     those of the phase that drives it: the main path's six from 4b's
     window, the others from 5, 6, 7 or 8, pose_solve's 0 from 4b's; row 4
     twice, bf16 from phase 5
     and f32 from phase 7's fixed-batch steps; ``nms``, the map mode, from
-    phase 6: the main path runs the logits mode), then, as the last line,
+    phase 6: the main path runs the logits mode; ``track_frame_batched``
+    from 4f's Q = 16 call), then, as the last line,
     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -240,7 +262,8 @@ POSE_OPS_ITER, POSE_OPS_REPROJ = 395, 40
 ACCURACY_LEGS = ("stereo", "stereo_sync", "stereo_devkf", "stereo_nogate",
                  "stereo_passthrough", "stereo_devtrack", "stereo_devkf_nohybrid",
                  "stereo_devkf_passthrough", "stereo_covis03", "rgbd", "rgbd_devtrack",
-                 "stereo_loop", "stereo_loop_randomplace", "stereo_loop_devkf")
+                 "stereo_loop", "stereo_loop_randomplace", "stereo_loop_devkf",
+                 "stereo_xla_smoother")
 # The RGB-D phases: configs/TUM1.yaml's intrinsics, distortion, size, keypoint
 # count and depth factor. An RGB-D camera's bf only sets the virtual right
 # coordinate and, with ThDepth 40, the depth cut: TUM1's 40 would cut at 3.1 m
@@ -253,6 +276,22 @@ TUM_BF = 0.3 * TUM_FX
 DEPTH_FACTOR, RGBD_FPS = 5000.0, 30.0  # write_tum_sequence's
 RGBD_FRAMES, RGBD_DIST_FRAMES, RGBD_PROFILE_FRAMES = 30, 10, 5
 LOOP_COSINE = 0.999  # EigenPlaces' device-gray descriptor against the host-image one
+# The multi-sequence phase: S sequences of the bench lap, sequence s from
+# frame MULTI_STRIDE * s, one step for all of them (2S images, 4S pair
+# problems); the launches a step; the largest position gap a sequence may
+# have to its run alone (the same frames through FusedStereoPipeline: the
+# batch changes only the order of some sums).
+MULTI_S, MULTI_STRIDE, MULTI_PROFILE_STEPS = 4, 36, 5
+PER_STEP_MULTI = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "fused_self_block": 9,
+                  "fused_cross_block": 9}
+MULTI_GAP_M = 0.05
+# batched_track_scan: Q sequences of BATCHED_S frames, against its twin
+# within BATCHED_ATOL (exact projections: a well-conditioned solve).
+BATCHED_Q, BATCHED_S, BATCHED_ATOL = (4, 16), 3, 1e-4
+# The device window solver against the host LM on the same windows
+# (tests/test_window_smoother.py:92-121's bound), m and rotation entries.
+WS_POSE_TOL = 0.02
+VIEWER_FRAMES = 5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -322,6 +361,11 @@ KERNEL_INFO = {
         "superslam_tpu_torch/ops/cuda/track_frame.cu",
         "superslam_tpu/ops/frontend_step.py:719-849 (track_kf_scan's step) + :539-580 "
         "(track_scan's) (XLA, lax.scan; no pallas_call)",
+    ),
+    "track_frame_batched": (
+        "superslam_tpu_torch/ops/cuda/track_frame.cu",
+        "superslam_tpu/parallel/batched_tracking.py:80-117 (jax.vmap of "
+        "ops/frontend_step.py::track_scan :539-580; XLA, no pallas_call)",
     ),
 }
 
@@ -984,7 +1028,8 @@ KeyFrame.max_frames: 20
 """
 
 
-def build_slam(width: int = WIDTH, height: int = HEIGHT, max_kp: int = MAX_KP):
+def build_slam(width: int = WIDTH, height: int = HEIGHT, max_kp: int = MAX_KP,
+               use_viewer: bool = False):
     """The port's facade on the bench circuit's config, with the env as it
     stands."""
     from superslam_tpu_torch.slam import SuperSLAM
@@ -999,7 +1044,7 @@ def build_slam(width: int = WIDTH, height: int = HEIGHT, max_kp: int = MAX_KP):
                     max_kp=max_kp, threshold=KP_THRESHOLD,
                 )
             )
-        return SuperSLAM(cfg)
+        return SuperSLAM(cfg, use_viewer=use_viewer)
 
 
 def estimator_ms() -> tuple[float, int]:
@@ -2267,6 +2312,489 @@ def profile_gather(torch, sp_params, left, right, n: int = 10) -> None:
               f"{device_us(e) / 1e3 / n:.4f} ms a call, {e.count / n:.1f} calls an extraction")
 
 
+# -- multi-sequence batched tracking, the device window solver, the viewer -----------
+
+
+def bench_calib():
+    from superslam_tpu_torch.geometry.stereo_camera import StereoCalib
+
+    return StereoCalib(fx=FX, fy=FX, cx=CX, cy=CY, baseline=BF / FX)
+
+
+def multi_sequence_frames(n: int):
+    """MULTI_S sequences of n frames of the bench lap, sequence s from frame
+    MULTI_STRIDE * s. Returns (frames, ground truth), one list a sequence."""
+    out = [render_sequence(n, WIDTH, HEIGHT, start=MULTI_STRIDE * s) for s in range(MULTI_S)]
+    return [f for f, _ in out], [g for _, g in out]
+
+
+def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
+    """The five frame kernels at the multi-sequence step's shapes (2S = 8
+    images, 4S = 16 pair problems) against their plain versions with the
+    limits of the single-frame checks, timed beside the plain version and
+    the library call."""
+    import torch.nn.functional as F
+
+    from superslam_tpu_torch.models.superpoint import (
+        _encoder_and_heads,
+        prepare_superpoint_params,
+    )
+    from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
+    from superslam_tpu_torch.ops.cuda.conv import (
+        conv_pair_pool,
+        conv_pair_pool_plain,
+        pair_operands,
+    )
+    from superslam_tpu_torch.ops.cuda.nms import nms_plain, scores_nms, scores_nms_plain
+
+    dev, bf16, B = torch.device("cuda"), torch.bfloat16, 2 * MULTI_S
+    img = np.zeros((B, PAD_H, PAD_W), np.float32)
+    for s, (left, right) in enumerate(first_frames):
+        img[2 * s, :HEIGHT, :WIDTH] = left / 255.0
+        img[2 * s + 1, :HEIGHT, :WIDTH] = right / 255.0
+    images = torch.from_numpy(img).to(dev)
+
+    def report(name, err, limit, fn, plain, library, bnd):
+        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+        lib = "none" if library is None else f"{time_ms(torch, library):.4f} ms"
+        print(f"multi kernel {name} at the S = {MULTI_S} step: error {err:.3g} (limit {limit}), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+
+    x = images[:, None]
+    for name, cin, h, w in (("conv1a1b", 1, PAD_H, PAD_W),
+                            ("conv_pair", 64, PAD_H // 2, PAD_W // 2)):
+        pre = ("conv1a", "conv1b") if cin == 1 else ("conv2a", "conv2b")
+        wa, ba = sp_params[f"{pre[0]}.weight"], sp_params[f"{pre[0]}.bias"]
+        wb, bb = sp_params[f"{pre[1]}.weight"], sp_params[f"{pre[1]}.bias"]
+        ops = pair_operands(wa, ba, wb, bb)
+        got = conv_pair_pool(x, wa, ba, wb, bb, operands=ops)
+        ref = conv_pair_pool_plain(x, wa, ba, wb, bb)
+        torch.cuda.synchronize()
+        if got.shape != (B, 64, h // 2, w // 2):
+            fail(f"multi {name}: output {tuple(got.shape)}")
+        rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        if not rel <= 2e-2:
+            fail(f"multi {name}: error {rel} of max |plain| > 2e-2")
+        xl = x.to(bf16).contiguous(memory_format=torch.channels_last)
+        wal, bal, wbl, bbl = (t.to(bf16) for t in (wa, ba, wb, bb))
+        px = B * h * w
+        report(
+            name, rel, 2e-2, lambda: conv_pair_pool(x, wa, ba, wb, bb, operands=ops),
+            lambda: conv_pair_pool_plain(x, wa, ba, wb, bb),
+            lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(F.conv2d(xl, wal, bal, padding=1)),
+                                                 wbl, bbl, padding=1)), 2),
+            bound(nbytes(x, wa, ba, wb, bb, got), f32_ops=2 * px * 64 * 9 if cin == 1 else 0,
+                  bf16_ops=2 * px * 64 * 64 * 9 * (1 if cin == 1 else 2)),
+        )
+        x = got
+
+    with torch.no_grad():
+        logits, _ = _encoder_and_heads(prepare_superpoint_params(sp_params, "cuda"), images, bf16)
+    out_k, pre_k = scores_nms(logits, 4, return_pre=True)
+    _, ref_pre = scores_nms_plain(logits, 4, return_pre=True)
+    torch.cuda.synchronize()
+    err = (pre_k - ref_pre).abs().max().item()
+    if out_k.shape != (B, PAD_H, PAD_W) or not err <= 1e-6:
+        fail(f"multi scores_nms: output {tuple(out_k.shape)}, pre-NMS error {err} > 1e-6")
+    if not torch.equal(out_k, nms_plain(pre_k, 4)):
+        fail("multi scores_nms: the NMS'd map differs from nms_plain of its pre-NMS map")
+
+    def library_scores():
+        p = F.pixel_shuffle(torch.softmax(logits, dim=1)[:, :-1], 8)
+        return torch.where(p == F.max_pool2d(p, 9, 1, 4), p, 0.0)
+
+    report("scores_nms", err, 1e-6, lambda: scores_nms(logits, 4, return_pre=True),
+           lambda: scores_nms_plain(logits, 4, return_pre=True), library_scores,
+           bound(nbytes(logits, out_k, pre_k),
+                 f32_ops=4.0 * logits.numel() + 19.0 * out_k.numel()))
+
+    # The blocks at 4S pair-problem sides: S stereo + S track problems, two
+    # sides each, with the checkpoint's layer 0, ragged masks and the
+    # keyframe sides before the first keyframe fully masked.
+    rng = np.random.default_rng(8)
+    rows = 4 * MULTI_S
+    x32 = torch.from_numpy(rng.standard_normal((rows, MAX_KP, 256)).astype(np.float32)).to(dev)
+    kpts = torch.from_numpy(rng.uniform(-1, 1, (rows, MAX_KP, 2)).astype(np.float32)).to(dev)
+    proj = kpts @ lg_params["posenc.Wr.weight"].float().t()
+    cos, sin = torch.cos(proj), torch.sin(proj)
+    mask = torch.from_numpy(rng.uniform(size=(rows, MAX_KP)) < 0.85).to(dev)
+    mask[MULTI_S:2 * MULTI_S] = False
+    swapped = mask.reshape(rows // 2, 2, MAX_KP).flip(1).reshape(rows, MAX_KP)
+    m_rows = rows * MAX_KP
+    tail_ops = 2.0 * m_rows * (256 * 256 + 512 * 512 + 512 * 256)
+    for name in ("fused_self_block", "fused_cross_block"):
+        is_self = name == "fused_self_block"
+        prefix = "transformers.0." + ("self_attn" if is_self else "cross_attn")
+        prep = lgl.prep_self_weights if is_self else lgl.prep_cross_weights
+        rotary = (cos, sin) if is_self else ()
+        calls = {}
+        for dtype in (torch.float32, bf16):
+            xd, w = x32.to(dtype), prep(lg_params, prefix, dtype)
+            calls[dtype] = [
+                (lambda fn=fn, xd=xd, w=w: fn(xd, *rotary, mask, w))
+                for fn in (getattr(lgl, name), getattr(lgl, name + "_plain"))
+            ]
+        got32, ref32 = (c() for c in calls[torch.float32])
+        got, ref = (c() for c in calls[bf16])
+        torch.cuda.synchronize()
+        err32 = (got32 - ref32).abs().max().item()
+        rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        if got.shape != (rows, MAX_KP, 256) or not (err32 <= 1e-3 and rel <= 2e-2):
+            fail(f"multi {name}: f32 error {err32} (limit 1e-3), bf16 {rel} of max |plain| "
+                 "(limit 2e-2)")
+        print(f"multi kernel {name}: f32 max abs error {err32:.3g} (limit 1e-3)")
+        a_bf16, a_f32 = attention_ops(mask if is_self else swapped)
+        proj_ops = 2.0 * m_rows * 256 * (768 if is_self else 512)
+        io = nbytes(x32.to(bf16), *rotary, mask, got, *prep(lg_params, prefix, bf16))
+        report(name, rel, 2e-2, calls[bf16][0], calls[bf16][1], None,
+               bound(io, bf16_ops=proj_ops + tail_ops + a_bf16,
+                     f32_ops=a_f32 + 30.0 * m_rows * 512))
+
+
+def multi_tracker(sp, lg, n_seq: int):
+    """MultiSequenceTracker over n_seq sequences with the bench config's
+    window and keyframe gate (Backend.window_size 10, covis 0.75, 20)."""
+    from superslam_tpu_torch.parallel.multi_tracker import MultiSequenceTracker
+
+    tracker = MultiSequenceTracker(sp, lg, bench_calib(), num_sequences=n_seq, width=WIDTH,
+                                   height=HEIGHT, max_keypoints=MAX_KP,
+                                   keypoint_threshold=KP_THRESHOLD, window_size=10)
+    for est in tracker.estimators:
+        est.set_keyframe_params(0.75, 20)
+    return tracker
+
+
+def step_multi(tracker, seqs, i: int) -> None:
+    n = tracker.S
+    poses = tracker.step([seqs[s][i][0] for s in range(n)], [seqs[s][i][1] for s in range(n)],
+                         [0.1 * i] * n)
+    if len(poses) != n or not all(np.isfinite(p.t).all() and np.isfinite(p.R).all()
+                                  for p in poses):
+        fail(f"multi: step {i}: poses {poses}")
+
+
+def run_multi(torch, sp, lg, seqs, n_seq: int):
+    """One run of N_FRAMES steps; the counts reset before step 0 and read
+    after the last. Returns (tracker, trajectories, sequence-frames/s over
+    steps 1.., counts)."""
+    from superslam_tpu_torch.ops.cuda import _build
+
+    tracker = multi_tracker(sp, lg, n_seq)
+    _build.reset_launch_counts()
+    for i in range(N_FRAMES):
+        step_multi(tracker, seqs, i)
+        if i == 0:
+            t1 = time.perf_counter()  # step 0 carries the first calls' set-up
+    torch.cuda.synchronize()
+    rate = n_seq * (N_FRAMES - 1) / (time.perf_counter() - t1)
+    return tracker, tracker.trajectories(), rate, _build.launch_counts()
+
+
+def run_single_sequence(torch, sp, lg, frames):
+    """One sequence alone through FusedStereoPipeline and VoEstimator, as
+    tests/test_parallel.py's reference run: the same config as the tracker."""
+    from superslam_tpu_torch.core.vo_estimator import VoEstimator
+    from superslam_tpu_torch.frontend.fused import FusedStereoPipeline
+
+    calib = bench_calib()
+    pipe = FusedStereoPipeline(sp, lg, calib, width=WIDTH, height=HEIGHT, max_keypoints=MAX_KP,
+                               keypoint_threshold=KP_THRESHOLD)
+    est = VoEstimator(None, calib, 10, device="cuda")
+    est.set_keyframe_params(0.75, 20)
+    for i, (left, right) in enumerate(frames):
+        frame, m = pipe.process(left, right, 0.1 * i)
+        est.track(frame, kf_matches=m)
+        if est._last_keyframe is frame:
+            pipe.set_keyframe(frame.descriptors_left)
+    return est.corrected_trajectory()
+
+
+def run_multi_phase(torch, sp, lg, seqs, gt):
+    """The multi-sequence phase: S = MULTI_S and S = 1 ABBA (sequence-frames
+    a second over steps 1..29), the first S = MULTI_S run held to its
+    launches a step, every sequence's ATE and its gap to the sequence run
+    alone. Returns the last S = MULTI_S tracker (profiled last)."""
+    from superslam_tpu_torch.eval.metrics import ate
+
+    first = [s[:N_FRAMES] for s in seqs]
+    rates = {MULTI_S: [], 1: []}
+    runs = []
+    for n_seq in (MULTI_S, 1, 1, MULTI_S):
+        tracker, trajs, rate, counts = run_multi(torch, sp, lg, first, n_seq)
+        rates[n_seq].append(rate)
+        runs.append((n_seq, tracker, trajs, counts))
+        print(f"multi: S = {n_seq}, {N_FRAMES} steps: {rate:.2f} sequence-frames/s over steps "
+              f"1..{N_FRAMES - 1} ({rate / n_seq:.2f} steps/s)", flush=True)
+    _, _, trajs, counts = runs[0]
+    for k, v in counts.items():
+        want = PER_STEP_MULTI.get(k, 0) * N_FRAMES
+        if v != want:
+            fail(f"multi: {k}: {v} launches in {N_FRAMES} steps of {MULTI_S} sequences, want "
+                 f"{PER_STEP_MULTI.get(k, 0)} a step")
+    print(f"multi: launches a step (all {MULTI_S} sequences): "
+          f"{ {k: counts[k] / N_FRAMES for k in PER_STEP_MULTI} }")
+    worst_gap = 0.0
+    for s in range(MULTI_S):
+        res = ate(trajs[s], gt[s][:N_FRAMES])
+        alone = run_single_sequence(torch, sp, lg, first[s])
+        gap = max(float(np.linalg.norm(a.t - b.t)) for a, b in zip(trajs[s], alone))
+        worst_gap = max(worst_gap, gap)
+        print(f"multi: sequence {s} (frames {MULTI_STRIDE * s}..{MULTI_STRIDE * s + N_FRAMES - 1}"
+              f"): ATE {res.rmse:.4f} m, keyframes "
+              f"{len(runs[0][1].estimators[s].anchors())}, largest position gap to the "
+              f"sequence alone {gap:.4f} m")
+        if len(trajs[s]) != N_FRAMES or not np.isfinite(res.rmse) or res.rmse > ATE_LIMIT_M:
+            fail(f"multi: sequence {s}: ATE {res.rmse} m > {ATE_LIMIT_M} m")
+    if not worst_gap <= MULTI_GAP_M:
+        fail(f"multi: a sequence parts from its run alone by {worst_gap} m > {MULTI_GAP_M} m")
+    print(f"multi: ABBA sequence-frames/s: S = {MULTI_S} {rates[MULTI_S]}, S = 1 {rates[1]}; "
+          f"largest gap to the sequences alone {worst_gap:.4f} m (limit {MULTI_GAP_M})")
+    return runs[-1][1]
+
+
+def profile_multi(torch, tracker, seqs) -> None:
+    """MULTI_PROFILE_STEPS more steps of the multi-sequence tracker under
+    torch.profiler: device busy ms a step and the idle share."""
+    def steps():
+        for i in range(N_FRAMES, N_FRAMES + MULTI_PROFILE_STEPS):
+            step_multi(tracker, seqs, i)
+
+    profile_device(torch, steps, MULTI_PROFILE_STEPS, "step",
+                   f"steps of the multi-sequence tracker (S = {MULTI_S})", top=12)
+
+
+def batched_scene(torch, q_count: int):
+    """tests/test_parallel.py's batched_track_scan inputs at K = MAX_KP and
+    BATCHED_S frames, on the card: exact projections of per-sequence
+    landmarks under known motions; the last sequence keeps 6 matches from
+    its second frame on (below min_matches: it coasts)."""
+    rng = np.random.default_rng(9)
+    fx, cx, cy, base = 80.0, 80.0, 60.0, 0.1
+    kls, disps, xws = [], [], []
+    for q in range(q_count):
+        xw = rng.uniform([-4, -3, 6], [4, 3, 18], (MAX_KP, 3))
+        xws.append(xw)
+        kl, disp = [], []
+        for s in range(BATCHED_S):
+            p = xw - np.array([0.1 * (s + 1) * (q + 1), 0.0, 0.0])
+            kl.append(np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1))
+            disp.append(fx * base / p[:, 2])
+        kls.append(kl)
+        disps.append(disp)
+    tm = np.tile(np.arange(MAX_KP, dtype=np.int32), (q_count, BATCHED_S, 1))
+    tm[-1, 1:, 6:] = -1
+    dev = torch.device("cuda")
+    arrays = [torch.from_numpy(a).to(dev) for a in (
+        np.array(kls, np.float32), np.array(disps, np.float32),
+        np.ones((q_count, BATCHED_S, MAX_KP), bool), tm, np.array(xws, np.float32),
+        np.ones((q_count, MAX_KP), bool))]
+    eye = torch.eye(3, device=dev).expand(q_count, 3, 3).contiguous()
+    zero = torch.zeros((q_count, 3), device=dev)
+    kw = dict(calib=(fx, fx, cx, cy, base), min_matches=10, track_sigma_px=10.0,
+              disp_sigma0=8.0, disp_cond=fx * base / 40.0)
+    return arrays, (eye, zero, eye, zero), kw
+
+
+def batched_scan_plain(torch, arrays, carry, kw):
+    """batched_track_scan with the plain twin for every launch, on the same
+    tensors: track_frame_batched_plain a frame index."""
+    from superslam_tpu_torch.ops.cuda.track_frame import track_frame_batched_plain
+    from superslam_tpu_torch.ops.frontend_step import _track_gate_defaults
+
+    kl, disp, sok, tm, xw, dok = arrays
+    gate_px, chi2_px, chi2_rounds = _track_gate_defaults(None, None, None)
+    Q = kl.shape[0]
+    c = torch.cat([carry[0].reshape(Q, 9), carry[1], carry[2].reshape(Q, 9), carry[3]], 1)
+    rows = []
+    for s in range(kl.shape[1]):
+        r, c, _ = track_frame_batched_plain(
+            c, kl[:, s], disp[:, s], sok[:, s], tm[:, s], xw, dok, calib=kw["calib"],
+            min_matches=kw["min_matches"], inv_sig_uLv=1.0 / kw["track_sigma_px"],
+            disp_sigma0=kw["disp_sigma0"], disp_cond=kw["disp_cond"], mono=False,
+            gate_px=gate_px, chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=20)
+        rows.append(r)
+    return torch.stack(rows, 1), c
+
+
+def check_batched_track_scan(torch) -> tuple[dict, int]:
+    """batched_track_scan at Q in (1,) + BATCHED_Q sequences, BATCHED_S
+    frames, K = MAX_KP: exactly BATCHED_S launches a call, pose columns and
+    carry within BATCHED_ATOL of the plain twin's, counts exact; one
+    launch's time at each Q and its bound. Returns the kernels-line row
+    (timed at the largest Q) and the launches of that Q's call."""
+    from superslam_tpu_torch.ops import pose_solver
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.ops.cuda.track_frame import (
+        _SMALL,
+        TRACK_COLS,
+        track_frame_batched,
+        track_frame_batched_plain,
+    )
+    from superslam_tpu_torch.ops.frontend_step import _track_gate_defaults
+    from superslam_tpu_torch.parallel.batched_tracking import batched_track_scan
+
+    gate_px, chi2_px, chi2_rounds = _track_gate_defaults(None, None, None)
+    worst, row = 0.0, None
+    for q_count in (1,) + BATCHED_Q:
+        arrays, carry, kw = batched_scene(torch, q_count)
+        _build.reset_launch_counts()
+        out, new = batched_track_scan(*arrays, carry, **kw)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()["track_frame_batched"]
+        if launches != BATCHED_S:
+            fail(f"batched_track_scan: {launches} launches for {BATCHED_S} frames at Q {q_count}")
+        ref, ref_c = batched_scan_plain(torch, arrays, carry, kw)
+        err = max((out[..., :12] - ref[..., :12]).abs().max().item(),
+                  max((a.reshape(q_count, -1) - b).abs().max().item()
+                      for a, b in zip(new, (ref_c[:, :9], ref_c[:, 9:12], ref_c[:, 12:21],
+                                            ref_c[:, 21:24]))))
+        if not err <= BATCHED_ATOL or not torch.equal(out[..., 12], ref[..., 12]):
+            fail(f"batched_track_scan at Q {q_count}: pose error {err} (limit {BATCHED_ATOL}), "
+                 f"counts {out[..., 12].tolist()} against {ref[..., 12].tolist()}")
+        if q_count > 1 and not (out[-1, 1:, 12] == 6).all().item():
+            fail(f"batched_track_scan: the coasting sequence's counts {out[-1, :, 12].tolist()}")
+        worst = max(worst, err)
+        # One launch (frame 0 of every sequence) and what its work needs.
+        kl, disp, sok, tm, xw, dok = arrays
+        c0 = torch.cat([carry[0].reshape(q_count, 9), carry[1], carry[2].reshape(q_count, 9),
+                        carry[3]], 1)
+        solve_kw = dict(calib=kw["calib"], min_matches=kw["min_matches"],
+                        inv_sig_uLv=1.0 / kw["track_sigma_px"], disp_sigma0=kw["disp_sigma0"],
+                        disp_cond=kw["disp_cond"], mono=False, gate_px=gate_px,
+                        chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=20)
+        frame0 = (c0, kl[:, 0], disp[:, 0], sok[:, 0], tm[:, 0], xw, dok)
+        ms = time_ms(torch, lambda: track_frame_batched(*frame0, **solve_kw))
+        iters = []
+        system = pose_solver._system
+        pose_solver._system = lambda *a, **k: iters.append(1) or system(*a, **k)
+        try:
+            plain_ms = time_ms(torch, lambda: track_frame_batched_plain(*frame0, **solve_kw),
+                               warmup=0, iters=1)
+        finally:
+            pose_solver._system = system
+        rounds = 1 + (1 if gate_px > 0 else 0) + chi2_rounds
+        ops = float(MAX_KP) * (POSE_OPS_ITER * len(iters) + POSE_OPS_REPROJ * rounds * q_count)
+        io = nbytes(c0[:, :24], *frame0[1:]) + q_count * 4 * (TRACK_COLS + _SMALL + 3)
+        bnd = bound(io, f32_ops=ops)
+        print(f"kernel track_frame_batched: Q {q_count}, K {MAX_KP}: {BATCHED_S} launches a call, "
+              f"poses within {err:.3g} of the twin (limit {BATCHED_ATOL}), counts exact; one "
+              f"launch {ms:.4f} ms ({ms / q_count:.4f} ms a sequence), plain {plain_ms:.4f} ms, "
+              f"{len(iters)} LM iterations over the {q_count} sequences, bound {bnd[0]:.6f} ms "
+              f"({bnd[1]}: {io} B, {ops:.3g} f32 operations)", flush=True)
+        row = {
+            "name": "track_frame_batched", "route": "cuda",
+            "source": KERNEL_INFO["track_frame_batched"][0],
+            "replaces": KERNEL_INFO["track_frame_batched"][1], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        }
+    row["max_abs_err"] = worst
+    return row, launches
+
+
+def run_xla_smoother_facade(torch, frames, gt) -> None:
+    """The default facade (depth 3, device keyframes) with
+    SUPERSLAM_XLA_SMOOTHER=1 over the bench frames: ATE <= ATE_LIMIT_M, every
+    window it solved on the card solved again by the host LM and the poses
+    within WS_POSE_TOL (m, and rotation-matrix entries); the solves' ms by
+    CUDA events (readback included) against the host LM's."""
+    from scripts.accuracy_suite_torch import leg_environment
+    from superslam_tpu_torch.core import window_smoother as ws
+    from superslam_tpu_torch.eval.metrics import ate
+
+    captured = []
+    real = ws.WindowSmoother._lm_xla
+
+    def timed(self, poses, groups, sigma_px, dyn_px, max_iters, huber_k=0.0):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = real(self, poses, groups, sigma_px, dyn_px, max_iters, huber_k)
+        b.record()
+        b.synchronize()
+        captured.append((self, (poses, groups, sigma_px, dyn_px, max_iters, huber_k), out,
+                         a.elapsed_time(b), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    ws.WindowSmoother._lm_xla = timed
+    try:
+        with leg_environment({"SUPERSLAM_XLA_SMOOTHER": "1"}):
+            slam = build_slam()
+            mode = facade_mode(slam)
+            if not (slam._tracker and slam._tracker.depth == 3 and slam._tracker.device_kf):
+                fail(f"xla smoother facade: {mode}, want depth 3, device keyframes")
+            t0 = time.perf_counter()
+            for i, (left, right) in enumerate(frames):
+                slam.track_stereo(left, right, 0.1 * i)
+            slam.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            slam.estimator.stop_loop_worker()
+            poses = slam.estimator.corrected_trajectory()
+            slam.shutdown()
+    finally:
+        ws.WindowSmoother._lm_xla = real
+    res = ate(poses, gt)
+    if not captured:
+        fail("xla smoother facade: no window was solved on the card")
+    from superslam_tpu_torch import native
+
+    worst_t = worst_r = 0.0
+    host_ms, native_ms = [], []
+    for smoother, (seed, groups, sigma_px, dyn_px, max_iters, huber_k), out, _, _ in captured:
+        t0 = time.perf_counter()
+        ref = smoother._lm(seed, groups, sigma_px, dyn_px, seed[0], 1e-4, max_iters, huber_k)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if native.available():  # the host path the knob replaces (C++, csrc/)
+            t0 = time.perf_counter()
+            smoother._lm_native(seed, groups, sigma_px, dyn_px, 1e-4, max_iters, huber_k)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+        if out is None or ref is None or len(out) != len(ref):
+            fail(f"xla smoother: a window gave {out} on the card and {ref} on the host")
+        for p, q in zip(out, ref):
+            worst_t = max(worst_t, float(np.linalg.norm(p.t - q.t)))
+            worst_r = max(worst_r, float(np.abs(p.R - q.R).max()))
+    dev_ms = [c[3] for c in captured]
+    wall_ms = [c[4] for c in captured]
+    print(f"xla smoother facade ({mode}): {len(frames)} frames in {wall:.2f} s, ATE "
+          f"{res.rmse:.4f} m; {len(captured)} window solves on the card, median "
+          f"{statistics.median(dev_ms):.3f} ms by CUDA events (host wall "
+          f"{statistics.median(wall_ms):.3f} ms; first {dev_ms[0]:.1f} ms), the host LM "
+          f"median {statistics.median(host_ms):.3f} ms (numpy) and "
+          f"{statistics.median(native_ms) if native_ms else float('nan'):.3f} ms (C++) on the "
+          f"same windows; largest gap to the numpy LM "
+          f"{worst_t:.3g} m, {worst_r:.3g} in rotation (limit {WS_POSE_TOL})", flush=True)
+    if not np.isfinite(res.rmse) or res.rmse > ATE_LIMIT_M:
+        fail(f"xla smoother facade: ATE {res.rmse} m > {ATE_LIMIT_M} m")
+    if not (worst_t <= WS_POSE_TOL and worst_r <= WS_POSE_TOL):
+        fail(f"xla smoother: a window parts from the host LM by {worst_t} m, {worst_r}")
+
+
+def check_viewer(torch, frames) -> None:
+    """SuperSLAM(cfg, use_viewer=True) over a few frames: the synchronous
+    loop (depth 0) draws every frame, and close() returns (the card's host
+    may lack matplotlib: the recorder then logs and returns)."""
+    from scripts.accuracy_suite_torch import leg_environment
+
+    with tempfile.TemporaryDirectory() as tmp, leg_environment(
+            {"SUPERSLAM_VIEWER_PLOT": os.path.join(tmp, "trajectory.png")}):
+        slam = build_slam(use_viewer=True)
+        if slam._tracker is not None or slam.viewer is None:
+            fail(f"viewer: {facade_mode(slam)}, viewer {slam.viewer}: want depth 0 with a viewer")
+        for i, (left, right) in enumerate(frames):
+            slam.track_stereo(left, right, 0.1 * i)
+        drawn = len(slam.viewer._traj)
+        t0 = time.perf_counter()
+        slam.shutdown()
+        close_s = time.perf_counter() - t0
+        plot = os.path.exists(os.path.join(tmp, "trajectory.png"))
+    if drawn != len(frames):
+        fail(f"viewer: {drawn} poses drawn for {len(frames)} frames")
+    print(f"viewer: {facade_mode(slam)}, {drawn} poses drawn, close() returned in "
+          f"{close_s:.2f} s (plot written: {plot}; rerun SDK: {slam.viewer._rr is not None})")
+
+
 def profile_facade(torch, slam, n: int) -> float:
     """Track the next n frames of the lap under torch.profiler, print where
     the device time goes, and fail if a softmax kernel ran: the score half
@@ -2619,6 +3147,15 @@ def main() -> int:
     del captured_r
     check_distorted_rgbd(torch, frames_r[:RGBD_DIST_FRAMES])
     check_loop_pieces(torch, rgbd_frames[0][0])
+    # Multi-sequence batched tracking: the frame kernels at its shapes, the
+    # tracker ABBA against S = 1, each sequence against its run alone; then
+    # batched_track_scan, the device window solver and the viewer.
+    multi_seqs, multi_gt = multi_sequence_frames(N_FRAMES + MULTI_PROFILE_STEPS)
+    check_multi_kernels(torch, sp, lg, [seq[0] for seq in multi_seqs])
+    multi = run_multi_phase(torch, sp, lg, multi_seqs, multi_gt)
+    kernels["track_frame_batched"], batched_launches = check_batched_track_scan(torch)
+    run_xla_smoother_facade(torch, frames, gt)
+    check_viewer(torch, frames[:VIEWER_FRAMES])
     depth0_events = profile_facade(torch, slam, 5)
     slam.shutdown()
 
@@ -2651,12 +3188,14 @@ def main() -> int:
     slam_d.shutdown()
     profile_rgbd(torch, slam_r, rgbd_frames[RGBD_FRAMES:])
     slam_r.shutdown()
+    profile_multi(torch, multi, multi_seqs)
 
     # Each kernel's launches are those of the phase that drives it: the main
     # path's from the default facade's frames 5..29.
     launches = {k: counts_d[k] for k, per in PER_FRAME_DEFAULT.items() if per}
     launches.update((k, counts_d[k]) for k in OFF_PATH)  # 0: on no path, timed in 4c
     launches["masked_attention"] = counts_u["masked_attention"]
+    launches["track_frame_batched"] = batched_launches
     launches["gather_normalize"] = gather_launches
     launches["nms"] = map_nms_launches
     launches["masked_attention_f32"] = f32_fwd_launches

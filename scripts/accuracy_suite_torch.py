@@ -42,6 +42,9 @@ Legs (env; reference ATE from ACCURACY.json's CPU legs):
                       on its CPU)                              0.0969  gated
   rgbd_devtrack       the card's default (device-tracked mono chain) printed,
                       with its gap to rgbd
+  stereo_xla_smoother the stereo leg with SUPERSLAM_XLA_SMOOTHER=1 (each
+                      window solved on the device, ops/window_solver.py)
+                      printed
 The printed-only legs the reference ran host-solved on its CPU
 (nogate, passthrough, covis03) also pin SUPERSLAM_DEVICE_TRACKER=0. A
 gated leg passes at ATE <= 1.5 x its reference leg. Every row counts the
@@ -148,6 +151,9 @@ LEGS = {
     ),
     "rgbd": (HOST_SOLVED, "lightglue_synth.safetensors", 0.0969, True),
     "rgbd_devtrack": ({}, "lightglue_synth.safetensors", None, False),
+    "stereo_xla_smoother": (
+        {**HOST_SOLVED, "SUPERSLAM_XLA_SMOOTHER": "1"}, "lightglue_synth.safetensors", None, False,
+    ),
 }
 GATE_FACTOR = 1.5
 RGBD_LEGS = ("rgbd", "rgbd_devtrack")

@@ -15,6 +15,8 @@ Layering (bottom-up):
   frontend/  extractor, matcher and recognizer backends, the fused stereo
              and RGB-D pipelines and their pipelined trackers
   core/      device-free estimation core (tracker, smoother, pose graph)
+  parallel/  multi-sequence batched tracking, the device mesh, the
+             matcher's training step
   io/, eval/ trajectory writers, ATE/RPE metrics, rendered sequences
   slam.py    the SuperSLAM facade (stereo and RGB-D, loop closure)
 """

@@ -84,10 +84,13 @@ class VoEstimator:
         calib: StereoCalib,
         window_size: int = 0,
         kf_store_size: int = 2,
+        device=None,
     ):
         self.matcher = matcher
         self.calib = calib
-        self.smoother = WindowSmoother(calib, _resolve_window_size(window_size))
+        # device: where SUPERSLAM_XLA_SMOOTHER=1 solves the window (None:
+        # CUDA, raising without a card).
+        self.smoother = WindowSmoother(calib, _resolve_window_size(window_size), device)
         self.tracker = FrameTracker(calib)
 
         self._has_keyframe = False

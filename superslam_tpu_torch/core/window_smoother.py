@@ -52,9 +52,12 @@ class StereoObs:
 class WindowSmoother:
     DEGENERACY_EPS = 1e-9
 
-    def __init__(self, calib: StereoCalib, window_size: int):
+    def __init__(self, calib: StereoCalib, window_size: int, device=None):
         self.calib = calib
         self.window_size = int(window_size)
+        # Where SUPERSLAM_XLA_SMOOTHER=1 solves (_lm_xla): None is CUDA,
+        # which raises without a card; the host LM paths ignore it.
+        self.device = device
         # Solve-cadence state (SUPERSLAM_WS_SOLVE_EVERY): number of
         # optimize() calls since the last FULL solve. Seeded high so the
         # first call is always full.
@@ -204,6 +207,10 @@ class WindowSmoother:
         seed_gate = dyn_outlier_px * (2.0 if huber_k > 0 else 1.0)
         seeds = poses
         accepted = None
+        if os.environ.get("SUPERSLAM_XLA_SMOOTHER") == "1":
+            # Outside the catch below: without a card the knob raises, it
+            # does not keep the seed poses unnoticed.
+            self._solver_device()
         try:
             with profile_scope("ws_solve"):
                 for _round in range(n_rounds):
@@ -603,14 +610,70 @@ class WindowSmoother:
         max_iters: int,
         huber_k: float = 0.0,
     ) -> list[Pose3] | None:
-        """SUPERSLAM_XLA_SMOOTHER=1: the whole window LM as one device
-        program. The JAX package solves it in ops/window_solver.py; that
-        solver is not ported yet (ROADMAP queue 1, the window solver), so
-        the port refuses the knob instead of silently using the host LM."""
-        raise NotImplementedError(
-            "SUPERSLAM_XLA_SMOOTHER=1: the device window solver is not "
-            "ported to superslam_tpu_torch yet (ROADMAP queue 1)"
+        """SUPERSLAM_XLA_SMOOTHER=1: the whole window LM on the smoother's
+        device (ops/window_solver.py::solve_window, oracle-pinned to the
+        numpy path). Groups are merged into ONE padded (L, m_max) problem
+        with L bucketed to multiples of 64, the JAX package's shapes (the
+        padded rows are masked out). The one host read is the result's
+        copy."""
+        import torch
+
+        from ..ops.window_solver import solve_window
+
+        dev = self._solver_device()
+        K = len(poses)
+        m_max = max(groups)
+        L = sum(v.shape[0] for v, _ in groups.values())
+        Lp = max(64, -(-L // 64) * 64)
+        views = np.zeros((Lp, m_max), np.int64)
+        meas = np.zeros((Lp, m_max, 3), np.float32)
+        obs_valid = np.zeros((Lp, m_max), bool)
+        lm_valid = np.zeros((Lp,), bool)
+        r = 0
+        for m in sorted(groups):
+            v, x = groups[m]
+            n = v.shape[0]
+            views[r : r + n, :m] = v
+            meas[r : r + n, :m] = x
+            obs_valid[r : r + n, :m] = True
+            lm_valid[r : r + n] = True
+            r += n
+        c = self.calib
+
+        def up(a):
+            # pinned, so the copy does not wait for the queued frame steps
+            t = torch.from_numpy(a)
+            return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+        R, t = solve_window(
+            up(np.stack([p.R for p in poses]).astype(np.float32)),
+            up(np.stack([p.t for p in poses]).astype(np.float32)),
+            up(views),
+            up(meas),
+            up(lm_valid),
+            up(obs_valid),
+            (c.fx, c.fy, c.cx, c.cy, c.baseline),
+            inv_sigma=1.0 / sigma_px,
+            dyn_outlier_px=dyn_outlier_px,
+            prior_info=1e8,  # gauge prior sigma 1e-4, as the numpy path
+            num_poses=K,
+            max_iters=max_iters,
+            huber_k=huber_k,
         )
+        R = R.cpu().numpy().astype(np.float64)
+        t = t.cpu().numpy().astype(np.float64)
+        out = []
+        for k in range(K):
+            # re-orthonormalize the f32 rotation before it re-enters the
+            # f64 geometry stack
+            u, _, vt = np.linalg.svd(R[k])
+            out.append(Pose3(R=u @ vt, t=t[k]))
+        return out
+
+    def _solver_device(self):
+        from ..utils.device import resolve_device
+
+        return resolve_device(self.device if self.device is not None else "cuda")
 
     def _lm(
         self,

@@ -5,6 +5,7 @@ from .trajectory import (
     save_trajectory_kitti,
     save_trajectory_tum,
 )
+from .undistort import RectifyMap, undistort_points
 
 __all__ = [
     "load_trajectory_kitti",
@@ -12,4 +13,6 @@ __all__ = [
     "save_map_ply",
     "save_trajectory_kitti",
     "save_trajectory_tum",
+    "RectifyMap",
+    "undistort_points",
 ]

@@ -60,12 +60,14 @@ KERNELS = (
     "conv3x3",
     "pose_solve",
     "track_frame",
+    "track_frame_batched",
 )
 _LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, wa, ba, wb, bb, out, B, cin, H, W, out_f32, stream
     "ssl_conv_pair_pool": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -104,6 +106,12 @@ _SIGNATURES = {
     # stream
     "ssl_track_frame": [_P] * 26 + [_I, _I] + [_F] * 5 + [_I] + [_F] * 3 + [_I] + [_F] * 2
     + [_I] * 3 + [_F] * 2 + [_I] * 3 + [_F] * 2 + [_P],
+    # Q, then (pointer, stride) for carry, kl, disp, stereo_ok, tm, kf_xw,
+    # kf_dok, row, small, stats; K, fx, fy, cx, cy, baseline, min_matches,
+    # inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px, chi2_px,
+    # chi2_rounds, track_iters, stream
+    "ssl_track_frame_batched": [_I] + [_P, _L] * 10 + [_I] + [_F] * 5 + [_I] + [_F] * 3 + [_I]
+    + [_F] * 2 + [_I, _I, _P],
 }
 
 

@@ -10,7 +10,11 @@
 //   the carry (:795-798), the keyframe gate (:800-809) and the promotion
 //   (:811-823);
 // - track_scan's step (:539-580; KF = false): the prediction, the solve,
-//   coast below min_matches and the carry, a 13-column row.
+//   coast below min_matches and the carry, a 13-column row; for Q
+//   sequences at once (parallel/batched_tracking.py::batched_track_scan,
+//   the JAX package's vmap of track_scan) one block a sequence in a grid of
+//   Q (ssl_track_frame_batched): the card's other SMs take the other
+//   sequences' chains, so Q frames cost about one frame's latency.
 // Its plain twin is ops/cuda/track_frame.py::track_frame_plain.
 //
 // In the JAX step's order, on rank 0's block of 256 threads:
@@ -91,6 +95,15 @@ struct KfOut {
   float* xw;
   uint8_t* dok;
   uint8_t* fresh;
+};
+
+// track_scan mode over Q sequences in one grid (the JAX package's vmap of
+// track_scan, superslam_tpu/parallel/batched_tracking.py:80-117): block q
+// reads sequence q's carry, frame and keyframe rows and writes its own row,
+// carry and stats, each at its elements' stride. A single launch has Q = 1
+// and its strides are never applied.
+struct SeqStrides {
+  long long carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, row, small, stats;
 };
 
 // C = A B, 3 x 3 row-major.
@@ -202,10 +215,25 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ tm_rematch, const float* __restrict__ kf_xw,
                        const uint8_t* __restrict__ kf_dok, KfIn kin, int desc_bytes,
                        float* __restrict__ row, int* __restrict__ match_out,
-                       float* __restrict__ small_out, int* __restrict__ stats_out, KfOut kout) {
+                       float* __restrict__ small_out, int* __restrict__ stats_out, KfOut kout,
+                       SeqStrides seq) {
   __shared__ Shared s;
   __shared__ float pred[12];
   __shared__ Decision dec;
+  if constexpr (!KF) {
+    // This block's sequence (blockIdx.x = 0 for a single frame).
+    const long long b = blockIdx.x;
+    carry_in += b * seq.carry;
+    kl += b * seq.kl;
+    disp += b * seq.disp;
+    stereo_ok += b * seq.stereo_ok;
+    tm += b * seq.tm;
+    kf_xw += b * seq.kf_xw;
+    kf_dok += b * seq.kf_dok;
+    row += b * seq.row;
+    small_out += b * seq.small;
+    stats_out += b * seq.stats;
+  }
   if constexpr (KF) {
     // Copying ranks: the old keyframe now, the frame if promoted.
     auto cluster = cg::this_cluster();
@@ -382,7 +410,8 @@ SSL_EXPORT int ssl_track_frame(
   if (!keyframes) {
     track_frame_kernel<false><<<1, THREADS, 0, st>>>(q, g, carry, kl, disp, stereo_ok, tm,
                                                      tm_rematch, kf_xw, kf_dok, kin, desc_bytes,
-                                                     row, match_out, small, stats, kout);
+                                                     row, match_out, small, stats, kout,
+                                                     SeqStrides{});
     return int(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -399,6 +428,34 @@ SSL_EXPORT int ssl_track_frame(
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, track_frame_kernel<true>, q, g, carry, kl, disp, stereo_ok, tm,
                          tm_rematch, kf_xw, kf_dok, kin, desc_bytes, row, match_out, small, stats,
-                         kout);
+                         kout, SeqStrides{});
   return int(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// track_scan's body for Q sequences in one grid of Q blocks (one frame
+// index of batched_track_scan). Per sequence q, the arguments of
+// ssl_track_frame with keyframes = 0 and no re-match or match_out, each at
+// its own stride in elements: carry + q * carry_stride (24 f32: a previous
+// call's small rows have stride 36), kl (K, 2), disp (K,), stereo_ok (K,),
+// tm (K,), kf_xw (K, 3), kf_dok (K,), row (13,), small (36,), stats (3,).
+// Rows within a sequence are contiguous. Q >= 1, K <= 1024.
+SSL_EXPORT int ssl_track_frame_batched(
+    int Q, const float* carry, long long carry_stride, const float* kl, long long kl_stride,
+    const float* disp, long long disp_stride, const uint8_t* stereo_ok,
+    long long stereo_ok_stride, const int* tm, long long tm_stride, const float* kf_xw,
+    long long kf_xw_stride, const uint8_t* kf_dok, long long kf_dok_stride, float* row,
+    long long row_stride, float* small, long long small_stride, int* stats,
+    long long stats_stride, int K, float fx, float fy, float cx, float cy, float baseline,
+    int min_matches, float inv_sig_uLv, float disp_sigma0, float disp_cond, int mono,
+    float gate_px, float chi2_px, int chi2_rounds, int track_iters, void* stream) {
+  if (Q < 1 || K < 1 || K > KMAX || track_iters < 0 || chi2_rounds < 0)
+    return int(cudaErrorInvalidValue);
+  const Params q{fx, fy, cx, cy, baseline, inv_sig_uLv, disp_sigma0, disp_cond, gate_px,
+                 chi2_px, K, min_matches, mono, chi2_rounds, track_iters};
+  const SeqStrides seq{carry_stride, kl_stride, disp_stride, stereo_ok_stride, tm_stride,
+                       kf_xw_stride, kf_dok_stride, row_stride, small_stride, stats_stride};
+  track_frame_kernel<false><<<Q, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      q, Gate{}, carry, kl, disp, stereo_ok, tm, nullptr, kf_xw, kf_dok, KfIn{}, 0, row, nullptr,
+      small, stats, KfOut{}, seq);
+  return int(cudaGetLastError());
 }

@@ -13,6 +13,12 @@ frame, no value read by the host. A CPU tensor goes through the plain
 version ``track_frame_plain``: ``pose_solve_plain`` and the epilogue
 ``track_frame_epilogue_plain``, the scans' former Python body.
 
+``track_frame_batched`` is track_scan's body for Q sequences in one
+launch (``parallel/batched_tracking.py::batched_track_scan``, the JAX
+package's vmap of track_scan): the same kernel in track_scan mode as a
+grid of Q blocks, one a sequence, each at its own strides; its plain
+version ``track_frame_batched_plain`` is ``track_frame_plain`` a sequence.
+
 The kernel's solve sums in another order than PyTorch, so its poses agree
 with the plain version to f32 rounding; on its own solve (the raw solve is
 an output) the plain epilogue gives the same counts and bits:
@@ -293,3 +299,111 @@ def _flat_carry(R_prev, t_prev, Rr, tr):
                 and R_prev.untyped_storage().data_ptr() == tr.untyped_storage().data_ptr()):
             return torch.as_strided(base, (24,), (1,))
     return torch.cat([R_prev.reshape(9), t_prev, Rr.reshape(9), tr])
+
+
+def track_frame_batched_plain(carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, *, calib,
+                              min_matches, inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px,
+                              chi2_px, chi2_rounds, track_iters):
+    """The plain version of ``track_frame_batched``: ``track_frame_plain``
+    (track_scan's epilogue) for each sequence in turn."""
+    rows, smalls, stats = [], [], []
+    for q in range(carry.shape[0]):
+        c = carry[q]
+        pose_carry = (c[:9].reshape(3, 3), c[9:12], c[12:21].reshape(3, 3), c[21:24])
+        row, _tm, new, _kf, _fresh, raw = track_frame_plain(
+            pose_carry, (kl[q], None, None, None, disp[q], stereo_ok[q]), tm[q],
+            (None, None, None, kf_xw[q], kf_dok[q], None), calib=calib, min_matches=min_matches,
+            inv_sig_uLv=inv_sig_uLv, disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono,
+            gate_px=gate_px, chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
+        )
+        R_s, t_s, n, kept = raw
+        rows.append(row)
+        smalls.append(torch.cat([new[0].reshape(9), new[1], new[2].reshape(9), new[3],
+                                 R_s.reshape(9), t_s]))
+        stats.append(torch.stack([n.to(torch.int32), torch.as_tensor(kept).to(torch.int32)]))
+    return torch.stack(rows), torch.stack(smalls), torch.stack(stats)
+
+
+def track_frame_batched(carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, *, calib, min_matches,
+                        inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px, chi2_px, chi2_rounds,
+                        track_iters, row_out=None):
+    """One frame of track_scan for Q sequences in one launch (the body of
+    ``parallel/batched_tracking.py::batched_track_scan``).
+
+    carry (Q, >=24) f32, rows R_prev (9, row-major), t_prev, Rr, tr (a
+    previous call's ``small`` is one); kl (Q, K, 2) f32 px, disp (Q, K) f32,
+    stereo_ok (Q, K) bool, tm (Q, K) int32, kf_xw (Q, K, 3) f32, kf_dok (Q,
+    K) bool: any stride between sequences, each sequence's rows contiguous
+    (a frame index of (Q, S, ...) inputs is one). row_out: a (Q, TRACK_COLS)
+    f32 tensor with contiguous rows to write into, or None.
+
+    Returns (rows (Q, TRACK_COLS), small (Q, 36): the new carry in its first
+    24 columns then the raw solve R_s, t_s, stats (Q, 2) int32: n and
+    kept)."""
+    kw = dict(calib=calib, min_matches=min_matches, inv_sig_uLv=inv_sig_uLv,
+              disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono, gate_px=gate_px,
+              chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters)
+    if kl.device.type == "cpu":
+        rows, small, stats = track_frame_batched_plain(
+            carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, **kw)
+        if row_out is not None:
+            row_out.copy_(rows)
+            rows = row_out
+        return rows, small, stats
+    return _launch_batched(carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, row_out=row_out, **kw)
+
+
+def _seq_stride(name, t, shape, dtype, dev):
+    """The stride between sequences of a (Q, ...) input whose per-sequence
+    block is contiguous."""
+    if t.dtype != dtype or t.device != dev or tuple(t.shape) != shape:
+        raise ValueError(f"track_frame_batched: {name} must be {shape} {dtype} on {dev}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    inner = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size > 1 and stride != inner:
+            raise ValueError(f"track_frame_batched: {name}'s rows must be contiguous")
+        inner *= size
+    return t.stride(0)
+
+
+def _launch_batched(carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, *, calib, min_matches,
+                    inv_sig_uLv, disp_sigma0, disp_cond, mono, gate_px, chi2_px, chi2_rounds,
+                    track_iters, row_out):
+    dev = kl.device
+    if dev.type != "cuda":
+        raise ValueError(f"track_frame_batched: unsupported device {dev}")
+    if kl.dim() != 3 or kl.shape[2] != 2:
+        raise ValueError(f"track_frame_batched: kl must be (Q, K, 2), got {tuple(kl.shape)}")
+    Q, k = kl.shape[0], kl.shape[1]
+    if Q < 1 or not 1 <= k <= MAX_K:
+        raise ValueError(f"track_frame_batched: Q {Q}, K {k}; the kernel takes Q >= 1 and "
+                         f"K 1..{MAX_K}")
+    if carry.dim() != 2 or carry.shape[0] != Q or carry.shape[1] < 24:
+        raise ValueError(f"track_frame_batched: carry must be (Q, >=24), got {tuple(carry.shape)}")
+    strides = [
+        _seq_stride("carry", carry[:, :24], (Q, 24), torch.float32, dev),
+        _seq_stride("kl", kl, (Q, k, 2), torch.float32, dev),
+        _seq_stride("disp", disp, (Q, k), torch.float32, dev),
+        _seq_stride("stereo_ok", stereo_ok, (Q, k), torch.bool, dev),
+        _seq_stride("tm", tm, (Q, k), torch.int32, dev),
+        _seq_stride("kf_xw", kf_xw, (Q, k, 3), torch.float32, dev),
+        _seq_stride("kf_dok", kf_dok, (Q, k), torch.bool, dev),
+    ]
+    rows = row_out if row_out is not None else torch.empty(
+        (Q, TRACK_COLS), dtype=torch.float32, device=dev)
+    small = torch.empty((Q, _SMALL), dtype=torch.float32, device=dev)
+    stats = torch.empty((Q, 3), dtype=torch.int32, device=dev)
+    strides += [_seq_stride("row_out", rows, (Q, TRACK_COLS), torch.float32, dev), _SMALL, 3]
+    ptrs = [t.data_ptr() for t in (carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok, rows, small,
+                                   stats)]
+    args = [a for pair in zip(ptrs, strides) for a in pair]
+    fx, fy, cx, cy, baseline = (float(c) for c in calib)
+    err = _build.library().ssl_track_frame_batched(
+        Q, *args, k, fx, fy, cx, cy, baseline, int(min_matches), float(inv_sig_uLv),
+        float(disp_sigma0), float(disp_cond), int(bool(mono)), float(gate_px), float(chi2_px),
+        int(chi2_rounds), int(track_iters), _build.stream_of(kl),
+    )
+    _build.check(err, "track_frame_batched")
+    _build.count("track_frame_batched")
+    return rows, small, stats[:, :2]

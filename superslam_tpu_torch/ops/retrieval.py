@@ -9,7 +9,8 @@ insertions the oldest entry is overwritten) and runs a query as one
 matrix-vector product and a top-k. Exact score ties break by insertion
 order, oldest first, as the host ``CosineDescriptorIndex``'s stable sort
 does. The host index stays the loop worker's default
-(``SUPERSLAM_DEVICE_RETRIEVAL``).
+(``SUPERSLAM_DEVICE_RETRIEVAL``). ``ShardedCosineIndex`` splits the rows
+over a mesh's devices (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -91,4 +92,85 @@ class DeviceCosineIndex:
         # host index's stable argsort: after the ring wraps, top-k's slot
         # order no longer is insertion order.
         order = np.lexsort((ins, -scores))
+        return [(int(ids[i]), float(scores[i])) for i in order]
+
+
+class ShardedCosineIndex:
+    """DeviceCosineIndex over a device mesh: the database rows are split
+    over every device of the mesh (retrieval has no model dimension), the
+    query product and a top-k run per shard, and only the per-shard
+    winners cross to the host for the final selection.
+
+    Port of ``superslam_tpu/ops/retrieval.py::ShardedCosineIndex``: capacity
+    grows with the mesh while each device's traffic a query stays constant,
+    and the result equals the single-device index's, the ring's ageing
+    included (past capacity the oldest entry is overwritten)."""
+
+    def __init__(self, mesh, capacity: int = 8192, dim: int = 512):
+        self.mesh = mesh
+        devices = [resolve_device(d) for d in mesh.flat()]
+        n = len(devices)
+        if capacity % n:
+            capacity += n - capacity % n
+        self.capacity = capacity
+        self._shard_rows = capacity // n
+        self._shards = [
+            (
+                torch.zeros((self._shard_rows, dim), dtype=torch.float32, device=d),
+                torch.zeros((self._shard_rows,), dtype=torch.int32, device=d),
+                torch.full((self._shard_rows,), -1, dtype=torch.int32, device=d),
+            )
+            for d in devices
+        ]
+        self._size = 0
+
+    def __len__(self) -> int:
+        return min(self._size, self.capacity)
+
+    @property
+    def total_added(self) -> int:
+        return self._size
+
+    def add(self, keyframe_id: int, descriptor: np.ndarray) -> None:
+        d = np.asarray(descriptor, np.float32).reshape(-1)
+        n = float(np.linalg.norm(d))
+        if n > 1e-12:
+            d = d / n
+        # Round-robin over shards, so every shard holds an equal prefix of
+        # the insertion order; past capacity the ring revisits rows in the
+        # same order, overwriting the oldest.
+        i = self._size % self.capacity
+        db, ids, ins = self._shards[i % len(self._shards)]
+        _ring_add(db, ids, ins, torch.from_numpy(d).to(db.device), int(keyframe_id),
+                  self._size, i // len(self._shards))
+        self._size += 1
+
+    def query(
+        self,
+        descriptor: np.ndarray,
+        exclude_recent: int,
+        top_k: int,
+        min_score: float,
+    ) -> list[tuple[int, float]]:
+        """Returns [(keyframe_id, score)] sorted descending, filtered."""
+        if self._size == 0 or self._size <= exclude_recent:
+            return []
+        k = min(top_k if top_k > 0 else self.capacity, self.capacity)
+        k_local = min(k, self._shard_rows)
+        q = np.asarray(descriptor, np.float32).reshape(-1)
+        winners = [
+            _query(db, ids, ins, self._size, torch.from_numpy(q).to(db.device), exclude_recent,
+                   float(min_score), k_local)
+            for db, ids, ins in self._shards
+        ]
+        first = self._shards[0][0].device
+        scores, ids, ins = (
+            torch.cat([w[j].to(first) for w in winners]).cpu().numpy() for j in range(3)
+        )
+        keep = np.isfinite(scores)
+        scores, ids, ins = scores[keep], ids[keep], ins[keep]
+        # The final selection over the gathered per-shard winners happens
+        # here, so ties break by insertion order as the host index's stable
+        # sort does.
+        order = np.lexsort((ins, -scores))[:k]
         return [(int(ids[i]), float(scores[i])) for i in order]

@@ -22,8 +22,10 @@ upload for its descriptor. Unlike the JAX facade, a failing loop init
 raises instead of carrying on VO-only (a missing weights file still falls
 back to a random init inside ``load_params``).
 
-Not ported: the viewer, and ``SUPERSLAM_XLA_SMOOTHER`` (the on-device window
-solver; ``core/window_smoother.py`` refuses it).
+``use_viewer=True`` attaches ``io/viewer.py::RerunViewer`` and, as in the
+JAX facade, forces the synchronous loop (depth 0) so every frame is drawn.
+``SUPERSLAM_XLA_SMOOTHER=1`` solves each window on the facade's device
+(``ops/window_solver.py``).
 
 The facade runs on CUDA unless ``device="cpu"`` is given; without a GPU
 and without that argument it raises.
@@ -47,6 +49,7 @@ from .frontend.pipelined_rgbd import PipelinedRgbdTracker
 from .frontend.recognizer import EigenPlacesRecognizer
 from .geometry.se3 import Pose3
 from .io.trajectory import save_map_ply, save_trajectory_kitti, save_trajectory_tum
+from .io.viewer import RerunViewer
 from .models.eigenplaces import init_eigenplaces_params
 from .models.lightglue import init_lightglue_params
 from .models.superpoint import init_superpoint_params
@@ -56,7 +59,7 @@ from .utils.env import device_tracker_wanted
 
 
 class SuperSLAM:
-    def __init__(self, config_path: str, device="cuda"):
+    def __init__(self, config_path: str, use_viewer: bool = False, device="cuda"):
         self.device = resolve_device(device)
         cfg = Config.load(config_path)
         self.cfg = cfg
@@ -134,7 +137,7 @@ class SuperSLAM:
                 device=self.device,
             )
         window_size = int(cfg.get("Backend.window_size", 0) or 0)
-        self.estimator = VoEstimator(self.matcher, self.calib, window_size)
+        self.estimator = VoEstimator(self.matcher, self.calib, window_size, device=self.device)
         self.estimator.set_keyframe_params(
             float(cfg.get("KeyFrame.covis_ratio", 0.7)),
             int(cfg.get("KeyFrame.max_frames", 20)),
@@ -163,6 +166,10 @@ class SuperSLAM:
             self.estimator.enable_loop_closure(lc, async_=True)
             self.loop_enabled = True
 
+        # The viewer (optional rerun SDK, else the matplotlib recorder). No
+        # catch: RerunViewer itself degrades to the recorder.
+        self.viewer = RerunViewer() if use_viewer else None
+
         self._timestamps: list[float] = []
         self._live_poses: list[Pose3] = []
 
@@ -175,6 +182,8 @@ class SuperSLAM:
         self._tracker = None
         depth = int(os.environ.get("SUPERSLAM_PIPELINE", "3"))
         batch = int(os.environ.get("SUPERSLAM_PIPELINE_BATCH", "1"))
+        if use_viewer:
+            depth = 0  # the viewer draws every frame: stay synchronous
         # Loop descriptors straight from the device-resident frame: the
         # pipelined trackers hand the worker a closure over the step's own
         # uint8 upload instead of a host gray copy.
@@ -212,6 +221,7 @@ class SuperSLAM:
         # pipeline's track-match reference.
         if self.estimator._last_keyframe is frame:
             self.pipeline.set_keyframe(frame.descriptors_left)
+        self._draw(frame, pose)
         return self._record(pose, timestamp)
 
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> np.ndarray:
@@ -224,7 +234,17 @@ class SuperSLAM:
         pose = self.estimator.track(frame, img, kf_matches=kf_matches)
         if self.estimator._last_keyframe is frame:
             self.rgbd_pipeline.set_keyframe(frame.descriptors_left)
+        self._draw(frame, pose)
         return self._record(pose, timestamp)
+
+    def _draw(self, frame, pose: Pose3) -> None:
+        if self.viewer is None:
+            return
+        self.viewer.draw_frame(frame, pose, self.calib)
+        # the reference RerunViewer's two scalar series
+        self.viewer.plot("frontend_inlier_ratio", self.estimator.last_inlier_ratio)
+        if self.loop_enabled:
+            self.viewer.plot("loop_deep_score", self.estimator.last_loop_score)
 
     def _record(self, pose: Pose3, timestamp: float) -> np.ndarray:
         self._timestamps.append(timestamp)
@@ -259,5 +279,7 @@ class SuperSLAM:
     def shutdown(self) -> None:
         self.flush()
         self.estimator.stop_loop_worker()
+        if self.viewer is not None:
+            self.viewer.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -89,9 +89,10 @@ def test_short_leg_writes_the_artifact(tmp_path, monkeypatch):
 
 def test_legs_carry_the_reference_legs():
     """Every leg that has a reference carries ACCURACY.json's ATE of the
-    leg of the same name; the two the reference has no leg for
-    (stereo_loop_devkf, rgbd_devtrack: the card's defaults) carry none and
-    are printed."""
+    leg of the same name; the three the reference has no leg for
+    (stereo_loop_devkf, rgbd_devtrack: the card's defaults;
+    stereo_xla_smoother: the device window solver) carry none and are
+    printed."""
     import os
 
     with open(os.path.join(acc.REPO, "ACCURACY.json")) as f:
@@ -99,7 +100,7 @@ def test_legs_carry_the_reference_legs():
     for leg, (_env, _lg, ate, _gated) in acc.LEGS.items():
         assert ate == ref.get(leg), leg
     assert {leg for leg, spec in acc.LEGS.items() if spec[2] is None} == {
-        "stereo_loop_devkf", "rgbd_devtrack"}
+        "stereo_loop_devkf", "rgbd_devtrack", "stereo_xla_smoother"}
     gated = {leg for leg, spec in acc.LEGS.items() if spec[3]}
     assert gated == {"stereo", "stereo_sync", "stereo_devkf", "stereo_loop", "rgbd"}
     assert acc.LEGS["stereo_loop"][0] == {
@@ -113,6 +114,24 @@ def test_legs_carry_the_reference_legs():
         {"SUPERSLAM_DEVICE_TRACKER": "1"}, "__passthrough__")
     assert acc.LEGS["stereo_covis03"][0] == {
         "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_KF_COVIS": "0.3"}
+    assert acc.LEGS["stereo_xla_smoother"][0] == {
+        "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_XLA_SMOOTHER": "1"}
+
+
+def test_short_xla_smoother_leg_on_the_cpu(monkeypatch):
+    """stereo_xla_smoother over 6 frames on the CPU: the stereo leg with
+    every window solved by ops/window_solver.py (the solver counted),
+    printed only."""
+    from superslam_tpu_torch.core import window_smoother
+
+    solves = []
+    real = window_smoother.WindowSmoother._lm_xla
+    monkeypatch.setattr(window_smoother.WindowSmoother, "_lm_xla",
+                        lambda self, *a, **k: solves.append(1) or real(self, *a, **k))
+    row = acc.run_leg("stereo_xla_smoother", acc.render_circuit(6), "cpu")
+    assert row["mode"]["depth"] == 3 and not row["mode"]["device_tracking"]
+    assert row["limit_m"] is None and row["passed"] and np.isfinite(row["ate_rmse_m"])
+    assert solves
 
 
 def test_short_device_keyframe_leg_on_the_cpu():

@@ -919,3 +919,117 @@ def test_rgbd_mono_scan_at_k1000_on_the_card_matches_cpu(cuda, dist):
     assert got.shape == (2, 13) and (got[:, 12] == ref[:, 12]).all() and (got[:, 12] >= 600).all()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
     np.testing.assert_allclose(got[1, 9:12], truth[1], atol=1e-3)
+
+
+# -- multi-sequence batching (S = 4 sequences: 2S = 8 images, 4S = 16 pair
+# problems), the limits of the single-frame shapes -------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,h,w", [(1, 384, 1248), (64, 192, 624)])
+def test_conv_pair_pool_kernel_at_batch_8(cuda, cin, h, w):
+    args = _pair_case(cuda, cin, 8, h, w)
+    got = conv_pair_pool(*args, out_dtype=torch.bfloat16)
+    ref = conv_pair_pool_plain(*args, out_dtype=torch.bfloat16)
+    assert got.shape == (8, 64, h // 2, w // 2)
+    assert (got.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_scores_nms_kernel_at_batch_8(cuda):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy((rng.standard_normal((8, 65, 48, 156)) * 4).astype(np.float32)).to(cuda)
+    _check_scores_nms(x.contiguous(memory_format=torch.channels_last), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_fused_blocks_at_16_pair_problems(cuda, kind):
+    params, x, cos, sin, mask = _block_case(cuda, torch.bfloat16, 600, b=16)
+    prefix = f"transformers.0.{kind}_attn"
+    if kind == "self":
+        w = lgl.prep_self_weights(params, prefix, torch.bfloat16)
+        got = lgl.fused_self_block(x, cos, sin, mask, w)
+        ref = lgl.fused_self_block_plain(x, cos, sin, mask, w)
+    else:
+        w = lgl.prep_cross_weights(params, prefix, torch.bfloat16)
+        got = lgl.fused_cross_block(x, mask, w)
+        ref = lgl.fused_cross_block_plain(x, mask, w)
+    _block_close(got, ref, torch.bfloat16)
+
+
+def _batched_scene(q_count, s_frames=3, k=600, seed=11):
+    """q_count sequences of s_frames exact projections of k landmarks, each
+    sliding at its own speed; the last sequence keeps 6 matches from its
+    second frame on (below min_matches: it coasts)."""
+    rng = np.random.default_rng(seed)
+    fx, cx, cy, base = 700.0, 624.0, 192.0, 0.54
+    kls, disps, xws = [], [], []
+    for q in range(q_count):
+        xw = rng.uniform([-8, -3, 6], [8, 3, 40], (k, 3))
+        xws.append(xw)
+        kl, disp = [], []
+        for s in range(s_frames):
+            p = xw - np.array([0.02 * (q + 1) * (s + 1), 0.0, 0.3 * (s + 1)])
+            kl.append(np.stack([fx * p[:, 0] / p[:, 2] + cx, fx * p[:, 1] / p[:, 2] + cy], 1))
+            disp.append(fx * base / p[:, 2])
+        kls.append(kl)
+        disps.append(disp)
+    tm = np.tile(np.arange(k, dtype=np.int32), (q_count, s_frames, 1))
+    tm[-1, 1:, 6:] = -1
+    arrays = [np.array(kls, np.float32), np.array(disps, np.float32),
+              np.ones((q_count, s_frames, k), bool), tm, np.array(xws, np.float32),
+              np.ones((q_count, k), bool)]
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), (q_count, 3, 3)).copy()
+    zero = np.zeros((q_count, 3), np.float32)
+    kw = dict(calib=(fx, fx, cx, cy, base), min_matches=10, track_sigma_px=10.0,
+              disp_sigma0=8.0, disp_cond=fx * base / 40.0)
+    return arrays, [eye, zero, eye, zero], kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_count", [1, 4, 16])
+def test_batched_track_scan_on_the_card_matches_its_twin(cuda, q_count):
+    """batched_track_scan's one launch a frame index (a grid of Q blocks)
+    against the plain twin (track_frame_plain a sequence) on the CPU: pose
+    columns within 1e-4, counts exact; exactly S launches a call."""
+    from superslam_tpu_torch.parallel.batched_tracking import batched_track_scan
+
+    arrays, carry, kw = _batched_scene(q_count)
+    outs = []
+    for dev in ("cpu", cuda):
+        before = _build.launch_counts()["track_frame_batched"]
+        out, new = batched_track_scan(*(torch.from_numpy(a).to(dev) for a in arrays),
+                                      tuple(torch.from_numpy(c).to(dev) for c in carry), **kw)
+        torch.cuda.synchronize()
+        launched = _build.launch_counts()["track_frame_batched"] - before
+        assert launched == (3 if dev == cuda else 0)
+        outs.append((out.cpu().numpy(), [c.cpu().numpy() for c in new]))
+    (ref, ref_c), (got, got_c) = outs
+    np.testing.assert_allclose(got[..., :12], ref[..., :12], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(got[..., 12], ref[..., 12])
+    for a, b in zip(got_c, ref_c):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    assert (got[-1, 1:, 12] == 6).all()
+
+
+@pytest.mark.gpu
+def test_batched_track_frame_refuses_what_it_cannot_take(cuda):
+    from superslam_tpu_torch.ops.cuda.track_frame import track_frame_batched
+
+    arrays, carry, kw = _batched_scene(2, k=64)
+    kl, disp, ok, tm, xw, dok = (torch.from_numpy(a).to(cuda) for a in arrays)
+    c = torch.cat([torch.from_numpy(carry[0]).reshape(2, 9), torch.from_numpy(carry[1]),
+                   torch.from_numpy(carry[2]).reshape(2, 9), torch.from_numpy(carry[3])],
+                  1).to(cuda)
+    solve_kw = dict(calib=kw["calib"], min_matches=10, inv_sig_uLv=0.1, disp_sigma0=8.0,
+                    disp_cond=kw["disp_cond"], mono=False, gate_px=10.0, chi2_px=3.0,
+                    chi2_rounds=1, track_iters=20)
+    before = _build.launch_counts()["track_frame_batched"]
+    with pytest.raises(ValueError, match="tm"):
+        track_frame_batched(c, kl[:, 0], disp[:, 0], ok[:, 0], tm[:, 0].long(), xw, dok,
+                            **solve_kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        track_frame_batched(c, kl[:, 0], disp[:, 0], ok[:, 0], tm[:, 0], xw.transpose(1, 2)
+                            .contiguous().transpose(1, 2), dok, **solve_kw)
+    assert _build.launch_counts()["track_frame_batched"] == before

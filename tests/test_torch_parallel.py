@@ -1,0 +1,292 @@
+"""The port's parallel/ package against the JAX package's on the CPU: the
+mesh and its placements, batched_stereo_frontend, batched_track_scan and
+MultiSequenceTracker (tests/test_parallel.py's cases, with the JAX side on
+its 8 virtual CPU devices and the port's mesh over 8 `cpu` entries).
+
+Tolerances:
+- batched_track_scan: pose columns within 1e-4 (m and rotation-matrix
+  entries; the two f32 LMs sum in other orders), counts exact;
+- batched_stereo_frontend in the default bf16 on both sides: the
+  keypoints (whole pixels, no sub-pixel step here) exact; XLA's and
+  oneDNN's bf16 matmuls round at other places, which flips near-tied
+  matches, so, as the step's parity tests allow
+  (tests/test_torch_frontend_step.py), >= 90% of the matches agree;
+- MultiSequenceTracker with both packages' steps bound to f32 (the
+  rounding gap removed): every sequence's trajectory within 1e-3 m of the
+  JAX tracker's; sequence 0 within 1e-4 m of the port's own
+  single-sequence run on the same frames (the same arithmetic per
+  sequence).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from superslam_tpu.models.lightglue import init_lightglue_params as jax_lg_init
+from superslam_tpu.models.superpoint import init_superpoint_params as jax_sp_init
+from superslam_tpu.parallel import mesh as jmesh
+from superslam_tpu_torch.models.weights import from_jax_params
+from superslam_tpu_torch.parallel import mesh as tmesh
+
+CPU8 = ["cpu"] * 8
+
+
+def _np_params(params):
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
+def test_mesh_default_axes_match_jax():
+    for n in (1, 2, 3, 4, 8):
+        j = jmesh.make_mesh(n)
+        t = tmesh.make_mesh(n, devices=CPU8)
+        assert t.devices.shape == j.devices.shape
+        assert t.axis_names == tuple(j.axis_names)
+        assert t.shape == dict(j.shape)
+    assert tmesh.make_mesh(8, model_axis=1, devices=CPU8).shape == {"data": 8, "model": 1}
+
+
+def test_lightglue_rules_match_jax():
+    """Every LightGlue parameter's spec: the JAX rule on its (in, out)
+    weight, reversed on the port's (out, in) one; biases and the rest as
+    they are."""
+    mesh_j, mesh_t = jmesh.make_mesh(8), tmesh.make_mesh(8, devices=CPU8)
+    params = jax_lg_init(0)
+    sh_j = jmesh.lightglue_param_sharding(mesh_j, params)
+    sh_t = tmesh.lightglue_param_sharding(mesh_t, from_jax_params(_np_params(params)))
+    assert set(sh_j) == set(sh_t)
+    n_split = 0
+    for name, s in sh_j.items():
+        spec = tuple(s.spec)
+        want = tuple(reversed(spec)) if np.ndim(params[name]) == 2 and spec else spec
+        assert sh_t[name].spec == want, name
+        n_split += bool(spec)
+    assert n_split > 0
+    assert not sh_t["transformers.0.self_attn.ffn.0.weight"].is_fully_replicated
+    assert sh_t["log_assignment.8.matchability.weight"].is_fully_replicated
+    assert tmesh.data_sharding(mesh_t).spec == tuple(jmesh.data_sharding(mesh_j).spec)
+    assert tmesh.data_sharding(mesh_t, 2).spec == tuple(jmesh.data_sharding(mesh_j, 2).spec)
+    assert tmesh.replicate(mesh_t).spec == tuple(jmesh.replicate(mesh_j).spec) == ()
+
+
+def test_make_mesh_fails_loudly_when_too_few_devices():
+    with pytest.raises(ValueError, match="needs 16 devices"):
+        tmesh.make_mesh(16)  # no CUDA device here
+    with pytest.raises(ValueError, match="needs 9 devices"):
+        tmesh.make_mesh(9, devices=CPU8)
+
+
+@pytest.fixture
+def unfused_lightglue(monkeypatch):
+    """Both packages on the unfused LightGlue route (the JAX fused route
+    on the CPU is Pallas in interpret mode)."""
+    monkeypatch.setenv("SUPERSLAM_PALLAS_LG", "0")
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def test_batched_stereo_frontend_matches_jax(unfused_lightglue):
+    from superslam_tpu.parallel.batched_tracking import batched_stereo_frontend as jfront
+    from superslam_tpu_torch.parallel.batched_tracking import batched_stereo_frontend
+
+    rng = np.random.default_rng(1)
+    S, H, W, K = 2, 48, 64, 64
+    left = rng.uniform(0, 1, (S, H, W)).astype(np.float32)
+    right = np.roll(left, -3, axis=2)
+    jsp, jlg = jax_sp_init(0), jax_lg_init(0)
+    jo = jfront(jsp, jlg, jnp.asarray(left), jnp.asarray(right), max_keypoints=K)
+    to = batched_stereo_frontend(
+        from_jax_params(_np_params(jsp)), from_jax_params(_np_params(jlg)),
+        torch.from_numpy(left), torch.from_numpy(right), max_keypoints=K,
+    )
+    assert to["matches0"].shape == (S, K) and to["kpts_left"].shape == (S, K, 2)
+    assert torch.isfinite(to["mscores0"]).all()
+    same_kp = same_match = n_kp = n_match = 0
+    for s in range(S):
+        jk = np.asarray(jo["kpts_left"][s])[np.asarray(jo["valid_left"][s])]
+        tk = to["kpts_left"][s][to["valid_left"][s]].numpy()
+        n_kp += len(jk)
+        same_kp += sum(bool((np.abs(tk - p).max(axis=1) == 0).any()) for p in jk)
+        jm, tm = np.asarray(jo["matches0"][s]), to["matches0"][s].numpy()
+        jv = np.asarray(jo["valid_left"][s])
+        n_match += int(jv.sum())
+        same_match += int((jm[jv] == tm[jv]).sum())
+    print(f"keypoints {same_kp}/{n_kp} exact, matches {same_match}/{n_match} identical")
+    assert n_kp > 0 and same_kp == n_kp
+    assert same_match >= 0.9 * n_match
+
+
+def _track_inputs():
+    """tests/test_parallel.py's batched_track_scan inputs (Q 4, S 3, K 48):
+    exact projections of per-sequence landmarks under known motions."""
+    from superslam_tpu.geometry import Pose3, StereoCalib
+
+    cal = StereoCalib(fx=80.0, fy=80.0, cx=80.0, cy=60.0, baseline=0.1)
+    kw = dict(calib=(80.0, 80.0, 80.0, 60.0, 0.1), min_matches=10, track_sigma_px=10.0,
+              disp_sigma0=8.0, disp_cond=cal.bf / 40.0)
+    rng = np.random.default_rng(9)
+    Q, S, K = 4, 3, 48
+    kls, disps, xws, truths = [], [], [], []
+    for q in range(Q):
+        Xw = rng.uniform([-4, -3, 6], [4, 3, 18], (K, 3))
+        xws.append(Xw)
+        seq_true, seq_meas = [], []
+        for s in range(S):
+            true = Pose3.expmap(
+                np.array([0.0, 0.01 * (s + 1), 0.0, 0.1 * (s + 1) * (q + 1), 0.0, 0.0]))
+            p = true.transform_to(Xw)
+            uL = cal.fx * p[:, 0] / p[:, 2] + cal.cx
+            uR = cal.fx * (p[:, 0] - cal.baseline) / p[:, 2] + cal.cx
+            v = cal.fy * p[:, 1] / p[:, 2] + cal.cy
+            seq_meas.append(np.stack([uL, uR, v], 1))
+            seq_true.append(true)
+        truths.append(seq_true)
+        kls.append(np.stack([np.stack([m[:, 0], m[:, 2]], 1) for m in seq_meas]))
+        disps.append(np.stack([m[:, 0] - m[:, 1] for m in seq_meas]))
+    tm = np.tile(np.arange(K), (Q, S, 1)).astype(np.int32)
+    ok = np.ones((Q, S, K), bool)
+    # Sequence 3 coasts: below min_matches from its second frame on.
+    tm[3, 1:, 6:] = -1
+    arrays = (np.stack(kls).astype(np.float32), np.stack(disps).astype(np.float32), ok, tm,
+              np.stack(xws).astype(np.float32), np.ones((Q, K), bool))
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), (Q, 3, 3)).copy()
+    zero = np.zeros((Q, 3), np.float32)
+    return arrays, (eye, zero, eye, zero), kw, truths
+
+
+def test_batched_track_scan_matches_jax():
+    from superslam_tpu.parallel.batched_tracking import batched_track_scan as jscan
+    from superslam_tpu_torch.ops.frontend_step import track_scan
+    from superslam_tpu_torch.parallel.batched_tracking import batched_track_scan
+
+    arrays, carry, kw, truths = _track_inputs()
+    jout, jcarry = jscan(*(jnp.asarray(a) for a in arrays),
+                         tuple(jnp.asarray(c) for c in carry), **kw)
+    tt = [torch.from_numpy(a) for a in arrays]
+    tout, tcarry = batched_track_scan(*tt, tuple(torch.from_numpy(c) for c in carry), **kw)
+    jout, tout = np.asarray(jout), tout.numpy()
+    assert tout.shape == jout.shape == (4, 3, 13)
+    np.testing.assert_allclose(tout[..., :12], jout[..., :12], atol=1e-4)
+    np.testing.assert_array_equal(tout[..., 12], jout[..., 12])
+    assert (tout[3, 1:, 12] < kw["min_matches"]).all()  # the coasting sequence
+    for a, b in zip(tcarry, jcarry):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    # Each sequence alone through the port's track_scan: the same rows.
+    for q in range(4):
+        ref, _ = track_scan(*(t[q] for t in tt),
+                            tuple(torch.from_numpy(c[q]) for c in carry), **kw)
+        np.testing.assert_array_equal(tout[q], ref.numpy())
+    for q in range(3):
+        for s, true in enumerate(truths[q]):
+            assert np.abs(tout[q, s, 9:12] - true.t).max() < 1e-3
+
+
+# -- MultiSequenceTracker -----------------------------------------------------------
+
+W, H, K = 160, 120, 96
+
+
+def _sequences():
+    """tests/test_parallel.py::test_multi_sequence_tracker's two streams."""
+    rng = np.random.default_rng(4)
+    base = [rng.uniform(0, 255, (H + 16, W + 16)).astype(np.uint8) for _ in range(2)]
+    seqs = []
+    for s in range(2):
+        frames = []
+        for i in range(4):
+            left = base[s][i : i + H, 2 * i : 2 * i + W]
+            frames.append((left, np.roll(left, -4, axis=1)))
+        seqs.append(frames)
+    return seqs
+
+
+@pytest.fixture
+def f32_steps(monkeypatch):
+    """Both packages' steps with SuperPoint and LightGlue bound to f32 on
+    the unfused route (module attributes rebound; JAX retraces)."""
+    import superslam_tpu.ops.frontend_step as jstep
+    import superslam_tpu_torch.ops.frontend_step as tstep
+
+    for mod, dtype in ((jstep, jnp.float32), (tstep, torch.float32)):
+        monkeypatch.setattr(
+            mod, "superpoint_dense", functools.partial(mod.superpoint_dense, compute_dtype=dtype))
+        monkeypatch.setattr(
+            mod, "lightglue_forward",
+            functools.partial(mod.lightglue_forward, compute_dtype=dtype, fused=False))
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _run_multi(tracker, seqs):
+    for i in range(4):
+        poses = tracker.step([s[i][0] for s in seqs], [s[i][1] for s in seqs], [0.1 * i] * 2)
+        assert len(poses) == len(seqs)
+    return tracker.trajectories()
+
+
+def test_multi_sequence_tracker_matches_jax(f32_steps):
+    from superslam_tpu.geometry import StereoCalib as JCalib
+    from superslam_tpu.parallel.multi_tracker import MultiSequenceTracker as JTracker
+    from superslam_tpu_torch.core.vo_estimator import VoEstimator
+    from superslam_tpu_torch.frontend.fused import FusedStereoPipeline
+    from superslam_tpu_torch.geometry import StereoCalib
+    from superslam_tpu_torch.parallel.multi_tracker import MultiSequenceTracker
+
+    seqs = _sequences()
+    jsp, jlg = jax_sp_init(0), jax_lg_init(0)
+    sp, lg = from_jax_params(_np_params(jsp)), from_jax_params(_np_params(jlg))
+    kw = dict(num_sequences=2, width=W, height=H, max_keypoints=K, keypoint_threshold=5e-4,
+              window_size=4)
+    jcal = JCalib(fx=80.0, fy=80.0, cx=80.0, cy=60.0, baseline=0.1)
+    cal = StereoCalib(fx=80.0, fy=80.0, cx=80.0, cy=60.0, baseline=0.1)
+    jtraj = _run_multi(JTracker(jsp, jlg, jcal, **kw), seqs)
+    mesh = tmesh.make_mesh(2, model_axis=1, devices=CPU8)  # both shards on the CPU: one step
+    tracker = MultiSequenceTracker(sp, lg, cal, mesh=mesh, device="cpu", **kw)
+    assert len(tracker.groups) == 1
+    ttraj = _run_multi(tracker, seqs)
+    for s in range(2):
+        assert len(ttraj[s]) == len(jtraj[s]) == 4
+        gap = max(float(np.linalg.norm(a.t - b.t)) for a, b in zip(ttraj[s], jtraj[s]))
+        assert gap < 1e-3, (s, gap)
+
+    # Sequence 0 alone through the single-sequence path: its keyframe state
+    # did not leak into sequence 1's or back.
+    pipe = FusedStereoPipeline(sp, lg, cal, width=W, height=H, max_keypoints=K,
+                               keypoint_threshold=5e-4, device="cpu")
+    est = VoEstimator(None, cal, 4, device="cpu")
+    for i, (left, right) in enumerate(seqs[0]):
+        frame, m = pipe.process(left, right, 0.1 * i)
+        est.track(frame, kf_matches=m)
+        if est._last_keyframe is frame:
+            pipe.set_keyframe(frame.descriptors_left)
+    ref = est.corrected_trajectory()
+    for a, b in zip(ttraj[0], ref):
+        assert np.linalg.norm(a.t - b.t) < 1e-4, (a.t, b.t)
+
+    # A data axis over two distinct devices ("cpu" and "cpu:0" compare
+    # unequal): one step a device, each with its own sequence.
+    split = MultiSequenceTracker(sp, lg, cal, mesh=tmesh.make_mesh(
+        2, model_axis=1, devices=["cpu", "cpu:0"]), device="cpu", **kw)
+    assert [g.seqs for g in split.groups] == [[0], [1]]
+    for a_seq, b_seq in zip(_run_multi(split, seqs), ttraj):
+        for a, b in zip(a_seq, b_seq):
+            assert np.linalg.norm(a.t - b.t) < 1e-4, (a.t, b.t)
+
+
+def test_multi_sequence_tracker_rejects_a_mesh_that_does_not_divide():
+    from superslam_tpu_torch.geometry import StereoCalib
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.models.superpoint import init_superpoint_params
+    from superslam_tpu_torch.parallel.multi_tracker import MultiSequenceTracker
+
+    cal = StereoCalib(fx=80.0, fy=80.0, cx=80.0, cy=60.0, baseline=0.1)
+    mesh = tmesh.make_mesh(8, devices=CPU8)  # data axis 4
+    with pytest.raises(ValueError, match="multiple of the mesh data axis"):
+        MultiSequenceTracker(init_superpoint_params(0), init_lightglue_params(0), cal,
+                             num_sequences=6, width=W, height=H, mesh=mesh, device="cpu")

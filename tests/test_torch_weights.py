@@ -92,6 +92,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import superslam_tpu_torch.frontend.fused_rgbd, superslam_tpu_torch.frontend.rgbd_frontend\n"
         "import superslam_tpu_torch.frontend.pipelined_rgbd, superslam_tpu_torch.frontend.recognizer\n"
         "import superslam_tpu_torch.models.eigenplaces, superslam_tpu_torch.io.undistort\n"
+        "import superslam_tpu_torch.ops.window_solver, superslam_tpu_torch.parallel.mesh\n"
+        "import superslam_tpu_torch.parallel.batched_tracking, superslam_tpu_torch.parallel.multi_tracker\n"
+        "import superslam_tpu_torch.frontend.stereo_frontend, superslam_tpu_torch.io.viewer\n"
+        "import superslam_tpu_torch.io, superslam_tpu_torch.ops\n"
+        "from superslam_tpu_torch.ops import ShardedCosineIndex, solve_window, pose_only_lm\n"
         "scripts.profile_stages_torch.run_stages(['lg_attn'], 'cpu', 32, 64, 16, 0, 1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superslam_tpu' or m.startswith('superslam_tpu.'))\n"
