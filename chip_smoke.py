@@ -158,6 +158,39 @@ In order, any failure exiting non-zero:
    pairs for 20 steps (finite losses, precision and recall printed, the
    checkpoint written and loaded back); and one step under torch.profiler
    for the forward / backward / optimizer split;
+7b. the training slice at the scripts' defaults: the gradient of
+   ``sp_loss`` (f32, from the committed render-trained checkpoint) on the
+   card against the same batch's on the CPU, on a dithered copy (uint8
+   images hold pooling windows tied in exact arithmetic, which the last
+   bit breaks): with the network in f64 on both, every parameter within
+   1e-3 of that tensor's largest CPU gradient; in f32, the card no farther
+   from that f64 gradient than twice the CPU's f32 gradient is (the f32
+   gradient is 1e-3-1.3e-2 from it on either device), for a wire-format
+   batch (8 of the step's 32 at 120x160) and a two-view render batch (8
+   at 240x320, hardest-negative term on); ``sp_train_step`` for 10 steps
+   on the fixed wire-format batch (32 at 120x160) at lr 1e-3 (finite, last
+   loss below the first; step median by CUDA events, steps/s); conv1a1b, conv_pair and scores_nms at (1, 120, 160)
+   on a procedural-shapes image and (1, 240, 320) on a sprite render,
+   scores_nms against its plain version with the limits of 3 and the conv
+   pairs against the pair in f32 within 3's 2e-2 of max (their plain
+   versions round the image to bf16 first and part from f32 by 1.5-3.6e-2
+   on such images; that distance is printed), timed beside the plain
+   version and the library call, and
+   ``evaluate_detector`` launching them exactly 1/1/1 an extraction;
+   ``scripts/train_superpoint_torch.py`` in-process (40 steps, pool 64,
+   render fraction 0.5, render pool 16, evaluations at 20 and 40; finite
+   losses, the evaluations printed, the checkpoint loaded back through
+   ``load_params`` and one ``SuperPointExtractor`` extraction on it);
+   ``scripts/train_eigenplaces_torch.py`` in-process at full width
+   (ResNet18, 512-d, 512 x 512, 16 places x 2 views a batch; cut to 24
+   places x 4 views, 8 eval places, 30 steps; finite losses, recall@1
+   before and after and the step median printed; the checkpoint in
+   ``eigenplaces_descriptor`` at unit norm, and the training forward
+   within 1e-2 of ``eigenplaces_descriptor`` with its batch statistics
+   merged in); and ``sharded_train_step`` on the (1, 1) mesh against
+   ``train_step`` on one batch (loss and parameters within 1e-6, 18
+   masked_attention and 18 masked_attention_bwd launches); prints the
+   phase's wall time;
 8. runs every stage of ``scripts/profile_stages_torch.py`` and checks that
    conv1a1b_full, conv_pair_full and conv3x3 were launched there;
 9. profiles, after every timed phase (a profiler session slows the
@@ -220,6 +253,21 @@ TRAIN_BATCH, TRAIN_CAP, TRAIN_LR = 8, 256, 3e-4
 FIXED_BATCH_STEPS = 6
 SCRIPT_PAIRS, SCRIPT_STEPS = 24, 20
 ATTENTION_PER_STEP = 18  # 9 layers x (self + cross), forward and backward each
+# The training slice (phase 7b): scripts/train_superpoint.py's defaults
+# (batch 32 at 120x160, lr 1e-3; render pairs 8 at 240x320), started from the
+# committed render-trained checkpoint; the gradient on the card against the
+# CPU's within 1e-3 of each tensor's largest CPU gradient (on a dithered copy
+# of the batch, in f64; in f32 within twice the CPU f32's own distance from
+# the f64 gradient: see check_sp_gradient).
+SP_BATCH, SP_H, SP_W, SP_LR = 32, 120, 160, 1e-3
+SP_RENDER_BATCH, SP_RENDER_H, SP_RENDER_W = 8, 240, 320
+SP_GRAD_TOL, SP_F32_SPREAD, SP_FIXED_STEPS = 1e-3, 2.0, 10
+SP_GRAD_BATCH = 8  # the wire-format gradient check: the first 8 pairs (the CPU's f64 is slow)
+SP_SCRIPT_ARGS = ["--steps", "40", "--pool", "64", "--render-frac", "0.5", "--render-pool", "16",
+                  "--eval-every", "20"]
+# EigenPlaces at full width (ResNet18, 512-d, 512 x 512, 16 places x 2 views a
+# batch), cut to 24 places x 4 views, 8 eval places, 30 steps.
+EP_SCRIPT_ARGS = ["--places", "24", "--views", "4", "--eval-places", "8", "--steps", "30"]
 # Launches per frame on the default (fused) LightGlue route and on the
 # unfused one (SUPERSLAM_PALLAS_LG=0).
 PER_FRAME_FUSED = {
@@ -1610,8 +1658,13 @@ def check_track_frame(torch, captured):
     }
 
 
-MARKERS = 3  # check_scan_body's marker negations
-PROFILE_TRIES = 3  # its sessions until one records a device event
+MARKERS = 16  # check_scan_body's marker negations
+PROFILE_TRIES = 3  # its sessions until one records a marker
+# Host time a session's warm-up step waits after tracing starts: sessions on
+# the H100 have recorded the body's kernel but none of the markers launched
+# just before it (the first device events of a session are lost while
+# tracing starts).
+PROFILE_SETTLE_S = 0.05
 
 
 def check_scan_body(torch, scan_call) -> None:
@@ -1619,16 +1672,20 @@ def check_scan_body(torch, scan_call) -> None:
     torch.profiler: its device events must be the track_frame kernel alone,
     one a frame (no PyTorch op of the old Python body is left). MARKERS
     one-element negations open the window: the profiler may drop the first
-    device event of a session (a profile holding only the kernel once
+    device events of a session (a profile holding only the kernel once
     recorded nothing), so at least one and at most MARKERS negations must
     be recorded, which shows that what was dropped came before the body,
     and every other event must be a track_frame kernel, n of them; the
     scan body negates nothing. A discarded session warms the profiler
-    first, and a session that records no device event at all (seen now and
-    then on the H100) says nothing of the body: it is run again,
-    up to PROFILE_TRIES times, and the checks apply to the first that
-    records one."""
-    from torch.profiler import ProfilerActivity, profile
+    first, and each session opens with a warm-up step (torch.profiler's
+    schedule: tracing on, its events discarded; one marker and
+    PROFILE_SETTLE_S of host time) before the recorded step. A session that
+    records no device event at all, or none of the markers (both seen now
+    and then on the H100; after the warm-up step 2-3 of 8 markers were
+    still lost), cannot show that: it is run again, up to PROFILE_TRIES
+    times, and the checks apply to the first that records a marker (or to
+    the last session)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from superslam_tpu_torch.ops import frontend_step
 
@@ -1641,16 +1698,26 @@ def check_scan_body(torch, scan_call) -> None:
         marker.neg_()
         torch.cuda.synchronize()
     for attempt in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            time.sleep(PROFILE_SETTLE_S)
+            marker.neg_()
+            torch.cuda.synchronize()
+            prof.step()  # the warm-up step ends: what follows is recorded
             for _ in range(MARKERS):
                 marker.neg_()
             frontend_step.track_kf_scan(*a, **kw)
             torch.cuda.synchronize()
+            prof.step()
+        # Device-side events, less the schedule's own span of the step
+        # (ProfilerStep#1, which the profiler also puts on the device).
         rows = [e for e in prof.key_averages()
-                if device_us(e) > 0 and "CPU" not in str(getattr(e, "device_type", "CPU"))]
-        if rows:
+                if device_us(e) > 0 and "CPU" not in str(getattr(e, "device_type", "CPU"))
+                and not e.key.startswith("ProfilerStep")]
+        if any("neg" in e.key for e in rows):
             break
-        print(f"scan body: session {attempt} of {PROFILE_TRIES} recorded no device event")
+        print(f"scan body: session {attempt} of {PROFILE_TRIES} recorded no marker "
+              f"(device events {[e.key[:40] for e in rows]})")
     events = {e.key: e.count for e in rows}
     print(f"scan body: {n} frame(s) of track_kf_scan after {MARKERS} marker negations: device "
           f"events {events}")
@@ -2328,18 +2395,42 @@ def multi_sequence_frames(n: int):
     return [f for f, _ in out], [g for _, g in out]
 
 
-def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
-    """The five frame kernels at the multi-sequence step's shapes (2S = 8
-    images, 4S = 16 pair problems) against their plain versions with the
-    limits of the single-frame checks, timed beside the plain version and
-    the library call."""
+def report_kernel(torch, name, label, err, limit, fn, plain, library, bnd) -> dict:
+    """Time a kernel that passed its check beside its plain version and the
+    library call (CUDA events, median of 20), print the row and return it."""
+    ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
+    lib_ms = None if library is None else time_ms(torch, library)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"kernel {name} {label}: error {err:.3g} (limit {limit}), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return {"name": name, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+
+
+def check_superpoint_kernels(torch, sp_params, images, label: str,
+                             against_f32: bool = False) -> list[dict]:
+    """conv1a1b, conv_pair and scores_nms (logits mode) on ``images`` (B, H,
+    W) f32 on the card, each against its plain version with the limits of
+    phase 3 (the conv pairs within 2e-2 of max |plain|; the pre-NMS map
+    within 1e-6 abs and the NMS'd map exactly nms_plain of it), timed
+    beside the plain version and the library call.
+
+    ``against_f32`` holds the conv pairs instead against the same pair in
+    f32 (F.conv2d with TF32 off), within the same 2e-2 of max, and prints
+    their distance from the plain version beside it: the plain versions
+    round the image and each conv's output to bf16 before the bias (the JAX
+    package's XLA route), and on small high-contrast images (procedural
+    shapes, sprite renders at 120x160) that alone parts them from f32 by
+    1.5-3.6e-2 of max, where the kernel, which convolves the f32 image,
+    stays within 0.5e-2."""
     import torch.nn.functional as F
+
+    from superslam_tpu_torch.ops.precision import highest_f32_matmuls
 
     from superslam_tpu_torch.models.superpoint import (
         _encoder_and_heads,
         prepare_superpoint_params,
     )
-    from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
     from superslam_tpu_torch.ops.cuda.conv import (
         conv_pair_pool,
         conv_pair_pool_plain,
@@ -2347,23 +2438,11 @@ def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
     )
     from superslam_tpu_torch.ops.cuda.nms import nms_plain, scores_nms, scores_nms_plain
 
-    dev, bf16, B = torch.device("cuda"), torch.bfloat16, 2 * MULTI_S
-    img = np.zeros((B, PAD_H, PAD_W), np.float32)
-    for s, (left, right) in enumerate(first_frames):
-        img[2 * s, :HEIGHT, :WIDTH] = left / 255.0
-        img[2 * s + 1, :HEIGHT, :WIDTH] = right / 255.0
-    images = torch.from_numpy(img).to(dev)
-
-    def report(name, err, limit, fn, plain, library, bnd):
-        ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
-        lib = "none" if library is None else f"{time_ms(torch, library):.4f} ms"
-        print(f"multi kernel {name} at the S = {MULTI_S} step: error {err:.3g} (limit {limit}), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-
+    bf16 = torch.bfloat16
+    b, h0, w0 = images.shape
+    rows = []
     x = images[:, None]
-    for name, cin, h, w in (("conv1a1b", 1, PAD_H, PAD_W),
-                            ("conv_pair", 64, PAD_H // 2, PAD_W // 2)):
+    for name, cin, h, w in (("conv1a1b", 1, h0, w0), ("conv_pair", 64, h0 // 2, w0 // 2)):
         pre = ("conv1a", "conv1b") if cin == 1 else ("conv2a", "conv2b")
         wa, ba = sp_params[f"{pre[0]}.weight"], sp_params[f"{pre[0]}.bias"]
         wb, bb = sp_params[f"{pre[1]}.weight"], sp_params[f"{pre[1]}.bias"]
@@ -2371,22 +2450,34 @@ def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
         got = conv_pair_pool(x, wa, ba, wb, bb, operands=ops)
         ref = conv_pair_pool_plain(x, wa, ba, wb, bb)
         torch.cuda.synchronize()
-        if got.shape != (B, 64, h // 2, w // 2):
-            fail(f"multi {name}: output {tuple(got.shape)}")
+        if got.shape != (b, 64, h // 2, w // 2):
+            fail(f"{name} {label}: output {tuple(got.shape)}")
         rel = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+        what = "of max |plain|"
+        if against_f32:
+            with highest_f32_matmuls():
+                f32 = F.relu(F.conv2d(F.relu(F.conv2d(x.float(), wa, ba, padding=1)), wb, bb,
+                                      padding=1))
+                f32 = F.max_pool2d(f32, 2)
+            top = f32.abs().max().item()
+            print(f"kernel {name} {label}: against f32 {(got.float() - f32).abs().max().item() / top:.3g}"
+                  f" of max, its plain version {(ref.float() - f32).abs().max().item() / top:.3g}, "
+                  f"kernel vs plain {rel:.3g} of max |plain|")
+            rel, what = (got.float() - f32).abs().max().item() / top, "of max |f32|"
         if not rel <= 2e-2:
-            fail(f"multi {name}: error {rel} of max |plain| > 2e-2")
+            fail(f"{name} {label}: error {rel} {what} > 2e-2")
         xl = x.to(bf16).contiguous(memory_format=torch.channels_last)
         wal, bal, wbl, bbl = (t.to(bf16) for t in (wa, ba, wb, bb))
-        px = B * h * w
-        report(
-            name, rel, 2e-2, lambda: conv_pair_pool(x, wa, ba, wb, bb, operands=ops),
+        px = b * h * w
+        rows.append(report_kernel(
+            torch, name, f"{label} {tuple(x.shape)}", rel, 2e-2,
+            lambda: conv_pair_pool(x, wa, ba, wb, bb, operands=ops),
             lambda: conv_pair_pool_plain(x, wa, ba, wb, bb),
             lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(F.conv2d(xl, wal, bal, padding=1)),
                                                  wbl, bbl, padding=1)), 2),
             bound(nbytes(x, wa, ba, wb, bb, got), f32_ops=2 * px * 64 * 9 if cin == 1 else 0,
                   bf16_ops=2 * px * 64 * 64 * 9 * (1 if cin == 1 else 2)),
-        )
+        ))
         x = got
 
     with torch.no_grad():
@@ -2395,19 +2486,38 @@ def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
     _, ref_pre = scores_nms_plain(logits, 4, return_pre=True)
     torch.cuda.synchronize()
     err = (pre_k - ref_pre).abs().max().item()
-    if out_k.shape != (B, PAD_H, PAD_W) or not err <= 1e-6:
-        fail(f"multi scores_nms: output {tuple(out_k.shape)}, pre-NMS error {err} > 1e-6")
+    if out_k.shape != (b, h0, w0) or not err <= 1e-6:
+        fail(f"scores_nms {label}: output {tuple(out_k.shape)}, pre-NMS error {err} > 1e-6")
     if not torch.equal(out_k, nms_plain(pre_k, 4)):
-        fail("multi scores_nms: the NMS'd map differs from nms_plain of its pre-NMS map")
+        fail(f"scores_nms {label}: the NMS'd map differs from nms_plain of its pre-NMS map")
 
     def library_scores():
         p = F.pixel_shuffle(torch.softmax(logits, dim=1)[:, :-1], 8)
         return torch.where(p == F.max_pool2d(p, 9, 1, 4), p, 0.0)
 
-    report("scores_nms", err, 1e-6, lambda: scores_nms(logits, 4, return_pre=True),
-           lambda: scores_nms_plain(logits, 4, return_pre=True), library_scores,
-           bound(nbytes(logits, out_k, pre_k),
-                 f32_ops=4.0 * logits.numel() + 19.0 * out_k.numel()))
+    rows.append(report_kernel(
+        torch, "scores_nms", f"{label} {tuple(logits.shape)}", err, 1e-6,
+        lambda: scores_nms(logits, 4, return_pre=True),
+        lambda: scores_nms_plain(logits, 4, return_pre=True), library_scores,
+        bound(nbytes(logits, out_k, pre_k), f32_ops=4.0 * logits.numel() + 19.0 * out_k.numel()),
+    ))
+    return rows
+
+
+def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
+    """The five frame kernels at the multi-sequence step's shapes (2S = 8
+    images, 4S = 16 pair problems) against their plain versions with the
+    limits of the single-frame checks, timed beside the plain version and
+    the library call."""
+    from superslam_tpu_torch.ops.cuda import lightglue_layer as lgl
+
+    dev, bf16, B = torch.device("cuda"), torch.bfloat16, 2 * MULTI_S
+    img = np.zeros((B, PAD_H, PAD_W), np.float32)
+    for s, (left, right) in enumerate(first_frames):
+        img[2 * s, :HEIGHT, :WIDTH] = left / 255.0
+        img[2 * s + 1, :HEIGHT, :WIDTH] = right / 255.0
+    label = f"at the S = {MULTI_S} step"
+    check_superpoint_kernels(torch, sp_params, torch.from_numpy(img).to(dev), label)
 
     # The blocks at 4S pair-problem sides: S stereo + S track problems, two
     # sides each, with the checkpoint's layer 0, ragged masks and the
@@ -2447,9 +2557,9 @@ def check_multi_kernels(torch, sp_params, lg_params, first_frames) -> None:
         a_bf16, a_f32 = attention_ops(mask if is_self else swapped)
         proj_ops = 2.0 * m_rows * 256 * (768 if is_self else 512)
         io = nbytes(x32.to(bf16), *rotary, mask, got, *prep(lg_params, prefix, bf16))
-        report(name, rel, 2e-2, calls[bf16][0], calls[bf16][1], None,
-               bound(io, bf16_ops=proj_ops + tail_ops + a_bf16,
-                     f32_ops=a_f32 + 30.0 * m_rows * 512))
+        report_kernel(torch, name, label, rel, 2e-2, calls[bf16][0], calls[bf16][1], None,
+                      bound(io, bf16_ops=proj_ops + tail_ops + a_bf16,
+                            f32_ops=a_f32 + 30.0 * m_rows * 512))
 
 
 def multi_tracker(sp, lg, n_seq: int):
@@ -3043,6 +3153,266 @@ def check_training(torch) -> tuple[int, int]:
     return fwd_launches, bwd_launches
 
 
+def sp_batch(torch, samples, device):
+    """Stacked wire-format samples as tensors on ``device``."""
+    return {k: torch.from_numpy(np.stack([x[k] for x in samples])).to(device) for k in samples[0]}
+
+
+def sp_gradient(torch, params, batch, dtype):
+    """sp_loss and its gradient as sp_train_step computes them
+    (highest_f32_matmuls), from fresh ``dtype`` leaves of ``params`` on the
+    batch's device, with
+    superpoint_raw's convolutions in ``dtype`` (its logits and descriptors,
+    and so the loss, stay f32)."""
+    import functools
+
+    from superslam_tpu_torch.models import superpoint as spm
+    from superslam_tpu_torch.ops.precision import highest_f32_matmuls
+    from superslam_tpu_torch.train import superpoint_train as spt
+
+    dev = batch["img0"].device
+    leaves = {k: v.to(dev, dtype).clone().requires_grad_(True) for k, v in params.items()}
+    raw = spt.superpoint_raw
+    spt.superpoint_raw = functools.partial(spm.superpoint_raw, compute_dtype=dtype)
+    try:
+        with highest_f32_matmuls():
+            loss, aux = spt.sp_loss(leaves, batch)
+            loss.backward()
+    finally:
+        spt.superpoint_raw = raw
+    return loss.item(), {k: v.item() for k, v in aux.items()}, {k: p.grad for k, p in leaves.items()}
+
+
+def gradient_gap(torch, got, ref) -> tuple[float, str]:
+    """The largest max |got - ref| / max |ref| over the parameters, and where."""
+    worst, name = 0.0, ""
+    for k, r in ref.items():
+        g = got[k].to("cpu", torch.float64)
+        if not torch.isfinite(g).all().item():
+            fail(f"sp train: gradient of {k} is not finite")
+        r = r.to(torch.float64)
+        gap = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-300)
+        if gap > worst:
+            worst, name = gap, k
+    return worst, name
+
+
+def dithered(samples, seed: int = 0):
+    """The samples with their uint8 images as f32 plus +-1e-4 of uniform
+    noise: no 2x2 pooling window of the network then holds two values that
+    are equal in exact arithmetic."""
+    rng = np.random.default_rng(seed)
+    return [{**x, **{k: (x[k] / 255.0 + rng.uniform(-1e-4, 1e-4, x[k].shape)).astype(np.float32)
+                     for k in ("img0", "img1")}} for x in samples]
+
+
+def check_sp_gradient(torch, params, samples, label: str) -> None:
+    """The gradient of sp_loss on the card against the CPU's on the same
+    batch (every parameter as max |error| over that tensor's largest
+    gradient), on a dithered copy of it: uint8 images have flat regions
+    whose 2x2 pooling windows hold values equal in exact arithmetic, and the
+    last bit of each implementation's sums decides which element takes the
+    gradient, so on them two correct implementations part by ~3e-3.
+
+    With the network in f64 on both devices (the loss in f32, as
+    superpoint_raw's outputs are): within SP_GRAD_TOL. In f32, the step's
+    precision: the card no farther from that f64 gradient than
+    SP_F32_SPREAD times the CPU's f32 gradient is (at least SP_GRAD_TOL);
+    at these batches the f32 gradient of sp_loss is 1e-3-1.3e-2 of a
+    tensor's largest away from the f64 one on either device."""
+    f64, f32 = torch.float64, torch.float32
+    smooth = dithered(samples)
+    loss_c, aux_c, ref = sp_gradient(torch, params, sp_batch(torch, smooth, "cpu"), f64)
+    loss_g, aux_g, got = sp_gradient(torch, params, sp_batch(torch, smooth, "cuda"), f64)
+    gap64, at64 = gradient_gap(torch, got, ref)
+    loss_c32, _, cpu32 = sp_gradient(torch, params, sp_batch(torch, smooth, "cpu"), f32)
+    loss_g32, _, card32 = sp_gradient(torch, params, sp_batch(torch, smooth, "cuda"), f32)
+    spread_cpu, at_cpu = gradient_gap(torch, cpu32, ref)
+    spread_card, at_card = gradient_gap(torch, card32, ref)
+    gap32, at32 = gradient_gap(torch, card32, cpu32)
+    limit32 = max(SP_GRAD_TOL, SP_F32_SPREAD * spread_cpu)
+    print(f"sp train: gradient of sp_loss ({label}, dithered): network in f64, card vs CPU loss "
+          f"{loss_g:.7f} vs {loss_c:.7f}, aux {aux_g} vs {aux_c}, gradient {gap64:.3g} at {at64} "
+          f"(limit {SP_GRAD_TOL}); in f32 (loss {loss_g32:.7f} card, {loss_c32:.7f} CPU): card "
+          f"vs the f64 gradient {spread_card:.3g} at {at_card}, the CPU's {spread_cpu:.3g} at "
+          f"{at_cpu} (card limit {limit32:.3g}), card vs CPU {gap32:.3g} at {at32}")
+    if not gap64 <= SP_GRAD_TOL or not abs(loss_g - loss_c) <= 1e-5 * abs(loss_c):
+        fail(f"sp train ({label}): f64 gradient {gap64} at {at64}, loss {loss_g} vs {loss_c}")
+    if not spread_card <= limit32 or not abs(loss_g32 - loss_c32) <= 1e-4 * abs(loss_c32):
+        fail(f"sp train ({label}): f32 gradient {spread_card} from f64 > {limit32}, loss "
+             f"{loss_g32} vs {loss_c32}")
+
+
+def check_training_slice(torch) -> None:
+    """The training slice on the card (phase 7b of the module docstring):
+    SuperPoint's step, the three SuperPoint kernels at its evaluation shapes,
+    both training scripts in-process and the matcher's step over the mesh."""
+    from scripts import train_eigenplaces_torch as ep_script
+    from scripts import train_superpoint_torch as sp_script
+    from superslam_tpu_torch.frontend.extractor import SuperPointExtractor
+    from superslam_tpu_torch.models import eigenplaces as epm
+    from superslam_tpu_torch.models import lightglue as lgm
+    from superslam_tpu_torch.models import superpoint as spm
+    from superslam_tpu_torch.models.weights import load_params, load_safetensors
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.parallel.mesh import make_mesh
+    from superslam_tpu_torch.parallel.training import (
+        make_optimizer,
+        sharded_train_step,
+        synthetic_matching_batch,
+        train_step,
+    )
+    from superslam_tpu_torch.train import superpoint_train as spt
+    from superslam_tpu_torch.train.render_domain import RenderDomainSource
+    from superslam_tpu_torch.train.synthetic_shapes import compact_pair, render_shapes
+
+    t_phase = time.perf_counter()
+    sp_file = os.path.join(REPO, "weights", "superpoint_render.safetensors")
+    rng = np.random.default_rng(14)
+    shapes = [compact_pair(rng, SP_H, SP_W) for _ in range(SP_BATCH)]
+    source = RenderDomainSource(rng, SP_RENDER_H, SP_RENDER_W, fx=TRAIN_FX)
+    renders = [source.two_view_compact(rng) for _ in range(SP_RENDER_BATCH)]
+    if not min((r["corr_pts"][:, 0] > -1e5).sum() for r in renders) > 0:
+        fail("sp train: a render pair without a corresponding cell")
+
+    # 1. The gradient on the card against the CPU's, both batch forms.
+    params_cpu = load_safetensors(sp_file)
+    params_cuda = {k: v.to("cuda") for k, v in params_cpu.items()}
+    check_sp_gradient(torch, params_cpu, shapes[:SP_GRAD_BATCH],
+                      f"wire format, {SP_GRAD_BATCH} x {SP_H}x{SP_W}")
+    check_sp_gradient(torch, params_cpu, renders,
+                      f"two-view renders, {SP_RENDER_BATCH} x {SP_RENDER_H}x{SP_RENDER_W}")
+
+    # 2. SP_FIXED_STEPS steps on one fixed wire-format batch.
+    batch = sp_batch(torch, shapes, "cuda")
+    params = {k: v.clone() for k, v in params_cuda.items()}
+    optimizer = spt.make_sp_optimizer(params, SP_LR)
+    spt.sp_train_step(params, optimizer, batch)  # warm-up: cuDNN plans, optimizer state
+    params = {k: v.clone() for k, v in params_cuda.items()}
+    optimizer = spt.make_sp_optimizer(params, SP_LR)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(SP_FIXED_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, _ = spt.sp_train_step(params, optimizer, batch)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    wall_s = time.perf_counter() - t0
+    print(f"sp train: {SP_FIXED_STEPS} steps on one fixed batch ({SP_BATCH} x {SP_H}x{SP_W}, "
+          f"lr {SP_LR}, f32): loss {' '.join(f'{v:.4f}' for v in losses)}; step median "
+          f"{statistics.median(step_ms):.3f} ms (CUDA events), {SP_FIXED_STEPS / wall_s:.2f} steps/s")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"sp train: the loss did not fall on the fixed batch: {losses}")
+
+    # 3. The three SuperPoint kernels at the slice's evaluation shapes, on
+    # what the evaluations extract there (a procedural-shapes image at
+    # 120x160, a sprite render at 240x320), the conv pairs against f32; and
+    # evaluate_detector's launches: 1/1/1 an extraction.
+    render_img = source.labeled_image(np.random.default_rng(16))[0]
+    for img in (render_shapes(np.random.default_rng(15), SP_H, SP_W)[0], render_img):
+        h, w = img.shape
+        images = torch.from_numpy(img.astype(np.float32))[None].to("cuda")
+        check_superpoint_kernels(torch, params_cuda, images, f"at the training slice's {h}x{w}",
+                                 against_f32=True)
+    extract, calls = spm.superpoint_extract, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return extract(*args, **kwargs)
+
+    spm.superpoint_extract = counted
+    try:
+        _build.reset_launch_counts()
+        metrics = spt.evaluate_detector(params_cuda, np.random.default_rng(17), n_images=4)
+        counts = _build.launch_counts()
+    finally:
+        spm.superpoint_extract = extract
+    per = {k: counts[k] for k in ("conv1a1b", "conv_pair", "scores_nms")}
+    print(f"sp train: evaluate_detector on 4 shape images: {json.dumps(metrics)}; {calls[0]} "
+          f"extractions, launches {per}")
+    if calls[0] < 1 or any(n != calls[0] for n in per.values()):
+        fail(f"sp train: evaluate_detector launched {per} in {calls[0]} extractions, want 1/1/1 each")
+
+    # 4. scripts/train_superpoint_torch.py in-process.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "superpoint_smoke.safetensors")
+        t0 = time.perf_counter()
+        meta = sp_script.main([*SP_SCRIPT_ARGS, "--resume", sp_file, "--out", out])
+        script_s = time.perf_counter() - t0
+        loaded = load_params(out, lambda: fail("sp script: no checkpoint"), "cuda")
+        feats = SuperPointExtractor(loaded, width=SP_RENDER_W, height=SP_RENDER_H,
+                                    max_keypoints=256, device="cuda").extract(render_img)
+    if loaded.keys() != spm.init_superpoint_params(0).keys():
+        fail("sp script: the checkpoint's names differ from the model's")
+    if len(meta["losses"]) != 40 or not all(np.isfinite(meta["losses"])):
+        fail(f"sp script: losses {meta['losses']}")
+    if feats.descriptors.n < 1 or not torch.isfinite(feats.descriptors.desc).all().item():
+        fail(f"sp script: extraction on the checkpoint: {feats.descriptors.n} keypoints")
+    print(f"sp script: {len(meta['losses'])} steps in {script_s:.1f} s (pools and evaluations "
+          f"included), loss {meta['losses'][0]:.4f} -> {meta['losses'][-1]:.4f}, "
+          f"{meta['fresh']} fresh samples; evaluations {json.dumps(meta['evals'])}; final "
+          f"{json.dumps(meta['eval'])}, render {json.dumps(meta['render_eval'])}; the checkpoint "
+          f"loaded back, one extraction on it: {feats.descriptors.n} keypoints")
+
+    # 5. scripts/train_eigenplaces_torch.py in-process, at full width.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "eigenplaces_smoke.safetensors")
+        t0 = time.perf_counter()
+        meta = ep_script.main([*EP_SCRIPT_ARGS, "--out", out])
+        script_s = time.perf_counter() - t0
+        loaded = load_params(out, lambda: fail("eigenplaces script: no checkpoint"), "cuda")
+    if loaded.keys() != epm.init_eigenplaces_params(0).keys():
+        fail("eigenplaces script: the checkpoint's names differ from the model's")
+    if len(meta["losses"]) != 30 or not all(np.isfinite(meta["losses"])):
+        fail(f"eigenplaces script: losses {meta['losses']}")
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (4, 3, 512, 512)).astype(np.float32)).to("cuda")
+    with torch.no_grad():
+        desc_tr, stats = epm.eigenplaces_descriptor_train(loaded, x)
+    desc_ckpt = epm.eigenplaces_descriptor(loaded, x)
+    desc_inf = epm.eigenplaces_descriptor(dict(loaded, **stats), x)
+    gap = (desc_tr - desc_inf).abs().max().item()
+    norm_err = (desc_ckpt.norm(dim=1) - 1).abs().max().item()
+    print(f"eigenplaces script: {len(meta['losses'])} steps in {script_s:.1f} s (renders "
+          f"included), loss {meta['losses'][0]:.4f} -> {meta['losses'][-1]:.4f}, step median "
+          f"{statistics.median(meta['step_ms'][1:]):.3f} ms (host clock, loss readback "
+          f"included; the first step left out), recall@1 {meta['recall_at_1_init']:.3f} -> "
+          f"{meta['recall_at_1']:.3f}, platform {meta['platform']}; the checkpoint in "
+          f"eigenplaces_descriptor: unit norm within {norm_err:.3g}; the trained forward vs "
+          f"eigenplaces_descriptor with its batch statistics merged in: {gap:.3g} (limit 1e-2)")
+    if not gap <= 1e-2 or not norm_err <= 1e-4:
+        fail(f"eigenplaces script: forward gap {gap}, norm error {norm_err}")
+
+    # 6. The matcher's step over the mesh: (1, 1) on one card, against
+    # train_step on the same batch.
+    mesh = make_mesh()
+    if mesh.devices.shape != (1, 1):
+        fail(f"mesh: {mesh.devices.shape} on {torch.cuda.device_count()} card(s)")
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             synthetic_matching_batch(np.random.default_rng(19), TRAIN_BATCH, TRAIN_CAP).items()}
+    ref_params = lgm.init_lightglue_params(1, device="cuda")
+    ref_loss = float(train_step(ref_params, make_optimizer(ref_params, TRAIN_LR), batch))
+    params = lgm.init_lightglue_params(1, device="cuda")
+    optimizer = make_optimizer(params, TRAIN_LR)
+    _build.reset_launch_counts()
+    loss = float(sharded_train_step(params, optimizer, batch, mesh))
+    counts = _build.launch_counts()
+    worst = max((p - ref_params[k]).abs().max().item() for k, p in params.items())
+    print(f"mesh step on the (1, 1) mesh vs train_step: loss {loss:.7f} vs {ref_loss:.7f}, "
+          f"parameters within {worst:.3g} (limit 1e-6); launches masked_attention "
+          f"{counts['masked_attention']}, masked_attention_bwd {counts['masked_attention_bwd']}")
+    if not abs(loss - ref_loss) <= 1e-6 * abs(ref_loss) or not worst <= 1e-6:
+        fail(f"mesh step: loss {loss} vs {ref_loss}, parameters {worst}")
+    for k in ("masked_attention", "masked_attention_bwd"):
+        if counts[k] != ATTENTION_PER_STEP:
+            fail(f"mesh step: {k} {counts[k]} launches, want {ATTENTION_PER_STEP}")
+    print(f"training slice phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_profiler(torch) -> dict[str, int]:
     """Every stage of scripts/profile_stages_torch.py at the KITTI shape;
     returns the launches of the three conv kernels only it drives."""
@@ -3176,6 +3546,7 @@ def main() -> int:
     map_nms_launches = check_map_mode(torch, sp, *frames[0])
 
     f32_fwd_launches, bwd_launches = check_training(torch)
+    check_training_slice(torch)
     profiler_launches = check_profiler(torch)
     # Profiles after every timed phase: a profiler session slows the
     # launches that follow it on the host.

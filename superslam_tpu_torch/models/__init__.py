@@ -10,6 +10,7 @@ from .superpoint import (
     select_keypoints,
     superpoint_dense,
     superpoint_extract,
+    superpoint_raw,
 )
 from .weights import (
     from_jax_params,
@@ -29,6 +30,7 @@ __all__ = [
     "select_keypoints",
     "superpoint_dense",
     "superpoint_extract",
+    "superpoint_raw",
     "from_jax_params",
     "load_params",
     "load_safetensors",

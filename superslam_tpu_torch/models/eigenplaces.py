@@ -12,6 +12,10 @@ package rounds: each conv in bf16 (bf16 output), each batch norm in f32
 from the running statistics and cast back to bf16, the residual sum in
 bf16; the aggregation in f32. Images are resized with antialiasing, as
 ``jax.image.resize(..., "bilinear")`` does when it downsamples.
+``eigenplaces_descriptor_train`` is the training forward: the same network
+with batch norm from the batch's own statistics (the biased variance, as
+``jnp.var``), which it returns for the trainer to EMA into the running
+statistics.
 """
 
 from __future__ import annotations
@@ -88,6 +92,59 @@ def eigenplaces_descriptor(params: Params, image: torch.Tensor) -> torch.Tensor:
     out = pooled @ params["aggregation.3.weight"].float().t()
     out = out + params["aggregation.3.bias"].float()
     return _l2_normalize(out, -1)
+
+
+def _bn_batch(x, params: Params, name: str, dtype, stats: dict):
+    """Train-mode batch norm: normalize by THIS batch's statistics and
+    record them in ``stats`` (detached) for the caller to EMA into the
+    running statistics that ``_bn`` reads. The variance is the biased one,
+    as ``jnp.var``; ``F.batch_norm``'s running update would EMA the unbiased
+    variance instead, so the statistics are computed here."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=(0, 2, 3))
+    var = torch.mean(torch.square(xf - mean[:, None, None]), dim=(0, 2, 3))
+    stats[f"{name}.running_mean"] = mean.detach()
+    stats[f"{name}.running_var"] = var.detach()
+    g = params[f"{name}.weight"].float()
+    b = params[f"{name}.bias"].float()
+    scale = g * torch.rsqrt(var + 1e-5)
+    shift = b - mean * scale
+    return (xf * scale[:, None, None] + shift[:, None, None]).to(dtype)
+
+
+def _basic_block_train(x, params: Params, name: str, stride: int, dtype, stats: dict):
+    out = _conv(x, params, f"{name}.conv1", stride, dtype)
+    out = F.relu(_bn_batch(out, params, f"{name}.bn1", dtype, stats))
+    out = _conv(out, params, f"{name}.conv2", 1, dtype)
+    out = _bn_batch(out, params, f"{name}.bn2", dtype, stats)
+    if f"{name}.downsample.0.weight" in params:
+        x = _conv(x, params, f"{name}.downsample.0", stride, dtype)
+        x = _bn_batch(x, params, f"{name}.downsample.1", dtype, stats)
+    return F.relu(out + x)
+
+
+def eigenplaces_descriptor_train(params: Params, image: torch.Tensor, dtype=torch.bfloat16):
+    """Training forward (scripts/train_eigenplaces_torch.py): the math of
+    ``eigenplaces_descriptor`` except that batch norm uses the batch's
+    statistics; differentiable. (B, 3, H, W) ImageNet-normalized RGB ->
+    (L2-normalized (B, Dg) f32 descriptors, {BN running-stat name: batch
+    statistic}) so the trainer can EMA the statistics the inference forward
+    uses."""
+    stats: dict[str, torch.Tensor] = {}
+    x = _conv(image, params, "backbone.conv1", 2, dtype)
+    x = F.relu(_bn_batch(x, params, "backbone.bn1", dtype, stats))
+    x = F.max_pool2d(x, 3, 2, padding=1)
+    for stage, blocks, _, first_stride in _STAGES:
+        for b in range(blocks):
+            x = _basic_block_train(
+                x, params, f"backbone.{stage}.{b}", first_stride if b == 0 else 1, dtype, stats
+            )
+    feat = _l2_normalize(x.float(), 1)
+    p = params["aggregation.1.p"].float().reshape(())
+    pooled = torch.mean(torch.clamp(feat, min=1e-6) ** p, dim=(2, 3)) ** (1.0 / p)
+    out = pooled @ params["aggregation.3.weight"].float().t()
+    out = out + params["aggregation.3.bias"].float()
+    return _l2_normalize(out, -1), stats
 
 
 def _resize(img: torch.Tensor, size: int) -> torch.Tensor:

@@ -105,6 +105,29 @@ def _encoder_and_heads(params: Params, image: torch.Tensor, compute_dtype):
     return _tail(params, x, compute_dtype)
 
 
+def superpoint_raw(params: Params, image: torch.Tensor, compute_dtype=torch.float32):
+    """Training-time forward: raw detector logits and the L2-normalized
+    descriptor grid, both at cell resolution and differentiable end to end.
+    Every conv is ``F.conv2d`` (cuDNN on the card), the conv pairs included:
+    the JAX package's training forward always takes its XLA conv path, never
+    the Pallas kernels, so no hand-written kernel is on this path.
+
+    image: (B, H, W) in [0, 1]; H, W multiples of 8.
+    Returns (the JAX package's layouts):
+      logits (B, H/8, W/8, 65) f32, 64 in-cell positions + dustbin;
+      desc (B, H/8, W/8, 256) f32, L2-normalized over channels.
+    """
+    x = image[:, None]
+    for pair in _PAIRS:
+        x = F.relu(_conv(x, params, f"{pair}a", compute_dtype))
+        x = F.relu(_conv(x, params, f"{pair}b", compute_dtype))
+        x = F.max_pool2d(x, 2)
+    logits, desc = _tail(params, x, compute_dtype)
+    desc = desc.float()
+    desc = desc * torch.rsqrt(torch.sum(torch.square(desc), dim=1, keepdim=True) + 1e-12)
+    return logits.permute(0, 2, 3, 1), desc.permute(0, 2, 3, 1)
+
+
 def _scores_and_descriptors(
     logits, desc, nms_radius: int, compute_dtype, return_pre_nms: bool, nms=None
 ):

@@ -1,5 +1,5 @@
-"""Multi-sequence batched tracking, the device mesh and the training step
-of the port (the sharded training step comes with the training slice)."""
+"""Multi-sequence batched tracking, the device mesh and the matcher's
+training step of the port, on one device and data-parallel over a mesh."""
 
 from .batched_tracking import batched_stereo_frontend, batched_track_scan
 from .mesh import data_sharding, lightglue_param_sharding, make_mesh, replicate
@@ -7,6 +7,7 @@ from .multi_tracker import MultiSequenceTracker
 from .training import (
     make_optimizer,
     matching_loss,
+    sharded_train_step,
     synthetic_matching_batch,
     train_step,
     warmup_cosine_schedule,
@@ -22,6 +23,7 @@ __all__ = [
     "MultiSequenceTracker",
     "make_optimizer",
     "matching_loss",
+    "sharded_train_step",
     "synthetic_matching_batch",
     "train_step",
     "warmup_cosine_schedule",

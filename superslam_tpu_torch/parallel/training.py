@@ -8,9 +8,11 @@ forward is the unfused LightGlue route in f32, so every attention call goes
 through ``ops/cuda/attention.py::masked_attention`` and is differentiated by
 its hand-written backward: 18 forward and 18 backward launches per step.
 
-The JAX package shards the step over a (data, model) mesh; this is the
-single-device step. Parameters are a flat dict of leaf tensors that require
-grad, updated in place by the optimizer.
+The JAX package runs the step under ``jit`` over a (data, model) mesh;
+``train_step`` is the step on one device and ``sharded_train_step`` the
+data-parallel step over the port's mesh (``parallel/mesh.py``). Parameters
+are a flat dict of leaf tensors that require grad, updated in place by the
+optimizer.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 
 from ..models.lightglue import lightglue_forward
+from .mesh import Mesh
 
 Params = dict[str, torch.Tensor]
 
 
-def matching_loss(
+def _nll_sum(
     params: Params,
     kpts0: torch.Tensor,
     desc0: torch.Tensor,
@@ -34,13 +37,10 @@ def matching_loss(
     desc1: torch.Tensor,
     mask0: torch.Tensor,
     mask1: torch.Tensor,
-    gt_indices: torch.Tensor,  # (B, K) index into set1, -1 = unmatched
+    gt_indices: torch.Tensor,
 ) -> torch.Tensor:
-    """Negative log-likelihood of the ground-truth assignment.
-
-    Matched rows: -log P(i -> gt_i). Unmatched rows: -log(1 - sum_j P(i,j))
-    (the dual-softmax 'dustbin' mass), clamped for stability.
-    """
+    """The numerator of ``matching_loss``: the summed negative
+    log-likelihood over the batch's valid rows."""
     la = lightglue_forward(
         params, kpts0, desc0, kpts1, desc1, mask0, mask1,
         compute_dtype=torch.float32, fused=False,
@@ -55,8 +55,31 @@ def matching_loss(
     neg_nll = -torch.where(
         (~matched) & mask0, torch.log1p(-torch.clamp(row_mass, 0.0, 1.0 - 1e-6)), zero
     )
-    denom = torch.clamp(mask0.sum().to(la.dtype), min=1.0)
-    return (pos_nll.sum() + neg_nll.sum()) / denom
+    return pos_nll.sum() + neg_nll.sum()
+
+
+def _denominator(mask0: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(mask0.sum().to(torch.float32), min=1.0)
+
+
+def matching_loss(
+    params: Params,
+    kpts0: torch.Tensor,
+    desc0: torch.Tensor,
+    kpts1: torch.Tensor,
+    desc1: torch.Tensor,
+    mask0: torch.Tensor,
+    mask1: torch.Tensor,
+    gt_indices: torch.Tensor,  # (B, K) index into set1, -1 = unmatched
+) -> torch.Tensor:
+    """Negative log-likelihood of the ground-truth assignment, over the
+    valid rows of set 0.
+
+    Matched rows: -log P(i -> gt_i). Unmatched rows: -log(1 - sum_j P(i,j))
+    (the dual-softmax 'dustbin' mass), clamped for stability.
+    """
+    nll = _nll_sum(params, kpts0, desc0, kpts1, desc1, mask0, mask1, gt_indices)
+    return nll / _denominator(mask0)
 
 
 def make_optimizer(params: Params, lr: float = 1e-4) -> torch.optim.Optimizer:
@@ -70,6 +93,23 @@ def make_optimizer(params: Params, lr: float = 1e-4) -> torch.optim.Optimizer:
     )
 
 
+_BATCH_KEYS = ("kpts0", "desc0", "kpts1", "desc1", "mask0", "mask1", "gt_indices")
+
+
+def _apply_update(params: Params, optimizer: torch.optim.Optimizer, lr: float | None) -> None:
+    """The optimizer's step on the gradients in ``.grad``. A parameter the
+    loss does not read (the assignment heads of layers 0..7) gets a zero
+    gradient, not none, so AdamW still decays it as the JAX package's step
+    does."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if lr is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+    optimizer.step()
+
+
 def train_step(
     params: Params,
     optimizer: torch.optim.Optimizer,
@@ -79,26 +119,60 @@ def train_step(
     """One optimizer step; returns the loss before the step (a 0-d tensor on
     the parameters' device). ``batch`` keys: kpts0, desc0, kpts1, desc1,
     mask0, mask1, gt_indices, all with a leading batch dim. ``lr``, when
-    given, is this step's learning rate (a schedule's value).
-
-    A parameter the loss does not read (the assignment heads of layers
-    0..7) gets a zero gradient, not none, so AdamW still decays it as the
-    JAX package's step does."""
+    given, is this step's learning rate (a schedule's value)."""
     optimizer.zero_grad(set_to_none=True)
-    loss = matching_loss(
-        params,
-        batch["kpts0"], batch["desc0"], batch["kpts1"], batch["desc1"],
-        batch["mask0"], batch["mask1"], batch["gt_indices"],
-    )
+    loss = matching_loss(params, *(batch[k] for k in _BATCH_KEYS))
     loss.backward()
-    for p in params.values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if lr is not None:
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-    optimizer.step()
+    _apply_update(params, optimizer, lr)
     return loss.detach()
+
+
+def sharded_train_step(
+    params: Params,
+    optimizer: torch.optim.Optimizer,
+    batch: dict[str, torch.Tensor],
+    mesh: Mesh,
+    lr: float | None = None,
+) -> torch.Tensor:
+    """``train_step`` data-parallel over ``mesh``: the JAX package's step
+    under ``jit`` with the batch placed by ``data_sharding`` and the
+    parameters by ``lightglue_param_sharding``.
+
+    The batch is split over the mesh's data axis (its leading dim must
+    divide); shard i runs forward and backward on the device at (i, 0). A
+    shard on the parameters' device differentiates the parameters
+    themselves, any other a copy of them on its device, and its gradient
+    is summed onto the parameters' device: the all-reduce. Every shard's
+    loss is its NLL sum over the WHOLE batch's ``sum(mask0)``, so the step
+    computes what ``train_step`` does, up to the order of the sums. The
+    model axis is replicated: tensor parallelism over LightGlue's heads
+    needs more than one card. Returns the loss before the step."""
+    n = mesh.shape["data"]
+    if batch["mask0"].shape[0] % n:
+        raise ValueError(
+            f"sharded_train_step: batch {batch['mask0'].shape[0]} does not split over "
+            f"a data axis of {n}"
+        )
+    home = next(iter(params.values())).device
+    optimizer.zero_grad(set_to_none=True)
+    denom = _denominator(batch["mask0"])
+    total = torch.zeros((), device=home)
+    for i, shard in enumerate(zip(*(batch[k].chunk(n) for k in _BATCH_KEYS))):
+        dev = mesh.devices[i, 0]
+        local = params if dev == home else {
+            k: p.detach().to(dev).requires_grad_(True) for k, p in params.items()
+        }
+        loss = _nll_sum(local, *(t.to(dev) for t in shard)) / denom.to(dev)
+        loss.backward()
+        if local is not params:
+            for k, p in params.items():
+                g = local[k].grad
+                if g is not None:
+                    g = g.to(home)
+                    p.grad = g if p.grad is None else p.grad + g
+        total = total + loss.detach().to(home)
+    _apply_update(params, optimizer, lr)
+    return total
 
 
 def warmup_cosine_schedule(

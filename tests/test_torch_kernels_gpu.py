@@ -78,7 +78,10 @@ def _pair_case(cuda, cin, b, h, w):
     "cin,b,h,w",
     [(1, 2, 32, 96), (64, 2, 32, 96), (64, 2, 18, 70), (64, 2, 34, 98), (64, 2, 16, 20),
      (64, 1, 18, 70), (64, 3, 34, 98), (64, 2, 192, 624), (1, 2, 18, 70), (1, 2, 34, 98),
-     (1, 2, 16, 20), (1, 1, 18, 70), (1, 3, 34, 98), (1, 2, 384, 1248)],
+     (1, 2, 16, 20), (1, 1, 18, 70), (1, 3, 34, 98), (1, 2, 384, 1248),
+     # the training slice's evaluation shapes: 120 and 60 rows leave a
+     # partial 16-row tile, 80 columns a partial 32-column one
+     (1, 1, 120, 160), (64, 1, 60, 80), (1, 1, 240, 320), (64, 1, 120, 160)],
 )
 def test_conv_pair_pool_kernel(cuda, cin, b, h, w):
     """Includes shapes that are not a multiple of the 16 x 32 tile."""
@@ -242,10 +245,12 @@ def _check_scores_nms(logits, radius):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("radius", [0, 1, 4, 8])
-@pytest.mark.parametrize("b,h,w", [(1, 5, 13), (3, 8, 20), (2, 48, 156), (1, 4, 8), (2, 1, 1)])
+@pytest.mark.parametrize("b,h,w", [(1, 5, 13), (3, 8, 20), (2, 48, 156), (1, 4, 8), (2, 1, 1),
+                                   (1, 15, 20), (1, 30, 40)])
 def test_scores_nms_kernel(cuda, b, h, w, radius):
     """Cells (5, 13) and (48, 156) leave partial tiles both ways, (4, 8) is
-    one whole tile, (1, 1) a single cell; logits with peaks, channels_last
+    one whole tile, (1, 1) a single cell, (15, 20) and (30, 40) are the
+    training slice's 120x160 and 240x320; logits with peaks, channels_last
     as the detector head gives them."""
     rng = np.random.default_rng(b * 1000 + h * 10 + w + radius)
     x = rng.standard_normal((b, 65, h, w)) * 4

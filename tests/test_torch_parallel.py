@@ -1,7 +1,8 @@
 """The port's parallel/ package against the JAX package's on the CPU: the
-mesh and its placements, batched_stereo_frontend, batched_track_scan and
-MultiSequenceTracker (tests/test_parallel.py's cases, with the JAX side on
-its 8 virtual CPU devices and the port's mesh over 8 `cpu` entries).
+mesh and its placements, batched_stereo_frontend, batched_track_scan,
+MultiSequenceTracker and the matcher's data-parallel train step
+(tests/test_parallel.py's cases, with the JAX side on its 8 virtual CPU
+devices and the port's mesh over 8 `cpu` entries).
 
 Tolerances:
 - batched_track_scan: pose columns within 1e-4 (m and rotation-matrix
@@ -34,6 +35,17 @@ from superslam_tpu_torch.models.weights import from_jax_params
 from superslam_tpu_torch.parallel import mesh as tmesh
 
 CPU8 = ["cpu"] * 8
+
+
+@pytest.fixture(autouse=True)
+def few_torch_threads():
+    """Two torch threads per worker process (as tests/test_torch_training.py):
+    the suite runs in several workers on one host, and the train steps here
+    slow down manyfold when each worker takes every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_params(params):
@@ -290,3 +302,72 @@ def test_multi_sequence_tracker_rejects_a_mesh_that_does_not_divide():
     with pytest.raises(ValueError, match="multiple of the mesh data axis"):
         MultiSequenceTracker(init_superpoint_params(0), init_lightglue_params(0), cal,
                              num_sequences=6, width=W, height=H, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("devices", [CPU8, ["cpu:0"] * 8], ids=["in_place", "replicas"])
+def test_sharded_train_step_matches_train_step_and_jax(devices):
+    """tests/test_parallel.py::test_sharded_train_step_runs_and_matches_unsharded
+    on the port's mesh of 8 CPU entries (data axis 4, 4 shards of 2 pairs;
+    B 8, K 32, lr 1e-4). ``cpu`` shards differentiate the parameters in
+    place; ``cpu:0`` is another device name, so those shards take the
+    replica path (a copy on their device, the gradient summed back). Against
+    train_step on the same batch: the loss within 1e-6 relative (the global
+    sum(mask0) denominator), the gradient within 1e-5 of each tensor's
+    largest, and after the AdamW step all but 0.01% of the elements within
+    1e-7 (Adam turns a gradient below f32 noise into a full step of either
+    sign), none further than 2 * lr. Against the JAX package's sharded
+    step (in the first case): the loss within test_parallel.py's rel=3e-2."""
+    from superslam_tpu.parallel import training as jtrain
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+
+    lr = 1e-4
+    batch_np = ttrain.synthetic_matching_batch(np.random.default_rng(0), 8, 32)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    ref_params = init_lightglue_params(0)
+    ref_opt = ttrain.make_optimizer(ref_params, lr)
+    ref_loss = ttrain.train_step(ref_params, ref_opt, batch)
+    ref_grads = {k: p.grad.clone() for k, p in ref_params.items()}
+
+    mesh = tmesh.make_mesh(8, devices=devices)
+    assert mesh.shape == {"data": 4, "model": 2}
+    params = init_lightglue_params(0)
+    before = {k: p.clone() for k, p in params.items()}
+    opt = ttrain.make_optimizer(params, lr)
+    loss = ttrain.sharded_train_step(params, opt, batch, mesh)
+    assert loss.shape == () and loss.grad_fn is None
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * abs(float(ref_loss))
+    total = far = 0
+    for k, p in params.items():
+        g, r = p.grad, ref_grads[k]
+        assert (g - r).abs().max() <= 1e-5 * max(r.abs().max(), 1e-30), k
+        diff = (p - ref_params[k]).abs()
+        assert diff.max() <= 2 * lr * 1.01, k
+        total += diff.numel()
+        far += int((diff > 1e-7).sum())
+    assert far <= 1e-4 * total, (far, total)
+    assert (params["input_proj.weight"] - before["input_proj.weight"]).abs().max() > 0
+    if devices != CPU8:
+        return  # the JAX package's step once
+
+    jm = jmesh.make_mesh(8)
+    jparams = jax_lg_init(0)
+    sh = jmesh.lightglue_param_sharding(jm, jparams)
+    jparams = {k: jax.device_put(v, sh[k]) for k, v in jparams.items()}
+    tx = jtrain.make_optimizer(lr)
+    bshard = jmesh.data_sharding(jm)
+    jbatch = {k: jax.device_put(jnp.asarray(v), bshard) for k, v in batch_np.items()}
+    _, _, jloss = jtrain.train_step(jparams, tx.init(jparams), jbatch, tx)
+    assert float(loss) == pytest.approx(float(jloss), rel=3e-2)
+
+
+def test_sharded_train_step_rejects_a_batch_that_does_not_split():
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+
+    params = init_lightglue_params(0)
+    opt = ttrain.make_optimizer(params, 1e-4)
+    batch = {k: torch.from_numpy(v) for k, v in
+             ttrain.synthetic_matching_batch(np.random.default_rng(0), 6, 16).items()}
+    with pytest.raises(ValueError, match="does not split"):
+        ttrain.sharded_train_step(params, opt, batch, tmesh.make_mesh(8, devices=CPU8))

@@ -97,6 +97,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import superslam_tpu_torch.frontend.stereo_frontend, superslam_tpu_torch.io.viewer\n"
         "import superslam_tpu_torch.io, superslam_tpu_torch.ops\n"
         "from superslam_tpu_torch.ops import ShardedCosineIndex, solve_window, pose_only_lm\n"
+        "import superslam_tpu_torch.train.superpoint_train, superslam_tpu_torch.train.synthetic_shapes\n"
+        "from superslam_tpu_torch.train import RenderDomainSource, evaluate_detector, sp_train_step\n"
+        "from superslam_tpu_torch.models.eigenplaces import eigenplaces_descriptor_train\n"
+        "from superslam_tpu_torch.parallel import sharded_train_step\n"
+        "import scripts.train_superpoint_torch, scripts.train_eigenplaces_torch\n"
         "scripts.profile_stages_torch.run_stages(['lg_attn'], 'cpu', 32, 64, 16, 0, 1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'superslam_tpu' or m.startswith('superslam_tpu.'))\n"
