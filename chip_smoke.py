@@ -134,10 +134,34 @@ In order, any failure exiting non-zero:
    (ATE <= 0.5 m; every window it solved on the card solved again by the
    host LM, poses within 0.02 m and 0.02 in rotation; ms a solve by CUDA
    events against the host LM's); ``SuperSLAM(cfg, use_viewer=True)`` over 5
-   frames (depth 0, 5 poses drawn, ``close()`` returns); then tracks 5 more frames of
-   4's facade under torch.profiler, prints the device busy time per frame
-   and the kernels by device time, and fails if a softmax kernel ran (the
-   score half is the NMS kernel's logits mode);
+   frames (depth 0, 5 poses drawn, ``close()`` returns);
+4g. the tooling: ``bench_torch.py``'s run (``run()``, the function its
+   ``main()`` calls) at its defaults, depth 3, batch 4, device keyframes,
+   on the bench circuit's 144-frame lap (rendered once, cached), with the
+   settle cut from 15 s to 3 s and the measure from 135 s to 20 s: its
+   stderr lines, its JSON line and its device-only ms printed; the mode;
+   over the measured window (counts reset before its first frame, read
+   after the flush that ends it) exactly conv1a1b 1, conv_pair 1,
+   scores_nms 1, fused_self_block 36, fused_cross_block 36 and track_frame 4
+   launches a dispatch and nothing else, once the matcher launches of the
+   frames that drain through the host re-match path are subtracted (those
+   frames counted and printed); every dispatch and upload of the window
+   under ``set_sync_debug_mode("error")``; the ATE against the circuit's
+   poses (frame index mod 144) <= 0.3 m over every block of 1000 measured
+   frames, each block aligned on its own (the blocks cover the window; the
+   error grows with a window's length, and the window's length with the
+   fps). Then
+   ``scripts/make_synthetic_sequence_torch.py`` writes 30 frames of its
+   straight trajectory at 640x352 in the KITTI and the TUM layouts, and
+   ``examples/kitti_torch.py``, ``tum_rgbd_torch.py``,
+   ``benchmark_torch.py`` and ``multi_sequence_torch.py --replicate 2``
+   run on them as subprocesses on the card, each exiting 0, their
+   trajectories scored by ``scripts/evaluate_kitti_torch.py`` and
+   ``evaluate_tum_torch.py`` at ATE <= 0.5 m each; prints the phase's wall
+   time;
+4h. tracks 5 more frames of 4's facade under torch.profiler, prints the
+   device busy time per frame and the kernels by device time, and fails if
+   a softmax kernel ran (the score half is the NMS kernel's logits mode);
 5. runs the first 10 frames again on the unfused route
    (``SUPERSLAM_PALLAS_LG=0``): exactly 1/1/1/18 launches per frame
    (masked_attention 18, the fused blocks 0), ATE <= 0.5 m, and prints the
@@ -204,7 +228,7 @@ In order, any failure exiting non-zero:
    and of track_frame (both epilogues, and promoting) on 4b's median frame,
    5 more frames of 4b's
    default facade (device busy ms a frame, the device's idle share, and
-   its device events a frame against depth 0's from 4d), 5 more frames of
+   its device events a frame against depth 0's from 4h), 5 more frames of
    4e's default RGB-D facade (the same figures), and last 5 more steps of
    4f's S = 4 tracker (device busy ms a step, idle share);
 10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
@@ -340,6 +364,25 @@ BATCHED_Q, BATCHED_S, BATCHED_ATOL = (4, 16), 3, 1e-4
 # (tests/test_window_smoother.py:92-121's bound), m and rotation entries.
 WS_POSE_TOL = 0.02
 VIEWER_FRAMES = 5
+# The tooling phase (4g): bench_torch.py's run with its settle and measure
+# cut from 15 s and 135 s; a dispatch of its batch-4 device-keyframe step
+# launches the two conv pairs and the NMS kernel's logits mode once over
+# all 8 images, the matcher's 9 layers once batched over
+# the 4 stereo and 4 keyframe pair problems and once more for each of frames
+# 1-3 (the re-match against the keyframe carried in the scan), and
+# track_frame once a frame. The runners: make_synthetic_sequence_torch.py's
+# default geometry, TOOL_FRAMES frames of its straight trajectory (its
+# circuit is one lap in as many frames as it writes: 12.7 degrees a frame
+# at 30).
+BENCH_SETTLE_S, BENCH_MEASURE_S = 3.0, 20.0
+# The bench's ATE is held over blocks of BENCH_ATE_FRAMES measured frames,
+# not over the window, whose length follows the fps: the error grows ~0.2
+# mm a frame over the laps (0.1999 m over the first 1000 measured frames on
+# the H100, PERF.md section 6), and the limit is 1.5x that.
+BENCH_ATE_FRAMES, BENCH_ATE_LIMIT_M = 1000, 0.3
+PER_DISPATCH_BENCH = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "fused_self_block": 36,
+                      "fused_cross_block": 36, "track_frame": 4}
+TOOL_FRAMES, TOOL_W, TOOL_H, TOOL_TIMEOUT_S = 30, 640, 352, 300
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -1108,13 +1151,16 @@ def estimator_ms() -> tuple[float, int]:
     return total / max(n, 1), n
 
 
-def facade_mode(slam) -> str:
-    t = slam._tracker
-    if t is None:
-        return "depth 0 (synchronous), host-solved"
+def tracker_mode(t) -> str:
     kind = ("device keyframes" if t.device_kf else "dispatch-frozen device tracking"
             if t.device_tracking else "host-solved")
     return f"depth {t.depth}, batch {t.batch}, {kind}"
+
+
+def facade_mode(slam) -> str:
+    if slam._tracker is None:
+        return "depth 0 (synchronous), host-solved"
+    return tracker_mode(slam._tracker)
 
 
 def run_facade(torch, frames, width: int, height: int, max_kp: int):
@@ -1183,6 +1229,58 @@ def check_facade_run(label, slam, poses, gt, step_ms, loop_s, counts, n_kf, per_
     return res
 
 
+def instrument_window(torch, tracker, pipeline, matcher, estimator):
+    """Counting and sync-guard wrappers for a measured window, shared by the
+    facade phases and the bench run. While ``window["on"]`` holds:
+    ``matcher.match`` adds each call (the host re-match path) with the frame
+    it ran for and the launches it made; ``tracker._dispatch`` (counted
+    where frames are staged) and ``pipeline.upload`` run under
+    set_sync_debug_mode("error"). Without a tracker only the matcher is
+    wrapped. Returns (window, restore): restore() puts the originals back."""
+    from superslam_tpu_torch.ops.cuda import _build
+
+    window = {"on": False, "dispatches": 0, "rematch_calls": 0, "rematch_frames": [],
+              "rematch": dict.fromkeys(_build.KERNELS, 0)}
+    saved = [(matcher, "match", matcher.match)]
+    if tracker is not None:
+        saved += [(tracker, "_dispatch", tracker._dispatch), (pipeline, "upload", pipeline.upload)]
+    match = matcher.match
+
+    def counted_match(*a, **kw):
+        before = _build.launch_counts()
+        out = match(*a, **kw)
+        if window["on"]:
+            window["rematch_calls"] += 1
+            window["rematch_frames"].append(len(estimator._frame_records))
+            for k, v in _build.launch_counts().items():
+                window["rematch"][k] += v - before[k]
+        return out
+
+    def guarded(fn, counted):
+        def call(*a, **kw):
+            if not window["on"]:
+                return fn(*a, **kw)
+            if counted and tracker._staged:
+                window["dispatches"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    matcher.match = counted_match
+    if tracker is not None:
+        tracker._dispatch = guarded(tracker._dispatch, True)
+        pipeline.upload = guarded(pipeline.upload, False)
+
+    def restore():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+    return window, restore
+
+
 def run_default_facade(torch, frames, gt):
     """The facade as a user gets it on the card (``SuperSLAM(cfg)``, no env):
     depth 3, device keyframes. Over the dispatches of frames 5..29 the
@@ -1204,33 +1302,8 @@ def run_default_facade(torch, frames, gt):
     if tracker is None or tracker.depth != 3 or tracker.batch != 1 or not tracker.device_kf:
         fail(f"default facade: {mode}, want depth 3, batch 1, device keyframes")
 
-    window = {"on": False, "rematch_frames": [], "rematch": dict.fromkeys(_build.KERNELS, 0)}
-    match = slam.matcher.match
-
-    def counted_match(*a, **kw):
-        before = _build.launch_counts()
-        out = match(*a, **kw)
-        if window["on"]:
-            window["rematch_frames"].append(len(slam.estimator._frame_records))
-            for k, v in _build.launch_counts().items():
-                window["rematch"][k] += v - before[k]
-        return out
-
-    slam.matcher.match = counted_match
-    dispatch, upload = tracker._dispatch, slam.pipeline.upload
-
-    def guarded(fn):
-        def call(*a, **kw):
-            if not window["on"]:
-                return fn(*a, **kw)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return fn(*a, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return call
-
-    tracker._dispatch, slam.pipeline.upload = guarded(dispatch), guarded(upload)
+    window, restore = instrument_window(torch, tracker, slam.pipeline, slam.matcher,
+                                        slam.estimator)
     captured, scans = [], []
     body, scan = frontend_step.track_frame, frontend_step.track_kf_scan
 
@@ -1267,8 +1340,7 @@ def run_default_facade(torch, frames, gt):
         loop_s = time.perf_counter() - t1
     finally:
         frontend_step.track_frame, frontend_step.track_kf_scan = body, scan
-        tracker._dispatch, slam.pipeline.upload = dispatch, upload
-        slam.matcher.match = match
+        restore()
     est_ms = estimator_ms()
     poses = slam.estimator.corrected_trajectory()
     res = ate(poses, gt)
@@ -1931,35 +2003,8 @@ def run_rgbd_facade(torch, frames, gt, label: str):
     tracker = slam._tracker
     device = bool(tracker and tracker.device_tracking)
     print(f"rgbd facade ({label}): mode {facade_mode(slam)}")
-    window = {"on": False, "rematch_frames": [], "rematch": dict.fromkeys(_build.KERNELS, 0)}
-    match = slam.matcher.match
-
-    def counted_match(*a, **kw):
-        before = _build.launch_counts()
-        out = match(*a, **kw)
-        if window["on"]:
-            window["rematch_frames"].append(len(slam.estimator._frame_records))
-            for k, v in _build.launch_counts().items():
-                window["rematch"][k] += v - before[k]
-        return out
-
-    slam.matcher.match = counted_match
-    guarded = []
-    if tracker is not None:
-        for owner, name in ((tracker, "_dispatch"), (slam.rgbd_pipeline, "upload")):
-            fn = getattr(owner, name)
-
-            def call(*a, _fn=fn, **kw):
-                if not window["on"]:
-                    return _fn(*a, **kw)
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    return _fn(*a, **kw)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-
-            setattr(owner, name, call)
-            guarded.append((owner, name, fn))
+    window, restore = instrument_window(torch, tracker, slam.rgbd_pipeline, slam.matcher,
+                                        slam.estimator)
     captured = []
     body = frontend_step.track_frame
 
@@ -1990,9 +2035,7 @@ def run_rgbd_facade(torch, frames, gt, label: str):
         loop_s = time.perf_counter() - t1
     finally:
         frontend_step.track_frame = body
-        for owner, name, fn in guarded:
-            setattr(owner, name, fn)
-        slam.matcher.match = match
+        restore()
     est_ms = estimator_ms()
     res = ate(slam.estimator.corrected_trajectory(), gt)
     n, steady = len(frames), len(frames) - STEADY_FROM
@@ -2905,6 +2948,187 @@ def check_viewer(torch, frames) -> None:
           f"{close_s:.2f} s (plot written: {plot}; rerun SDK: {slam.viewer._rr is not None})")
 
 
+# -- the tooling: bench_torch.py, the runners and the evaluators ---------------------
+
+
+class _Tee:
+    """A stream that writes to two (bench_torch.py's stderr lines to stdout
+    as well, where the run's record keeps them)."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def write(self, s):
+        self.a.write(s)
+        self.b.write(s)
+        return len(s)
+
+    def flush(self):
+        self.a.flush()
+        self.b.flush()
+
+
+def check_bench_run(torch) -> None:
+    """bench_torch.py's run at its defaults (depth 3, batch 4, device
+    keyframes) with the settle and measure cut to BENCH_SETTLE_S and
+    BENCH_MEASURE_S: the mode; over the measured window (counts reset before
+    its first frame, read after the flush that ends it) the launches a
+    dispatch, exactly PER_DISPATCH_BENCH once the matcher launches of the
+    frames that drain through the host re-match path are subtracted (those
+    frames counted and printed); every dispatch and upload of the window
+    under set_sync_debug_mode("error"); the ATE against the circuit's poses
+    over blocks of BENCH_ATE_FRAMES measured frames that cover the window."""
+    import contextlib
+
+    import bench_torch
+    from superslam_tpu_torch.eval.metrics import ate
+    from superslam_tpu_torch.ops.cuda import _build
+
+    state = {}
+
+    def observe(stage, tracker):
+        if stage == "measure":
+            mode = tracker_mode(tracker)
+            print(f"bench_torch: mode {mode}", flush=True)
+            if tracker.depth != 3 or tracker.batch != 4 or not tracker.device_kf:
+                fail(f"bench_torch: {mode}, want depth 3, batch 4, device keyframes")
+            est = tracker.estimator
+            state["window"], state["restore"] = instrument_window(
+                torch, tracker, tracker.pipeline, est.matcher, est)
+            state["reseeds"] = tracker.reseeds
+            _build.reset_launch_counts()
+            state["window"]["on"] = True
+        else:
+            state["window"]["on"] = False
+            state["counts"] = _build.launch_counts()
+            state["reseeds"] = tracker.reseeds - state["reseeds"]
+            state["restore"]()
+
+    err = sys.stderr
+    with contextlib.redirect_stderr(_Tee(err, sys.stdout)):
+        try:
+            res = bench_torch.run(settle_s=BENCH_SETTLE_S, measure_s=BENCH_MEASURE_S,
+                                  observe=observe)
+        except RuntimeError as e:
+            if "synchroniz" in str(e):
+                fail(f"bench_torch: a synchronizing call in a measured dispatch: {e}")
+            raise
+    print(f"bench_torch: {bench_torch.result_line(res['fps'])}")
+    print(f"bench_torch: device-only per-frame program {res['device_ms']:.4f} ms (batch 1, "
+          f"the run's final mode; 12 against 3 iterations, the smallest of 3 samples)")
+    tracker = res["tracker"]
+    first, end = res["measured"]
+    window, counts = state["window"], state["counts"]
+    n = window["dispatches"]
+    print(f"bench_torch: measured frames {first}..{end - 1} ({end - first} frames, settle "
+          f"{BENCH_SETTLE_S} s and measure {BENCH_MEASURE_S} s, cut from 15 and 135), {n} "
+          f"dispatches, no synchronizing call in their dispatches and uploads under "
+          f"set_sync_debug_mode('error'); keyframe reseeds {state['reseeds']}; frames drained "
+          f"through the host re-match path {len(set(window['rematch_frames']))} of "
+          f"{end - first} ({window['rematch_calls']} matcher calls, launches "
+          f"{dict((k, v) for k, v in window['rematch'].items() if v)}); launches {counts}")
+    for k in _build.KERNELS:
+        got = counts[k] - window["rematch"][k]
+        want = PER_DISPATCH_BENCH.get(k, 0)
+        if want:
+            print(f"bench_torch: {k}: {got / max(n, 1):g} launches a dispatch")
+        if got != want * n:
+            fail(f"bench_torch: {k}: {got} launches in {n} dispatches, want {want} a dispatch")
+    traj = tracker.estimator.corrected_trajectory()
+    gt = bench_torch.circuit_poses(bench_torch.N_FRAMES)
+
+    def ate_over(lo, hi):
+        return ate(traj[lo:hi], [gt[i % len(gt)] for i in range(lo, hi)])
+
+    # The bench laps the circuit with no loop closure, so a window's ATE
+    # grows with its length and the measured window's length follows the
+    # fps: the gate holds blocks of BENCH_ATE_FRAMES measured frames, each
+    # aligned on its own, which cover the window (the last ends at its end).
+    m = min(BENCH_ATE_FRAMES, end - first)
+    starts = sorted({*range(first, end - m + 1, m), end - m})
+    blocks = [(lo, ate_over(lo, lo + m).rmse) for lo in starts]
+    whole = ate_over(first, end)
+    growth = [(k, ate_over(first, first + k).rmse) for k in (500, 1000, 1500, 2000, 2500)
+              if k < end - first]
+    worst = max(a for _, a in blocks)
+    print(f"bench_torch: ATE over blocks of {m} measured frames "
+          f"{', '.join(f'{lo}..: {a:.4f}' for lo, a in blocks)} m (limit {BENCH_ATE_LIMIT_M}); "
+          f"{whole.rmse:.4f} m over all {end - first} measured frames; over the window's first "
+          f"n frames {', '.join(f'{k}: {a:.4f}' for k, a in growth)}; keyframes "
+          f"{len(tracker.estimator.anchors())}")
+    if len(traj) != end or not np.isfinite(worst) or worst > BENCH_ATE_LIMIT_M:
+        fail(f"bench_torch: ATE {worst} m over {m} measured frames > {BENCH_ATE_LIMIT_M} m "
+             f"({len(traj)} poses, want {end})")
+
+
+def run_tools(jobs: list[tuple[str, list[str]]]) -> list[str]:
+    """Run repo scripts as concurrent subprocesses from the repo root; print
+    each one's wall time and its last lines, fail on a non-zero exit. Returns
+    their stdouts."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SUPERSLAM_")}
+    t0 = time.perf_counter()
+    procs = [
+        (rel, subprocess.Popen([sys.executable, os.path.join(REPO, rel), *argv], cwd=REPO,
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True))
+        for rel, argv in jobs
+    ]
+    outs = []
+    for rel, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=TOOL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+            fail(f"tools: {rel} ran past {TOOL_TIMEOUT_S} s")
+        tail = " | ".join(out.strip().splitlines()[-3:])
+        print(f"tools: {rel} exited {proc.returncode} by {time.perf_counter() - t0:.1f} s: {tail}",
+              flush=True)
+        if proc.returncode != 0:
+            print(err[-3000:], file=sys.stderr)
+            fail(f"tools: {rel} exited {proc.returncode}")
+        outs.append(out)
+    return outs
+
+
+def check_runners() -> None:
+    """scripts/make_synthetic_sequence_torch.py writes TOOL_FRAMES frames of
+    its straight trajectory at TOOL_W x TOOL_H in both formats; examples/kitti_torch.py,
+    tum_rgbd_torch.py, benchmark_torch.py and multi_sequence_torch.py
+    --replicate 2 run on them on the card as subprocesses, each exiting 0;
+    their trajectories go through scripts/evaluate_kitti_torch.py and
+    evaluate_tum_torch.py, each ATE <= ATE_LIMIT_M."""
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti, tum = os.path.join(tmp, "kitti"), os.path.join(tmp, "tum")
+        common = ["--frames", str(TOOL_FRAMES), "--trajectory", "straight", "--width",
+                  str(TOOL_W), "--height", str(TOOL_H), "--model-dir",
+                  os.path.join(REPO, "weights") + os.sep]
+        run_tools([("scripts/make_synthetic_sequence_torch.py", [kitti, *common]),
+                   ("scripts/make_synthetic_sequence_torch.py", [tum, "--format", "tum",
+                                                                  *common])])
+        est_k, est_t, multi = (os.path.join(tmp, n) for n in ("kitti.txt", "tum.txt", "multi"))
+        run_tools([
+            ("examples/kitti_torch.py", [f"{kitti}/config.yaml", kitti, "--no-viewer", "--out",
+                                         est_k]),
+            ("examples/tum_rgbd_torch.py", [f"{tum}/config.yaml", tum, "--no-viewer", "--out",
+                                            est_t]),
+            ("examples/benchmark_torch.py", [f"{kitti}/config.yaml", kitti]),
+            ("examples/multi_sequence_torch.py", [f"{kitti}/config.yaml", kitti, "--replicate",
+                                                  "2", "--out-dir", multi]),
+        ])
+        gt_k, gt_t = f"{kitti}/poses_gt.txt", f"{tum}/groundtruth.txt"
+        evals = [("scripts/evaluate_kitti_torch.py", [est_k, gt_k]),
+                 ("scripts/evaluate_tum_torch.py", [est_t, gt_t]),
+                 ("scripts/evaluate_kitti_torch.py", [f"{multi}/seq00.txt", gt_k]),
+                 ("scripts/evaluate_kitti_torch.py", [f"{multi}/seq01.txt", gt_k])]
+        outs = run_tools(evals)
+    for (rel, argv), out in zip(evals, outs):
+        metrics = json.loads(out.strip().splitlines()[-1])
+        print(f"tools: {os.path.basename(argv[0])}: {metrics}")
+        if not metrics["ate_rmse_m"] <= ATE_LIMIT_M:
+            fail(f"tools: {rel} {argv[0]}: ATE {metrics['ate_rmse_m']} m > {ATE_LIMIT_M} m")
+
+
 def profile_facade(torch, slam, n: int) -> float:
     """Track the next n frames of the lap under torch.profiler, print where
     the device time goes, and fail if a softmax kernel ran: the score half
@@ -3526,6 +3750,12 @@ def main() -> int:
     kernels["track_frame_batched"], batched_launches = check_batched_track_scan(torch)
     run_xla_smoother_facade(torch, frames, gt)
     check_viewer(torch, frames[:VIEWER_FRAMES])
+    # The tooling: bench_torch.py's run at batch 4, then the dataset runners
+    # and the evaluators as a user runs them.
+    t_tools = time.perf_counter()
+    check_bench_run(torch)
+    check_runners()
+    print(f"tooling phase: {time.perf_counter() - t_tools:.1f} s", flush=True)
     depth0_events = profile_facade(torch, slam, 5)
     slam.shutdown()
 

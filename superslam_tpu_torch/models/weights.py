@@ -1,4 +1,4 @@
-"""Checkpoint loading: safetensors -> flat dicts of torch tensors.
+"""Checkpoint loading: safetensors or torch .pth -> flat dicts of torch tensors.
 
 The committed ``weights/*.safetensors`` are torch state dicts: OIHW conv
 kernels and (out, in) linear weights, stored in fp16 (written by
@@ -100,18 +100,36 @@ def load_safetensors(path: str, device="cpu", dtype=torch.float32) -> Params:
     }
 
 
+def load_torch_pth(path: str, device="cpu", dtype=torch.float32) -> Params:
+    """Load a torch ``.pth`` state dict (the layout the port keeps: no
+    transposes). A checkpoint that wraps its state dict under ``"model"`` or
+    ``"state_dict"`` is unwrapped; ``num_batches_tracked`` counters are
+    dropped."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict):
+        state = state.get("model", state.get("state_dict", state))
+    return {
+        name: t.detach().to(device=device, dtype=dtype)
+        for name, t in state.items()
+        if not name.endswith("num_batches_tracked")
+    }
+
+
 def load_params(
     path: str | None,
     fallback: Callable[[], Params],
     device="cpu",
     dtype=torch.float32,
 ) -> Params:
-    """Load a safetensors checkpoint from ``path``; fall back to a random
-    init when it is missing, so the framework stays runnable weight-free."""
+    """Load a ``.safetensors`` or ``.pth`` checkpoint from ``path``; fall
+    back to a random init when it is missing, so the framework stays
+    runnable weight-free. Any other extension raises."""
     if path and os.path.exists(path):
-        if not path.endswith(".safetensors"):
-            raise ValueError(f"not a .safetensors checkpoint: {path}")
-        return load_safetensors(path, device, dtype)
+        if path.endswith(".safetensors"):
+            return load_safetensors(path, device, dtype)
+        if path.endswith(".pth"):
+            return load_torch_pth(path, device, dtype)
+        raise ValueError(f"not a .safetensors or .pth checkpoint: {path}")
     if path:
         get_logger().warning("weights not found at %s; using random initialization", path)
     return {k: v.to(device=device, dtype=dtype) for k, v in fallback().items()}

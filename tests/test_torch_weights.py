@@ -15,6 +15,7 @@ import torch
 from superslam_tpu.models import eigenplaces as jep
 from superslam_tpu.models import lightglue as jlg
 from superslam_tpu.models import superpoint as jsp
+from superslam_tpu.models.weights import load_params as jax_load_params
 from superslam_tpu.models.weights import load_safetensors as jax_load
 from superslam_tpu_torch.models import eigenplaces as tep
 from superslam_tpu_torch.models import lightglue as tlg
@@ -23,6 +24,7 @@ from superslam_tpu_torch.models.weights import (
     from_jax_params,
     load_params,
     load_safetensors,
+    to_jax_params,
     to_torch_layout,
 )
 
@@ -75,6 +77,36 @@ def test_load_params_falls_back_to_init(tmp_path):
     got = load_params(missing, lambda: tsp.init_superpoint_params(1))
     want = tsp.init_superpoint_params(1)
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("wrap", [None, "model", "state_dict"])
+def test_load_params_reads_a_pth_state_dict(tmp_path, wrap):
+    """A torch .pth of the committed SuperPoint checkpoint loads through the
+    port as the .safetensors does, and through to_jax_params as the JAX
+    package's load_params reads the same .pth."""
+    path = os.path.join(REPO, "weights", "superpoint_render.safetensors")
+    ref = load_safetensors(path)
+    state = {**ref, "bn.num_batches_tracked": torch.tensor(7)}
+    pth = str(tmp_path / "superpoint_render.pth")
+    torch.save(state if wrap is None else {wrap: state}, pth)
+    fallback = lambda: tsp.init_superpoint_params(0)  # noqa: E731
+    ours = load_params(pth, fallback)
+    assert set(ours) == set(ref)
+    for k, v in ref.items():
+        assert ours[k].dtype == torch.float32
+        torch.testing.assert_close(ours[k], v, rtol=0, atol=0, msg=k)
+    theirs = jax_load_params(pth, lambda: jsp.init_superpoint_params(0))
+    carried = to_jax_params(ours)
+    assert set(carried) == set(theirs)
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(carried[k], np.asarray(v), err_msg=k)
+
+
+def test_load_params_refuses_other_extensions(tmp_path):
+    path = tmp_path / "superpoint.bin"
+    path.write_bytes(b"\0")
+    with pytest.raises(ValueError, match=".pth"):
+        load_params(str(path), lambda: tsp.init_superpoint_params(0))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
