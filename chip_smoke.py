@@ -91,8 +91,10 @@ In order, any failure exiting non-zero:
    reference's 0.0675, 0.0667, 0.0662, 0.0348 and 0.0969 m; stereo_nogate,
    stereo_passthrough, stereo_devtrack, stereo_devkf_nohybrid,
    stereo_devkf_passthrough, stereo_covis03, rgbd_devtrack (with its gap to
-   rgbd), stereo_loop_randomplace, stereo_loop_devkf and stereo_xla_smoother
-   (the stereo leg with the device window solver) printed), prints each
+   rgbd), stereo_loop_randomplace, stereo_loop_devkf, stereo_xla_smoother
+   (the stereo leg with the device window solver) and stereo_devkf_f32off
+   (``SUPERSLAM_F32_PRECISION=0``, in a child process of the suite, its ATE
+   beside stereo_devkf's) printed), prints each
    leg's wall time, host pose solves and loop closures and the host-core
    build it loaded, and writes ``ACCURACY_TORCH.json``;
 4e. RGB-D at configs/TUM1.yaml's geometry (640x480, its intrinsics, 1000
@@ -211,12 +213,26 @@ In order, any failure exiting non-zero:
    before and after and the step median printed; the checkpoint in
    ``eigenplaces_descriptor`` at unit norm, and the training forward
    within 1e-2 of ``eigenplaces_descriptor`` with its batch statistics
-   merged in); and ``sharded_train_step`` on the (1, 1) mesh against
-   ``train_step`` on one batch (loss and parameters within 1e-6, 18
-   masked_attention and 18 masked_attention_bwd launches); prints the
-   phase's wall time;
+   merged in); and ``sharded_train_step`` against ``train_step`` on one
+   batch: on the (1, 1) mesh (loss and parameters within 1e-6, 18
+   masked_attention and 18 masked_attention_bwd launches), then on meshes
+   of the repeated card at model axis 2 and 4 (LightGlue's heads and FFN
+   units split, ``parallel/tensor_parallel.py``: the loss within 1e-6
+   relative, the gradients before the optimizer step within 1e-4 of each
+   tensor's largest, exactly 18·M launches of each attention kernel), and
+   on a model axis of 2 over two distinct devices, the card and the host's
+   CPU (the copies between them and autograd's path back through them;
+   18 launches of each kernel; the CPU shard's attention is its plain
+   version, so the loss within 1e-4 relative and the gradients within 1e-3,
+   the training phase's limits for the kernels against the plain
+   versions), each step's median ms by CUDA events printed beside M = 1's;
+   prints the phase's wall time;
 8. runs every stage of ``scripts/profile_stages_torch.py`` and checks that
-   conv1a1b_full, conv_pair_full and conv3x3 were launched there;
+   conv1a1b_full, conv_pair_full and conv3x3 were launched there; then
+   ``scripts/profile_pool_torch.py`` as a subprocess (its nine pool
+   formulations at (2, 64, 400, 1280) bf16, each equal to F.max_pool2d,
+   and the conv pairs pooled against unpooled plus the fastest pool),
+   printing its table and failing on its non-zero exit;
 9. profiles, after every timed phase (a profiler session slows the
    launches that follow it on the host), the score half on one frame's
    logits, the logits mode beside the composition it replaces (PyTorch's
@@ -277,6 +293,9 @@ TRAIN_BATCH, TRAIN_CAP, TRAIN_LR = 8, 256, 3e-4
 FIXED_BATCH_STEPS = 6
 SCRIPT_PAIRS, SCRIPT_STEPS = 24, 20
 ATTENTION_PER_STEP = 18  # 9 layers x (self + cross), forward and backward each
+# The matcher's step over the mesh (phase 7b): model axes of the repeated
+# card (1 is the (1, 1) mesh of the card itself), and the steps timed at each.
+MESH_MODEL_AXES, MESH_TIMED_STEPS = (1, 2, 4), 5
 # The training slice (phase 7b): scripts/train_superpoint.py's defaults
 # (batch 32 at 120x160, lr 1e-3; render pairs 8 at 240x320), started from the
 # committed render-trained checkpoint; the gradient on the card against the
@@ -335,7 +354,7 @@ ACCURACY_LEGS = ("stereo", "stereo_sync", "stereo_devkf", "stereo_nogate",
                  "stereo_passthrough", "stereo_devtrack", "stereo_devkf_nohybrid",
                  "stereo_devkf_passthrough", "stereo_covis03", "rgbd", "rgbd_devtrack",
                  "stereo_loop", "stereo_loop_randomplace", "stereo_loop_devkf",
-                 "stereo_xla_smoother")
+                 "stereo_xla_smoother", "stereo_devkf_f32off")
 # The RGB-D phases: configs/TUM1.yaml's intrinsics, distortion, size, keypoint
 # count and depth factor. An RGB-D camera's bf only sets the virtual right
 # coordinate and, with ThDepth 40, the depth cut: TUM1's 40 would cut at 3.1 m
@@ -1890,6 +1909,10 @@ def run_accuracy_legs(torch) -> None:
               f"{row['reference_ate_m']} m; {limit}), mode {row['mode']}, {row['frames']} frames "
               f"in {row['wall_s']:.2f} s ({row['fps']:.2f} fps sustained over frames 1..), "
               f"keyframes {row['keyframes']}, host pose solves {row['host_solves']}{extra}")
+    by_leg = {row["leg"]: row for row in suite["legs"]}
+    print(f"accuracy: stereo_devkf_f32off (SUPERSLAM_F32_PRECISION=0, a child process of the "
+          f"suite) ATE {by_leg['stereo_devkf_f32off']['ate_rmse_m']:.4f} m beside stereo_devkf's "
+          f"{by_leg['stereo_devkf']['ate_rmse_m']:.4f} m (printed only)")
     print(f"accuracy: host core {suite['host_core']}")
     with open(os.path.join(REPO, "ACCURACY_TORCH.json"), "w") as f:
         json.dump(suite, f, indent=2)
@@ -3475,17 +3498,9 @@ def check_training_slice(torch) -> None:
     from scripts import train_superpoint_torch as sp_script
     from superslam_tpu_torch.frontend.extractor import SuperPointExtractor
     from superslam_tpu_torch.models import eigenplaces as epm
-    from superslam_tpu_torch.models import lightglue as lgm
     from superslam_tpu_torch.models import superpoint as spm
     from superslam_tpu_torch.models.weights import load_params, load_safetensors
     from superslam_tpu_torch.ops.cuda import _build
-    from superslam_tpu_torch.parallel.mesh import make_mesh
-    from superslam_tpu_torch.parallel.training import (
-        make_optimizer,
-        sharded_train_step,
-        synthetic_matching_batch,
-        train_step,
-    )
     from superslam_tpu_torch.train import superpoint_train as spt
     from superslam_tpu_torch.train.render_domain import RenderDomainSource
     from superslam_tpu_torch.train.synthetic_shapes import compact_pair, render_shapes
@@ -3611,30 +3626,84 @@ def check_training_slice(torch) -> None:
     if not gap <= 1e-2 or not norm_err <= 1e-4:
         fail(f"eigenplaces script: forward gap {gap}, norm error {norm_err}")
 
-    # 6. The matcher's step over the mesh: (1, 1) on one card, against
-    # train_step on the same batch.
-    mesh = make_mesh()
-    if mesh.devices.shape != (1, 1):
-        fail(f"mesh: {mesh.devices.shape} on {torch.cuda.device_count()} card(s)")
+    # 6. The matcher's step over the mesh.
+    check_mesh_steps(torch)
+    print(f"training slice phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_mesh_steps(torch) -> None:
+    """The matcher's step over the mesh (phase 7b, step 6): the (1, 1) mesh
+    of the card, then the repeated card at model axis 2 and 4 (LightGlue's
+    heads and FFN units split), then a model axis of 2 over two distinct
+    devices, the card and the host's CPU (every shard's parameter slices,
+    activations and LayerNorm statistics copied between them and the
+    all-reduces summed on the card), each against train_step on the same
+    batch; MESH_TIMED_STEPS more steps of each timed by CUDA events."""
+    from superslam_tpu_torch.models import lightglue as lgm
+    from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.parallel.mesh import make_mesh
+    from superslam_tpu_torch.parallel.training import (
+        make_optimizer,
+        sharded_train_step,
+        synthetic_matching_batch,
+        train_step,
+    )
+
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in
              synthetic_matching_batch(np.random.default_rng(19), TRAIN_BATCH, TRAIN_CAP).items()}
     ref_params = lgm.init_lightglue_params(1, device="cuda")
     ref_loss = float(train_step(ref_params, make_optimizer(ref_params, TRAIN_LR), batch))
-    params = lgm.init_lightglue_params(1, device="cuda")
-    optimizer = make_optimizer(params, TRAIN_LR)
-    _build.reset_launch_counts()
-    loss = float(sharded_train_step(params, optimizer, batch, mesh))
-    counts = _build.launch_counts()
-    worst = max((p - ref_params[k]).abs().max().item() for k, p in params.items())
-    print(f"mesh step on the (1, 1) mesh vs train_step: loss {loss:.7f} vs {ref_loss:.7f}, "
-          f"parameters within {worst:.3g} (limit 1e-6); launches masked_attention "
-          f"{counts['masked_attention']}, masked_attention_bwd {counts['masked_attention_bwd']}")
-    if not abs(loss - ref_loss) <= 1e-6 * abs(ref_loss) or not worst <= 1e-6:
-        fail(f"mesh step: loss {loss} vs {ref_loss}, parameters {worst}")
-    for k in ("masked_attention", "masked_attention_bwd"):
-        if counts[k] != ATTENTION_PER_STEP:
-            fail(f"mesh step: {k} {counts[k]} launches, want {ATTENTION_PER_STEP}")
-    print(f"training slice phase: {time.perf_counter() - t_phase:.1f} s")
+    ref_grads = {k: p.grad.clone() for k, p in ref_params.items()}
+    # (label, mesh, model axis, attention launches a step on the card, the
+    # loss's relative limit, the gradients' limit). The card and the CPU:
+    # the CPU shard's heads run the plain attention, so the limits are the
+    # training phase's for the kernels against their plain versions.
+    cases = [("(1, 1)", make_mesh(), 1, ATTENTION_PER_STEP, 1e-6, None)]
+    cases += [(f"(1, {m})", make_mesh(m, model_axis=m, devices=["cuda"] * m), m,
+               ATTENTION_PER_STEP * m, 1e-6, 1e-4) for m in MESH_MODEL_AXES[1:]]
+    cases.append(("(1, 2) of the card and the CPU",
+                  make_mesh(2, model_axis=2, devices=["cuda", "cpu"]), 2, ATTENTION_PER_STEP,
+                  1e-4, 1e-3))
+    mesh_ms = {}
+    for label, mesh, m, launches, loss_limit, grad_limit in cases:
+        if mesh.devices.shape != (1, m):
+            fail(f"mesh: {mesh.devices.shape} on {torch.cuda.device_count()} card(s), "
+                 f"want (1, {m})")
+        params = lgm.init_lightglue_params(1, device="cuda")
+        optimizer = make_optimizer(params, TRAIN_LR)
+        _build.reset_launch_counts()
+        loss = float(sharded_train_step(params, optimizer, batch, mesh))
+        counts = _build.launch_counts()
+        grad_gap = max(((p.grad - ref_grads[k]).abs().max() / ref_grads[k].abs().max()
+                        .clamp_min(1e-30)).item() for k, p in params.items())
+        worst = max((p - ref_params[k]).abs().max().item() for k, p in params.items())
+        ms = []
+        for _ in range(MESH_TIMED_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sharded_train_step(params, optimizer, batch, mesh)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        mesh_ms[label] = statistics.median(ms)
+        print(f"mesh step on the {label} mesh vs train_step: loss {loss:.7f} vs {ref_loss:.7f}, "
+              f"gradients within {grad_gap:.3g} of each tensor's largest, parameters after the "
+              f"step within {worst:.3g}; launches masked_attention "
+              f"{counts['masked_attention']}, masked_attention_bwd "
+              f"{counts['masked_attention_bwd']}; step median {mesh_ms[label]:.3f} ms over "
+              f"{MESH_TIMED_STEPS} steps (CUDA events; {mesh_ms[label] / mesh_ms['(1, 1)']:.2f}x "
+              f"M = 1)")
+        if not abs(loss - ref_loss) <= loss_limit * abs(ref_loss):
+            fail(f"mesh step {label}: loss {loss} vs {ref_loss} (limit {loss_limit} relative)")
+        if m == 1 and not worst <= 1e-6:
+            fail(f"mesh step {label}: parameters {worst}")
+        if m > 1 and not grad_gap <= grad_limit:
+            fail(f"mesh step {label}: gradients {grad_gap} of a tensor's largest "
+                 f"(limit {grad_limit})")
+        for k in ("masked_attention", "masked_attention_bwd"):
+            if counts[k] != launches:
+                fail(f"mesh step {label}: {k} {counts[k]} launches, want {launches}")
 
 
 def check_profiler(torch) -> dict[str, int]:
@@ -3658,6 +3727,20 @@ def check_profiler(torch) -> dict[str, int]:
         if n < 1:
             fail(f"profiler: {k} was not launched")
     return only_here
+
+
+def check_pool_profile() -> None:
+    """scripts/profile_pool_torch.py as a user runs it: its nine pool
+    formulations, each equal to F.max_pool2d, and the folded pool of rows
+    1-2; its table printed."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "profile_pool_torch.py")],
+                         capture_output=True, text=True, timeout=600, cwd=REPO)
+    for line in run.stdout.splitlines():
+        print(f"pool profile: {line}")
+    if run.returncode != 0:
+        fail(f"pool profile: exit {run.returncode}: {run.stderr[-3000:]}")
+    print(f"pool profile: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3778,6 +3861,7 @@ def main() -> int:
     f32_fwd_launches, bwd_launches = check_training(torch)
     check_training_slice(torch)
     profiler_launches = check_profiler(torch)
+    check_pool_profile()
     # Profiles after every timed phase: a profiler session slows the
     # launches that follow it on the host.
     profile_score_half(torch, sp, *frames[0])

@@ -45,10 +45,16 @@ Legs (env; reference ATE from ACCURACY.json's CPU legs):
   stereo_xla_smoother the stereo leg with SUPERSLAM_XLA_SMOOTHER=1 (each
                       window solved on the device, ops/window_solver.py)
                       printed
+  stereo_devkf_f32off stereo_devkf with SUPERSLAM_F32_PRECISION=0 (the
+                      solver-precision fix off: ops/precision.py leaves the
+                      TF32 flags as they are)              printed
 The printed-only legs the reference ran host-solved on its CPU
 (nogate, passthrough, covis03) also pin SUPERSLAM_DEVICE_TRACKER=0. A
-gated leg passes at ATE <= 1.5 x its reference leg. Every row counts the
-host estimator's pose solves (``host_solves``) and the loop closures. The artifact records
+gated leg passes at ATE <= 1.5 x its reference leg. A leg whose env holds
+SUPERSLAM_F32_PRECISION, which ops/precision.py reads once at import, runs
+in a child process: this script with ``--legs <leg>``, its row read back
+from the child's artifact. Every row counts the host estimator's pose
+solves (``host_solves``) and the loop closures. The artifact records
 which build of the host estimator's C++ core the run loaded (its path,
 size, SHA-1, the flags the Makefile builds it with and this host's CPU):
 the dispatch-frozen leg reads another ATE with each build.
@@ -153,6 +159,14 @@ LEGS = {
     "rgbd_devtrack": ({}, "lightglue_synth.safetensors", None, False),
     "stereo_xla_smoother": (
         {**HOST_SOLVED, "SUPERSLAM_XLA_SMOOTHER": "1"}, "lightglue_synth.safetensors", None, False,
+    ),
+    # The JAX suite's kill-switch leg (scripts/accuracy_suite.py:228-231):
+    # on the TPU it read 0.0693 m against stereo_devkf's 0.0738 (ACCURACY.json
+    # tpu_legs), where the fix is XLA's multi-pass f32 matmul. That is no
+    # yardstick for the card, where the switch leaves TF32 as it is.
+    "stereo_devkf_f32off": (
+        {"SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_F32_PRECISION": "0"},
+        "lightglue_synth.safetensors", None, False,
     ),
 }
 GATE_FACTOR = 1.5
@@ -318,6 +332,24 @@ def run_leg(name: str, circuit, device: str = "cuda", lg_weights: str | None = N
     return row
 
 
+def run_leg_in_child(name: str, frames: int, device: str) -> dict:
+    """One leg in a child process of this script (``--legs name``) with
+    the leg's env set before anything is imported; returns its row."""
+    env, *_ = LEGS[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "leg.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--legs", name, "--frames",
+               str(frames), "--device", device, "--out", out]
+        child = subprocess.run(cmd, env={**os.environ, **env}, capture_output=True, text=True,
+                               cwd=REPO)
+        if child.returncode != 0:
+            raise RuntimeError(f"leg {name}: the child process exited {child.returncode}:\n"
+                               f"{child.stdout[-2000:]}{child.stderr[-4000:]}")
+        with open(out) as f:
+            (row,) = json.load(f)["legs"]
+    return row
+
+
 def card_info(device: str) -> dict:
     """The card's name and power limit (nvidia-smi), or what ran instead."""
     if not device.startswith("cuda"):
@@ -361,16 +393,31 @@ def host_core_build() -> dict:
     return info
 
 
+def needs_child(leg: str) -> bool:
+    """Whether the leg sets SUPERSLAM_F32_PRECISION, read once at import, to
+    another value than this process read."""
+    from superslam_tpu_torch.ops import precision
+
+    env = LEGS[leg][0]
+    return env.get("SUPERSLAM_F32_PRECISION", precision.F32_PRECISION_MODE) != (
+        precision.F32_PRECISION_MODE)
+
+
 def run_suite(legs, frames: int = FRAMES, device: str = "cuda", checkpoints=(),
               log=print) -> dict:
     """Render the circuit once (and once with depth, for the RGB-D legs) and
     run each leg (and each checkpoint's stereo leg); returns the artifact.
     rgbd_devtrack's row carries its gap to rgbd's ATE when both ran."""
-    stereo = render_circuit(frames) if checkpoints or set(legs) - set(RGBD_LEGS) else None
-    rgbd = render_rgbd_circuit(frames) if set(legs) & set(RGBD_LEGS) else None
+    children = {leg for leg in legs if needs_child(leg)}
+    in_process = set(legs) - children
+    stereo = render_circuit(frames) if checkpoints or in_process - set(RGBD_LEGS) else None
+    rgbd = render_rgbd_circuit(frames) if in_process & set(RGBD_LEGS) else None
     rows = []
     for leg in legs:
-        rows.append(run_leg(leg, rgbd if leg in RGBD_LEGS else stereo, device))
+        if leg in children:
+            rows.append(run_leg_in_child(leg, frames, device))
+        else:
+            rows.append(run_leg(leg, rgbd if leg in RGBD_LEGS else stereo, device))
         log(f"[suite] {json.dumps(rows[-1])}")
     by_leg = {r["leg"]: r for r in rows}
     if "rgbd" in by_leg and "rgbd_devtrack" in by_leg:

@@ -346,8 +346,8 @@ class PipelinedStereoTracker:
                 **self._step_kw(),
                 **self._track_kw(),
             )
-            if n_real < self.batch:
-                self._carry_stale = True  # duplicates polluted the carry
+            # Duplicates of a flush tail move the carry too: the next
+            # dispatch reseeds it all the same.
         else:
             packed, desc, kpts, valid = step.fused_stereo_step_multi(
                 pl.sp_params,
@@ -400,16 +400,14 @@ class PipelinedStereoTracker:
                     kf_ref = self.estimator._last_keyframe_id
                 else:
                     kf_ref = None
-            elif item.kf_ref_id is not None:
-                if row[12] >= self._trk_min_matches:
-                    device_pose = _decode_device_pose(row)
-                else:
-                    # In-step coast (n < min_matches): the row is the device
-                    # carry's dead-reckoned prediction, not a solve. Fall
-                    # through to the full host solve on the device's own
-                    # matches and reseed the carry from host state at the
-                    # next dispatch.
-                    self._carry_stale = True
+            elif item.kf_ref_id is not None and row[12] >= self._trk_min_matches:
+                device_pose = _decode_device_pose(row)
+            # Otherwise, in dispatch-frozen mode, an in-step coast (n <
+            # min_matches): the row is the device carry's dead-reckoned
+            # prediction, not a solve. The frame falls through to the full
+            # host solve on the device's own matches; the carry needs no
+            # mark, since every dispatch of this mode reseeds it from host
+            # state.
         if self.device_kf and device_promote is None:
             # Stale/bootstrap frame while the zero-lag mode is active: it
             # tracks through the host re-match path, but it must not run the

@@ -14,7 +14,9 @@ Two routes through the layers, as in the JAX package:
   around the hand-written attention kernel, described below;
   differentiable end to end with respect to every parameter it reads
   (attention through its hand-written backward), which is what
-  ``parallel/training.py`` trains through in f32.
+  ``parallel/training.py`` trains through in f32. Its blocks run over a
+  list of parameter shards: one whole shard here (``WholeParams``),
+  a mesh's model axis in ``parallel/tensor_parallel.py``.
 
 - Both keypoint sets are padded to one K with validity masks threaded
   through attention, the assignment softmaxes and match extraction.
@@ -105,30 +107,100 @@ def _linear(x, params, name, dtype):
     return y
 
 
-def _layer_norm(x, params, name, dtype):
-    g = params[f"{name}.weight"].float()
-    b = params[f"{name}.bias"].float()
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + 1e-5) * g + b).to(dtype)
+def _wide(t):
+    """t in f32, or as it is in f64 (gradient checks run the unfused route
+    in f64, as ``ops/cuda/attention.py`` keeps f64 inputs in f64)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
-def _ffn(x, message, params, prefix, dtype):
-    """x + MLP(cat[x, message]): Linear(2d,2d) -> LayerNorm -> GELU -> Linear."""
+class WholeParams:
+    """The one shard of an unsplit forward: every parameter whole, where it
+    is. The blocks below run over a list of shards, each computing its
+    share of the attention heads and the FFN's hidden units;
+    ``parallel/tensor_parallel.py``'s shards split them over a mesh's model
+    axis with the same methods."""
+
+    def __init__(self, params: Params):
+        self.params = params
+
+    def here(self, t: torch.Tensor) -> torch.Tensor:
+        """t on this shard's device."""
+        return t
+
+    def take(self, name: str, dims=None) -> torch.Tensor:
+        """This shard's part of parameter ``name`` (split along ``dims``,
+        by default along its placement's model dimensions)."""
+        return self.params[name]
+
+    def column(self, x, name, dtype):
+        """x @ W.T + b for this shard's output rows of linear ``name``."""
+        w, b = self.take(f"{name}.weight"), self.take(f"{name}.bias")
+        return x.to(dtype) @ w.to(dtype).t() + b.to(dtype)
+
+    def row(self, h, name, dtype):
+        """h @ W.T over this shard's input columns of linear ``name``: its
+        partial sum, without the bias."""
+        return h.to(dtype) @ self.take(f"{name}.weight").to(dtype).t()
+
+
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """t on ``device``: t itself where it is there already. Every CPU
+    device name (``cpu``, ``cpu:0``) is one memory, where ``.to`` would
+    still copy and add a node to the graph."""
+    return t if t.device.type == device.type == "cpu" else t.to(device)
+
+
+def _all_reduce(parts, device):
+    """The sum of the shards' parts in the order 0..M-1 on ``device``."""
+    total = _to(parts[0], device)
+    for p in parts[1:]:
+        total = total + _to(p, device)
+    return total
+
+
+def _mean_over_units(parts, device):
+    """The mean over the last dim of the shards' equal parts joined: their
+    means all-reduced over the shard count (exact for the power-of-two
+    widths here; one shard: its mean)."""
+    mean = _all_reduce([p.mean(dim=-1, keepdim=True) for p in parts], device)
+    return mean if len(parts) == 1 else mean / len(parts)
+
+
+def _message(parts, params, name, dtype, device):
+    """The output of linear ``name`` whose input columns the shards split:
+    their partials all-reduced on ``device``, then the bias added once."""
+    return _all_reduce(parts, device) + params[f"{name}.bias"].to(dtype)
+
+
+def _shards(params, shards):
+    return (WholeParams(params),) if shards is None else shards
+
+
+def _ffn(x, message, params, prefix, dtype, shards=None):
+    """x + MLP(cat[x, message]): Linear(2d,2d) -> LayerNorm -> GELU ->
+    Linear, the 2·DIM hidden units split over ``shards``. The LayerNorm
+    normalises over all of them: its mean and then its mean square
+    deviation from that mean are all-reduced (f32; f64 on f64 rows)."""
+    shards = _shards(params, shards)
     h = torch.cat([x, message], dim=-1)
-    h = _linear(h, params, f"{prefix}.0", dtype)
-    h = _layer_norm(h, params, f"{prefix}.1", dtype)
-    h = F.gelu(h, approximate="none")
-    h = _linear(h, params, f"{prefix}.3", dtype)
-    return x + h
+    a = [_wide(s.column(s.here(h), f"{prefix}.0", dtype)) for s in shards]
+    mu = _mean_over_units(a, x.device)
+    mus = [s.here(mu) for s in shards]
+    var = _mean_over_units([torch.square(t - u) for t, u in zip(a, mus)], x.device)
+    parts = []
+    for s, t, u in zip(shards, a, mus):
+        g = _wide(s.take(f"{prefix}.1.weight", [0]))
+        b = _wide(s.take(f"{prefix}.1.bias", [0]))
+        n = ((t - u) * torch.rsqrt(s.here(var) + 1e-5) * g + b).to(dtype)
+        parts.append(s.row(F.gelu(n, approximate="none"), f"{prefix}.3", dtype))
+    return x + _message(parts, params, f"{prefix}.3", dtype, x.device)
 
 
 def _rotary_encoding(kpts, params, dtype):
     """Learnable Fourier features -> (cos, sin) each (B, N, HEAD_DIM), each
     frequency repeated for the rotary pair (2i, 2i+1)."""
-    wr = params["posenc.Wr.weight"].float()  # (HEAD_DIM//2, 2)
-    proj = kpts.float() @ wr.t()  # (B, N, 32)
+    wr = _wide(params["posenc.Wr.weight"])  # (HEAD_DIM//2, 2)
+    proj = _wide(kpts) @ wr.t()  # (B, N, 32)
     cos = torch.repeat_interleave(torch.cos(proj), 2, dim=-1)
     sin = torch.repeat_interleave(torch.sin(proj), 2, dim=-1)
     return cos.to(dtype), sin.to(dtype)
@@ -146,8 +218,9 @@ def _apply_rotary(t, cos, sin):
 
 
 def _split_heads(x):
+    """(B, N, h * HEAD_DIM) -> (B, h, N, HEAD_DIM)."""
     b, n, _ = x.shape
-    return x.reshape(b, n, NUM_HEADS, HEAD_DIM).permute(0, 2, 1, 3)
+    return x.reshape(b, n, -1, HEAD_DIM).permute(0, 2, 1, 3)
 
 
 def _merge_heads(x):
@@ -155,18 +228,24 @@ def _merge_heads(x):
     return x.permute(0, 2, 1, 3).reshape(b, n, h * d)
 
 
-def _self_block(x, enc, mask, params, prefix, dtype):
+def _self_block(x, enc, mask, params, prefix, dtype, shards=None):
+    """The self block, its heads split over ``shards`` (one attention call
+    a shard on its heads)."""
+    shards = _shards(params, shards)
     b, n, _ = x.shape
-    qkv = _linear(x, params, f"{prefix}.Wqkv", dtype)
-    # cvg/LightGlue packs the Wqkv output as (head, channel, qkv) interleaved.
-    qkv = qkv.reshape(b, n, NUM_HEADS, HEAD_DIM, 3).permute(0, 2, 1, 3, 4)
-    q, k, v = qkv[..., 0], qkv[..., 1], qkv[..., 2]
-    cos, sin = enc
-    q = _apply_rotary(q, cos, sin)
-    k = _apply_rotary(k, cos, sin)
-    context = masked_attention(q, k, v, mask)
-    message = _linear(_merge_heads(context), params, f"{prefix}.out_proj", dtype)
-    return _ffn(x, message, params, f"{prefix}.ffn", dtype)
+    parts = []
+    for s in shards:
+        qkv = s.column(s.here(x), f"{prefix}.Wqkv", dtype)
+        # cvg/LightGlue packs the Wqkv output as (head, channel, qkv)
+        # interleaved: heads outermost, so a shard's rows are whole heads.
+        qkv = qkv.reshape(b, n, -1, HEAD_DIM, 3).permute(0, 2, 1, 3, 4)
+        cos, sin = (s.here(t) for t in enc)
+        q = _apply_rotary(qkv[..., 0], cos, sin)
+        k = _apply_rotary(qkv[..., 1], cos, sin)
+        context = masked_attention(q, k, qkv[..., 2], s.here(mask))
+        parts.append(s.row(_merge_heads(context), f"{prefix}.out_proj", dtype))
+    message = _message(parts, params, f"{prefix}.out_proj", dtype, x.device)
+    return _ffn(x, message, params, f"{prefix}.ffn", dtype, shards)
 
 
 def _swap_pairs(a):
@@ -174,15 +253,31 @@ def _swap_pairs(a):
     return a.reshape(a.shape[0] // 2, 2, *a.shape[1:]).flip(1).reshape(a.shape)
 
 
-def _cross_block_paired(x, mask, params, prefix, dtype):
+def _cross_block_paired(x, mask, params, prefix, dtype, shards=None):
     """Cross-attention over interleaved pair rows (2P, K, D): row 2p attends
-    row 2p+1 and vice versa, as one attention call against the
-    pair-swapped keys, values and mask."""
-    qk = _split_heads(_linear(x, params, f"{prefix}.to_qk", dtype))  # (2P,H,K,Dh)
-    v = _split_heads(_linear(x, params, f"{prefix}.to_v", dtype))
-    out = masked_attention(qk, _swap_pairs(qk), _swap_pairs(v), _swap_pairs(mask))
-    msg = _linear(_merge_heads(out), params, f"{prefix}.to_out", dtype)
-    return _ffn(x, msg, params, f"{prefix}.ffn", dtype)
+    row 2p+1 and vice versa, as one attention call (a shard, on its heads)
+    against the pair-swapped keys, values and mask."""
+    shards = _shards(params, shards)
+    parts = []
+    for s in shards:
+        xs, ms = s.here(x), s.here(mask)
+        qk = _split_heads(s.column(xs, f"{prefix}.to_qk", dtype))  # (2P, h, K, Dh)
+        v = _split_heads(s.column(xs, f"{prefix}.to_v", dtype))
+        out = masked_attention(qk, _swap_pairs(qk), _swap_pairs(v), _swap_pairs(ms))
+        parts.append(s.row(_merge_heads(out), f"{prefix}.to_out", dtype))
+    message = _message(parts, params, f"{prefix}.to_out", dtype, x.device)
+    return _ffn(x, message, params, f"{prefix}.ffn", dtype, shards)
+
+
+def _unfused_layers(x, kpts, mask, params, dtype, shards=None):
+    """All 9 self + cross layers of the unfused route, their heads and FFN
+    units split over ``shards`` (default: one whole shard)."""
+    enc = _rotary_encoding(kpts, params, dtype)
+    for i in range(NUM_LAYERS):
+        p = f"transformers.{i}"
+        x = _self_block(x, enc, mask, params, f"{p}.self_attn", dtype, shards)
+        x = _cross_block_paired(x, mask, params, f"{p}.cross_attn", dtype, shards)
+    return x
 
 
 def _forward_fused_layers(params, x, kpts, mask, compute_dtype):
@@ -202,8 +297,8 @@ def _forward_fused_layers(params, x, kpts, mask, compute_dtype):
 
 
 def _log_assignment(x0, x1, mask0, mask1, params, prefix):
-    """Dual-softmax + matchability log-assignment (f32)."""
-    f32 = torch.float32
+    """Dual-softmax + matchability log-assignment (f32; f64 on f64 rows)."""
+    f32 = _wide(x0).dtype
     d0 = _linear(x0, params, f"{prefix}.final_proj", f32)
     d1 = _linear(x1, params, f"{prefix}.final_proj", f32)
     s = float(DIM) ** 0.25
@@ -246,30 +341,35 @@ def lightglue_forward(
     selects the unfused one (``_fused_layers_wanted``); ``fused=False``
     forces the unfused layers.
     """
-    b = desc0.shape[0]
-    m_len, n_len = desc0.shape[1], desc1.shape[1]
-    K = max(m_len, n_len)
-    kpts0p, desc0p, mask0p = _pad_to(kpts0, K), _pad_to(desc0, K), _pad_to(mask0, K)
-    kpts1p, desc1p, mask1p = _pad_to(kpts1, K), _pad_to(desc1, K), _pad_to(mask1, K)
-    dt = torch.promote_types(desc0p.dtype, desc1p.dtype)
-    # Interleave sides: rows (2p, 2p+1) = (side0, side1) of pair p.
-    x = torch.stack([desc0p.to(dt), desc1p.to(dt)], dim=1).reshape(2 * b, K, -1)
-    kpts = torch.stack([kpts0p, kpts1p], dim=1).reshape(2 * b, K, 2)
-    mask = torch.stack([mask0p, mask1p], dim=1).reshape(2 * b, K)
-
+    x, kpts, mask = _pair_rows(kpts0, desc0, kpts1, desc1, mask0, mask1)
     x = _linear(x, params, "input_proj", compute_dtype)
     if _fused_layers_wanted() if fused is None else fused:
         x = _forward_fused_layers(params, x, kpts, mask, compute_dtype)
     else:
-        enc = _rotary_encoding(kpts, params, compute_dtype)
-        for i in range(NUM_LAYERS):
-            p = f"transformers.{i}"
-            x = _self_block(x, enc, mask, params, f"{p}.self_attn", compute_dtype)
-            x = _cross_block_paired(x, mask, params, f"{p}.cross_attn", compute_dtype)
+        x = _unfused_layers(x, kpts, mask, params, compute_dtype)
+    return _final_assignment(x, mask0, mask1, params)
 
-    x0 = x[0::2, :m_len]
-    x1 = x[1::2, :n_len]
-    # Early exit disabled: only the final layer's assignment head is used.
+
+def _pair_rows(kpts0, desc0, kpts1, desc1, mask0, mask1):
+    """Both sets padded to one K and interleaved on the batch axis: rows
+    (2p, 2p+1) = (side0, side1) of pair p. Returns (x (2B, K, 256), kpts
+    (2B, K, 2), mask (2B, K))."""
+    b = desc0.shape[0]
+    K = max(desc0.shape[1], desc1.shape[1])
+    kpts0p, desc0p, mask0p = _pad_to(kpts0, K), _pad_to(desc0, K), _pad_to(mask0, K)
+    kpts1p, desc1p, mask1p = _pad_to(kpts1, K), _pad_to(desc1, K), _pad_to(mask1, K)
+    dt = torch.promote_types(desc0p.dtype, desc1p.dtype)
+    x = torch.stack([desc0p.to(dt), desc1p.to(dt)], dim=1).reshape(2 * b, K, -1)
+    kpts = torch.stack([kpts0p, kpts1p], dim=1).reshape(2 * b, K, 2)
+    mask = torch.stack([mask0p, mask1p], dim=1).reshape(2 * b, K)
+    return x, kpts, mask
+
+
+def _final_assignment(x, mask0, mask1, params):
+    """The last layer's log-assignment of the interleaved rows x (early
+    exit disabled: only the final layer's assignment head is used)."""
+    x0 = x[0::2, : mask0.shape[1]]
+    x1 = x[1::2, : mask1.shape[1]]
     return _log_assignment(x0, x1, mask0, mask1, params, f"log_assignment.{NUM_LAYERS - 1}")
 
 

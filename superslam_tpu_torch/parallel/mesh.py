@@ -8,7 +8,8 @@ keeps a 2-D (data, model) mesh:
   parallelism over independent image streams, and the batch axis of the
   fine-tuning step;
 - ``model``: tensor parallelism over LightGlue's FFN hidden dim and
-  attention projections (never needed for memory at this model size).
+  attention projections (never needed for memory at this model size;
+  ``parallel/tensor_parallel.py`` splits the forward by these rules).
 
 Here a mesh is a (data, model) grid of ``torch.device``s and a placement
 (``NamedSharding``) says which mesh axis splits which tensor dimension;

@@ -10,9 +10,10 @@ its hand-written backward: 18 forward and 18 backward launches per step.
 
 The JAX package runs the step under ``jit`` over a (data, model) mesh;
 ``train_step`` is the step on one device and ``sharded_train_step`` the
-data-parallel step over the port's mesh (``parallel/mesh.py``). Parameters
-are a flat dict of leaf tensors that require grad, updated in place by the
-optimizer.
+step over the port's mesh (``parallel/mesh.py``): data-parallel over its
+data axis, tensor-parallel over its model axis
+(``parallel/tensor_parallel.py``). Parameters are a flat dict of leaf
+tensors that require grad, updated in place by the optimizer.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..models.lightglue import lightglue_forward
 from .mesh import Mesh
+from .tensor_parallel import tensor_parallel_forward
 
 Params = dict[str, torch.Tensor]
 
@@ -45,6 +47,13 @@ def _nll_sum(
         params, kpts0, desc0, kpts1, desc1, mask0, mask1,
         compute_dtype=torch.float32, fused=False,
     )
+    return _assignment_nll(la, mask0, gt_indices)
+
+
+def _assignment_nll(
+    la: torch.Tensor, mask0: torch.Tensor, gt_indices: torch.Tensor
+) -> torch.Tensor:
+    """The summed NLL of the ground truth under the log-assignment ``la``."""
     matched = gt_indices >= 0
     safe_idx = torch.where(matched, gt_indices, 0).to(torch.int64)
     picked = torch.gather(la, 2, safe_idx[..., None])[..., 0]
@@ -134,19 +143,22 @@ def sharded_train_step(
     mesh: Mesh,
     lr: float | None = None,
 ) -> torch.Tensor:
-    """``train_step`` data-parallel over ``mesh``: the JAX package's step
-    under ``jit`` with the batch placed by ``data_sharding`` and the
-    parameters by ``lightglue_param_sharding``.
+    """``train_step`` over ``mesh``: the JAX package's step under ``jit``
+    with the batch placed by ``data_sharding`` and the parameters by
+    ``lightglue_param_sharding``.
 
     The batch is split over the mesh's data axis (its leading dim must
-    divide); shard i runs forward and backward on the device at (i, 0). A
-    shard on the parameters' device differentiates the parameters
-    themselves, any other a copy of them on its device, and its gradient
-    is summed onto the parameters' device: the all-reduce. Every shard's
-    loss is its NLL sum over the WHOLE batch's ``sum(mask0)``, so the step
-    computes what ``train_step`` does, up to the order of the sums. The
-    model axis is replicated: tensor parallelism over LightGlue's heads
-    needs more than one card. Returns the loss before the step."""
+    divide); data shard i runs forward and backward across the devices of
+    row i, its heads and FFN units split over the model axis
+    (``tensor_parallel_forward``; the model axis must be 1, 2 or 4), its
+    activations and loss on the device at (i, 0). A data shard on the
+    parameters' device differentiates the parameters themselves, any other
+    a copy of them on its device, and its gradient is summed onto the
+    parameters' device: the all-reduce. Every shard's loss is its NLL sum
+    over the WHOLE batch's ``sum(mask0)``, so the step computes what
+    ``train_step`` does, up to the order of the sums (over a model axis of
+    1, in ``train_step``'s order within a shard). Returns the loss before
+    the step."""
     n = mesh.shape["data"]
     if batch["mask0"].shape[0] % n:
         raise ValueError(
@@ -162,7 +174,9 @@ def sharded_train_step(
         local = params if dev == home else {
             k: p.detach().to(dev).requires_grad_(True) for k, p in params.items()
         }
-        loss = _nll_sum(local, *(t.to(dev) for t in shard)) / denom.to(dev)
+        kpts0, desc0, kpts1, desc1, mask0, mask1, gt = (t.to(dev) for t in shard)
+        la = tensor_parallel_forward(local, kpts0, desc0, kpts1, desc1, mask0, mask1, mesh, row=i)
+        loss = _assignment_nll(la, mask0, gt) / denom.to(dev)
         loss.backward()
         if local is not params:
             for k, p in params.items():

@@ -89,10 +89,11 @@ def test_short_leg_writes_the_artifact(tmp_path, monkeypatch):
 
 def test_legs_carry_the_reference_legs():
     """Every leg that has a reference carries ACCURACY.json's ATE of the
-    leg of the same name; the three the reference has no leg for
+    leg of the same name; the four the reference has no CPU leg for
     (stereo_loop_devkf, rgbd_devtrack: the card's defaults;
-    stereo_xla_smoother: the device window solver) carry none and are
-    printed."""
+    stereo_xla_smoother: the device window solver; stereo_devkf_f32off:
+    the precision kill-switch, whose one reading is the TPU's) carry none
+    and are printed."""
     import os
 
     with open(os.path.join(acc.REPO, "ACCURACY.json")) as f:
@@ -100,7 +101,7 @@ def test_legs_carry_the_reference_legs():
     for leg, (_env, _lg, ate, _gated) in acc.LEGS.items():
         assert ate == ref.get(leg), leg
     assert {leg for leg, spec in acc.LEGS.items() if spec[2] is None} == {
-        "stereo_loop_devkf", "rgbd_devtrack", "stereo_xla_smoother"}
+        "stereo_loop_devkf", "rgbd_devtrack", "stereo_xla_smoother", "stereo_devkf_f32off"}
     gated = {leg for leg, spec in acc.LEGS.items() if spec[3]}
     assert gated == {"stereo", "stereo_sync", "stereo_devkf", "stereo_loop", "rgbd"}
     assert acc.LEGS["stereo_loop"][0] == {
@@ -116,6 +117,46 @@ def test_legs_carry_the_reference_legs():
         "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_KF_COVIS": "0.3"}
     assert acc.LEGS["stereo_xla_smoother"][0] == {
         "SUPERSLAM_DEVICE_TRACKER": "0", "SUPERSLAM_XLA_SMOOTHER": "1"}
+    assert acc.LEGS["stereo_devkf_f32off"][0] == {
+        "SUPERSLAM_DEVICE_TRACKER": "1", "SUPERSLAM_F32_PRECISION": "0"}
+
+
+def test_f32off_leg_runs_in_a_child_process(monkeypatch):
+    """stereo_devkf_f32off sets SUPERSLAM_F32_PRECISION, which
+    ops/precision.py reads once at import: run_suite hands it to a child
+    process of the suite (``--legs stereo_devkf_f32off``) with the variable
+    set, renders nothing for it in the parent, and takes the child's row;
+    the other legs stay in the parent."""
+    import subprocess
+
+    calls, in_parent = [], []
+
+    def child(cmd, env, **kwargs):
+        calls.append((cmd, env))
+        out = cmd[cmd.index("--out") + 1]
+        with open(out, "w") as f:
+            json.dump({"legs": [{"leg": "stereo_devkf_f32off", "ate_rmse_m": 0.07,
+                                 "passed": True}]}, f)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(acc.subprocess, "run", child)
+    monkeypatch.setattr(acc, "run_leg", lambda leg, *a, **k: in_parent.append(leg) or {
+        "leg": leg, "passed": True})
+    monkeypatch.setattr(acc, "render_circuit", lambda frames: in_parent.append("render"))
+    monkeypatch.setattr(acc, "host_core_build", dict)
+    suite = acc.run_suite(["stereo_devkf_f32off"], 5, "cpu", log=lambda _m: None)
+    assert suite["legs"] == [{"leg": "stereo_devkf_f32off", "ate_rmse_m": 0.07, "passed": True}]
+    assert in_parent == []
+    (cmd, env), = calls
+    assert cmd[1].endswith("accuracy_suite_torch.py")
+    assert cmd[cmd.index("--legs") + 1:cmd.index("--legs") + 2] == ["stereo_devkf_f32off"]
+    assert cmd[cmd.index("--frames") + 1] == "5" and cmd[cmd.index("--device") + 1] == "cpu"
+    assert env["SUPERSLAM_F32_PRECISION"] == "0" and env["SUPERSLAM_DEVICE_TRACKER"] == "1"
+    assert not acc.LEGS["stereo_devkf_f32off"][3]  # printed only
+
+    calls.clear()
+    acc.run_suite(["stereo_devkf", "stereo_devkf_f32off"], 5, "cpu", log=lambda _m: None)
+    assert in_parent == ["render", "stereo_devkf"] and len(calls) == 1
 
 
 def test_short_xla_smoother_leg_on_the_cpu(monkeypatch):

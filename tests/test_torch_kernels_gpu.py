@@ -1038,3 +1038,54 @@ def test_batched_track_frame_refuses_what_it_cannot_take(cuda):
         track_frame_batched(c, kl[:, 0], disp[:, 0], ok[:, 0], tm[:, 0], xw.transpose(1, 2)
                             .contiguous().transpose(1, 2), dok, **solve_kw)
     assert _build.launch_counts()["track_frame_batched"] == before
+
+
+@pytest.mark.gpu
+def test_sharded_train_step_over_the_card_and_the_cpu(cuda):
+    """The matcher's step on a model axis of 2 over two distinct devices,
+    the card and the CPU (parallel/tensor_parallel.py): the parameter
+    slices, activations and LayerNorm statistics are copied between them,
+    the all-reduces sum on the card, and autograd carries the gradients
+    back through the copies. The CPU shard's heads run the plain attention,
+    so against train_step on the card the step is held to the limits that
+    hold the kernels against their plain versions (chip_smoke's training
+    phase: the loss within 1e-4 relative, each gradient within 1e-3 of its
+    tensor's largest); train_step on the CPU, all plain, is printed beside
+    it. One attention launch of each kind a block, on the card's shard
+    only."""
+    from superslam_tpu_torch.parallel.mesh import make_mesh
+    from superslam_tpu_torch.parallel.training import (
+        make_optimizer,
+        sharded_train_step,
+        synthetic_matching_batch,
+        train_step,
+    )
+
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_matching_batch(np.random.default_rng(0), 2, 32).items()}
+    runs = {}
+    for name, dev, mesh in (("card", cuda, None), ("cpu", "cpu", None),
+                            ("card+cpu", cuda, make_mesh(2, model_axis=2,
+                                                         devices=["cuda", "cpu"]))):
+        params = init_lightglue_params(0, device=dev)
+        opt = make_optimizer(params, 1e-4)
+        on = {k: v.to(dev) for k, v in batch.items()}
+        _build.reset_launch_counts()
+        loss = (train_step(params, opt, on) if mesh is None
+                else sharded_train_step(params, opt, on, mesh))
+        counts = _build.launch_counts()
+        runs[name] = (float(loss), {k: p.grad.cpu() for k, p in params.items()})
+        want = 0 if dev == "cpu" else 18
+        assert counts["masked_attention"] == counts["masked_attention_bwd"] == want, name
+    ref_loss, ref = runs["card"]
+
+    def gaps(name):
+        loss, grads = runs[name]
+        return abs(loss - ref_loss) / abs(ref_loss), max(
+            float((g - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+            for k, g in grads.items())
+
+    (loss_gap, grad_gap), (cpu_loss_gap, cpu_grad_gap) = gaps("card+cpu"), gaps("cpu")
+    print(f"card+cpu against the card: loss {loss_gap:.3g}, gradients {grad_gap:.3g}; "
+          f"train_step on the CPU: loss {cpu_loss_gap:.3g}, gradients {cpu_grad_gap:.3g}")
+    assert loss_gap <= 1e-4 and grad_gap <= 1e-3

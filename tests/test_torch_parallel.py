@@ -1,8 +1,9 @@
 """The port's parallel/ package against the JAX package's on the CPU: the
 mesh and its placements, batched_stereo_frontend, batched_track_scan,
-MultiSequenceTracker and the matcher's data-parallel train step
-(tests/test_parallel.py's cases, with the JAX side on its 8 virtual CPU
-devices and the port's mesh over 8 `cpu` entries).
+MultiSequenceTracker, the matcher's train step over the mesh and
+LightGlue's forward split over the model axis (tests/test_parallel.py's
+cases, with the JAX side on its 8 virtual CPU devices and the port's mesh
+over 8 `cpu` entries).
 
 Tolerances:
 - batched_track_scan: pose columns within 1e-4 (m and rotation-matrix
@@ -304,61 +305,306 @@ def test_multi_sequence_tracker_rejects_a_mesh_that_does_not_divide():
                              num_sequences=6, width=W, height=H, mesh=mesh, device="cpu")
 
 
-@pytest.mark.parametrize("devices", [CPU8, ["cpu:0"] * 8], ids=["in_place", "replicas"])
-def test_sharded_train_step_matches_train_step_and_jax(devices):
+# -- the matcher's step over the mesh ------------------------------------------------
+
+LR = 1e-4
+REPLICAS = ["cpu:0"] * 8  # another device name: the replica path (a copy, its gradient summed back)
+STEP_KEYS = ("kpts0", "desc0", "kpts1", "desc1", "mask0", "mask1", "gt_indices")
+
+
+def _step_batch(batch=8, k=32):
+    """tests/test_parallel.py's batch: B 8, K 32, seed 0."""
+    from superslam_tpu_torch.parallel.training import synthetic_matching_batch
+
+    return {name: torch.from_numpy(v) for name, v in
+            synthetic_matching_batch(np.random.default_rng(0), batch, k).items()}
+
+
+def _grad_gap(got, ref):
+    """The worst over tensors of max |got - ref| / max |ref|."""
+    return max(float((got[k].double() - ref[k].double()).abs().max()
+                     / max(float(ref[k].abs().max()), 1e-30)) for k in ref)
+
+
+def _f64_gradients(mesh, batch):
+    """The step's gradient in f64 through the split forward on ``mesh``
+    (the whole batch on its first data shard: in f64 the data split moves
+    nothing)."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+    from superslam_tpu_torch.parallel.tensor_parallel import tensor_parallel_forward
+
+    params = init_lightglue_params(0, dtype=torch.float64)
+    for p in params.values():
+        p.requires_grad_(True)
+    b = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    la = tensor_parallel_forward(params, *(b[k] for k in STEP_KEYS[:6]), mesh,
+                                 compute_dtype=torch.float64)
+    loss = ttrain._assignment_nll(la, b["mask0"], b["gt_indices"]) / ttrain._denominator(b["mask0"])
+    loss.backward()
+    return {k: torch.zeros_like(p) if p.grad is None else p.grad for k, p in params.items()}
+
+
+@pytest.fixture(scope="module")
+def single_device_step():
+    """train_step on the batch (loss, gradients before the AdamW step,
+    parameters after it) and the f64 gradient of the same step with the
+    single-device f32 gradient's distance from it."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        batch = _step_batch()
+        params = init_lightglue_params(0)
+        loss = ttrain.train_step(params, ttrain.make_optimizer(params, LR), batch)
+        grads = {k: p.grad.clone() for k, p in params.items()}
+        f64 = _f64_gradients(tmesh.make_mesh(1, devices=["cpu"]), batch)
+    finally:
+        torch.set_num_threads(n)
+    return dict(batch=batch, loss=float(loss), grads=grads, params=params, f64=f64,
+                f32_gap=_grad_gap(grads, f64))
+
+
+@pytest.mark.parametrize(
+    "model_axis, devices",
+    [(2, CPU8), (2, REPLICAS), (4, CPU8), (4, REPLICAS), (1, CPU8), (1, REPLICAS)],
+    ids=["in_place", "replicas", "in_place_2x4", "replicas_2x4", "in_place_8x1",
+         "replicas_8x1"],
+)
+def test_sharded_train_step_matches_train_step_and_jax(single_device_step, model_axis, devices):
     """tests/test_parallel.py::test_sharded_train_step_runs_and_matches_unsharded
-    on the port's mesh of 8 CPU entries (data axis 4, 4 shards of 2 pairs;
-    B 8, K 32, lr 1e-4). ``cpu`` shards differentiate the parameters in
-    place; ``cpu:0`` is another device name, so those shards take the
-    replica path (a copy on their device, the gradient summed back). Against
-    train_step on the same batch: the loss within 1e-6 relative (the global
-    sum(mask0) denominator), the gradient within 1e-5 of each tensor's
-    largest, and after the AdamW step all but 0.01% of the elements within
-    1e-7 (Adam turns a gradient below f32 noise into a full step of either
-    sign), none further than 2 * lr. Against the JAX package's sharded
-    step (in the first case): the loss within test_parallel.py's rel=3e-2."""
+    on the port's meshes of 8 CPU entries: (4, 2) (the JAX test's), (2, 4)
+    and (8, 1), the data axis splitting B 8 (K 32, lr 1e-4) and the model
+    axis LightGlue's heads and FFN units (parallel/tensor_parallel.py).
+    ``cpu`` shards differentiate the parameters in place; ``cpu:0`` is
+    another device name, so those data shards take the replica path (a
+    copy on their device, the gradient summed back).
+
+    Against train_step on the same batch, the gradients taken before the
+    AdamW step: the loss within 1e-6 relative (the global sum(mask0)
+    denominator); each gradient within 1e-5 of its tensor's largest at
+    M = 1, and at M > 1 (the all-reduces and the split LayerNorm sum in
+    another order) within 1e-4 (measured: 2.1e-5 at M = 2, 1.9e-5 at
+    M = 4) and no further from an f64 run of the same split step than
+    twice train_step's own distance from the f64 step (measured 1.8e-5
+    and 1.1e-5 against 2.0e-5). After the step all but 0.01% of the
+    elements within 1e-7 (Adam turns a gradient below f32 noise into a full
+    step of either sign; measured 7e-6 of them at M = 1, 6.2e-5 at M > 1),
+    none further than 2 * lr. Against the JAX package's sharded step on
+    the same mesh shape (in the in-place cases): the loss within
+    test_parallel.py's rel=3e-2."""
     from superslam_tpu.parallel import training as jtrain
     from superslam_tpu_torch.models.lightglue import init_lightglue_params
     from superslam_tpu_torch.parallel import training as ttrain
 
-    lr = 1e-4
-    batch_np = ttrain.synthetic_matching_batch(np.random.default_rng(0), 8, 32)
-    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    ref_params = init_lightglue_params(0)
-    ref_opt = ttrain.make_optimizer(ref_params, lr)
-    ref_loss = ttrain.train_step(ref_params, ref_opt, batch)
-    ref_grads = {k: p.grad.clone() for k, p in ref_params.items()}
-
-    mesh = tmesh.make_mesh(8, devices=devices)
-    assert mesh.shape == {"data": 4, "model": 2}
+    ref = single_device_step
+    batch = ref["batch"]
+    mesh = tmesh.make_mesh(8, model_axis=model_axis, devices=devices)
+    assert mesh.shape == {"data": 8 // model_axis, "model": model_axis}
     params = init_lightglue_params(0)
     before = {k: p.clone() for k, p in params.items()}
-    opt = ttrain.make_optimizer(params, lr)
+    opt = ttrain.make_optimizer(params, LR)
     loss = ttrain.sharded_train_step(params, opt, batch, mesh)
     assert loss.shape == () and loss.grad_fn is None
-    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * abs(float(ref_loss))
+    assert abs(float(loss) - ref["loss"]) <= 1e-6 * abs(ref["loss"])
+    grads = {k: p.grad for k, p in params.items()}
+    limit = 1e-5 if model_axis == 1 else 1e-4
+    for k, g in grads.items():
+        r = ref["grads"][k]
+        assert (g - r).abs().max() <= limit * max(r.abs().max(), 1e-30), k
+    if model_axis > 1:
+        gap = _grad_gap(grads, _f64_gradients(mesh, batch))
+        print(f"M = {model_axis}: gradient gap to f64 {gap:.3g}, train_step's {ref['f32_gap']:.3g}")
+        assert gap <= 2 * ref["f32_gap"]
     total = far = 0
     for k, p in params.items():
-        g, r = p.grad, ref_grads[k]
-        assert (g - r).abs().max() <= 1e-5 * max(r.abs().max(), 1e-30), k
-        diff = (p - ref_params[k]).abs()
-        assert diff.max() <= 2 * lr * 1.01, k
+        diff = (p - ref["params"][k]).abs()
+        assert diff.max() <= 2 * LR * 1.01, k
         total += diff.numel()
         far += int((diff > 1e-7).sum())
     assert far <= 1e-4 * total, (far, total)
     assert (params["input_proj.weight"] - before["input_proj.weight"]).abs().max() > 0
     if devices != CPU8:
-        return  # the JAX package's step once
+        return  # the JAX package's step once a mesh
 
-    jm = jmesh.make_mesh(8)
+    jm = jmesh.make_mesh(8, model_axis=model_axis)
     jparams = jax_lg_init(0)
     sh = jmesh.lightglue_param_sharding(jm, jparams)
     jparams = {k: jax.device_put(v, sh[k]) for k, v in jparams.items()}
-    tx = jtrain.make_optimizer(lr)
+    tx = jtrain.make_optimizer(LR)
     bshard = jmesh.data_sharding(jm)
-    jbatch = {k: jax.device_put(jnp.asarray(v), bshard) for k, v in batch_np.items()}
+    jbatch = {k: jax.device_put(jnp.asarray(v.numpy()), bshard) for k, v in batch.items()}
     _, _, jloss = jtrain.train_step(jparams, tx.init(jparams), jbatch, tx)
     assert float(loss) == pytest.approx(float(jloss), rel=3e-2)
+
+
+def _data_parallel_step(params, optimizer, batch, mesh):
+    """The data-parallel step as it was before the model axis computed
+    anything: each data shard through the single-device loss's numerator
+    (lightglue_forward), its gradient summed onto the parameters."""
+    from superslam_tpu_torch.parallel import training as ttrain
+
+    n = mesh.shape["data"]
+    home = next(iter(params.values())).device
+    optimizer.zero_grad(set_to_none=True)
+    denom = ttrain._denominator(batch["mask0"])
+    total = torch.zeros(())
+    for i, shard in enumerate(zip(*(batch[k].chunk(n) for k in STEP_KEYS))):
+        dev = mesh.devices[i, 0]
+        local = params if dev == home else {
+            k: p.detach().to(dev).requires_grad_(True) for k, p in params.items()}
+        loss = ttrain._nll_sum(local, *(t.to(dev) for t in shard)) / denom.to(dev)
+        loss.backward()
+        if local is not params:
+            for k, p in params.items():
+                g = local[k].grad
+                if g is not None:
+                    g = g.to(home)
+                    p.grad = g if p.grad is None else p.grad + g
+        total = total + loss.detach().to(home)
+    ttrain._apply_update(params, optimizer, None)
+    return total
+
+
+@pytest.mark.parametrize("devices", [CPU8, REPLICAS], ids=["in_place", "replicas"])
+def test_sharded_train_step_over_model_axis_1_is_the_data_parallel_step(devices):
+    """On an (8, 1) mesh the step gives the bits of the data-parallel step
+    it was before the model axis split anything: loss, gradients and
+    parameters after the AdamW step."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+
+    batch = _step_batch()
+    mesh = tmesh.make_mesh(8, model_axis=1, devices=devices)
+    out = []
+    for step in (ttrain.sharded_train_step, _data_parallel_step):
+        params = init_lightglue_params(0)
+        loss = step(params, ttrain.make_optimizer(params, LR), batch, mesh)
+        out.append((loss, {k: p.grad for k, p in params.items()}, params))
+    (la, ga, pa), (lb, gb, pb) = out
+    assert torch.equal(la, lb)
+    for k in pa:
+        assert torch.equal(ga[k], gb[k]), k
+        assert torch.equal(pa[k], pb[k]), k
+
+
+def _forward_inputs():
+    batch = _step_batch(batch=2)
+    return [batch[k] for k in STEP_KEYS[:6]]
+
+
+@pytest.fixture
+def attention_spy(monkeypatch):
+    """The heads of every masked_attention call the unfused blocks make."""
+    from superslam_tpu_torch.models import lightglue as lgm
+
+    heads = []
+    inner = lgm.masked_attention
+
+    def spy(q, k, v, mask):
+        heads.append(q.shape[1])
+        return inner(q, k, v, mask)
+
+    monkeypatch.setattr(lgm, "masked_attention", spy)
+    return heads
+
+
+@pytest.mark.parametrize("model_axis", [2, 4])
+def test_tensor_parallel_forward_matches_single_device(attention_spy, model_axis):
+    """The split forward on a (2, M) mesh against lightglue_forward (f32,
+    unfused) on the same inputs: every entry of the log-assignment within
+    1e-5 of its largest valid entry (measured 1.6e-6: 2.3e-4 of 146).
+    masked_attention is called 18·M times, each call with 4/M heads (the
+    single-device route: 18 times with 4)."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params, lightglue_forward
+    from superslam_tpu_torch.parallel.tensor_parallel import tensor_parallel_forward
+
+    ins = _forward_inputs()
+    params = init_lightglue_params(0)
+    ref = lightglue_forward(params, *ins, compute_dtype=torch.float32, fused=False)
+    assert attention_spy == [4] * 18
+    attention_spy.clear()
+    mesh = tmesh.make_mesh(2 * model_axis, model_axis=model_axis, devices=CPU8)
+    got = tensor_parallel_forward(params, *ins, mesh)
+    assert attention_spy == [4 // model_axis] * (18 * model_axis)
+    both = ins[4][:, :, None] & ins[5][:, None, :]
+    scale = float(ref[both].abs().max())
+    gap = float((got - ref).abs().max())
+    print(f"M = {model_axis}: {gap:.3g} of {scale:.4g}")
+    assert gap <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("model_axis", [1, 2, 4])
+def test_tensor_parallel_passthrough_forward_is_exact(model_axis):
+    """With the passthrough init (zeroed message and FFN output
+    projections: every layer the residual identity) the split forward
+    gives the single-device forward's bits: the JAX dry run's exactness
+    argument. At M = 1 so does any init."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params, lightglue_forward
+    from superslam_tpu_torch.parallel.tensor_parallel import tensor_parallel_forward
+
+    ins = _forward_inputs()
+    mesh = tmesh.make_mesh(2 * model_axis, model_axis=model_axis, devices=CPU8)
+    for passthrough in (True, False) if model_axis == 1 else (True,):
+        params = init_lightglue_params(0, passthrough=passthrough)
+        ref = lightglue_forward(params, *ins, compute_dtype=torch.float32, fused=False)
+        assert torch.equal(tensor_parallel_forward(params, *ins, mesh), ref)
+
+
+def test_tensor_parallel_forward_matches_jax_on_the_sharded_mesh(unfused_lightglue):
+    """The JAX lightglue_forward (f32, unfused) with its parameters placed
+    by lightglue_param_sharding on the (4, 2) virtual mesh against the
+    split forward on the port's (4, 2) mesh: tests/test_torch_models.py's
+    limits (atol 1e-3 on the valid pairs with log P > -50, rtol 1e-5 on
+    the rest)."""
+    from superslam_tpu.models import lightglue as jlg
+    from superslam_tpu_torch.parallel.tensor_parallel import tensor_parallel_forward
+
+    ins = _forward_inputs()
+    jm = jmesh.make_mesh(8)
+    jparams = jax_lg_init(0)
+    sh = jmesh.lightglue_param_sharding(jm, jparams)
+    jplaced = {k: jax.device_put(v, sh[k]) for k, v in jparams.items()}
+    ref = np.asarray(jlg.lightglue_forward(
+        jplaced, *(jnp.asarray(a.numpy()) for a in ins), compute_dtype=jnp.float32, fused=False))
+    got = tensor_parallel_forward(from_jax_params(_np_params(jparams)), *ins,
+                                  tmesh.make_mesh(8, devices=CPU8)).numpy()
+    both = ins[4].numpy()[:, :, None] & ins[5].numpy()[:, None, :]
+    near = both & (ref > -50)
+    assert near.sum() > 20
+    np.testing.assert_allclose(got[near], ref[near], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-5)
+
+
+def test_tensor_parallel_refuses_what_it_cannot_split():
+    """A model axis of 3 does not divide the 4 heads: the forward and the
+    step raise naming it."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import training as ttrain
+    from superslam_tpu_torch.parallel.tensor_parallel import tensor_parallel_forward
+
+    ins = _forward_inputs()
+    params = init_lightglue_params(0)
+    m3 = tmesh.make_mesh(6, model_axis=3, devices=CPU8)
+    with pytest.raises(ValueError, match="model axis of 3"):
+        tensor_parallel_forward(params, *ins, m3)
+    with pytest.raises(ValueError, match="model axis of 3"):
+        ttrain.sharded_train_step(params, ttrain.make_optimizer(params, LR), _step_batch(6), m3)
+
+
+def test_tensor_parallel_refuses_a_placement_it_does_not_compute(monkeypatch):
+    """A placement that splits a row-sharded linear's bias (each shard
+    would add it, M times in all) raises naming the parameter."""
+    from superslam_tpu_torch.models.lightglue import init_lightglue_params
+    from superslam_tpu_torch.parallel import tensor_parallel as tp
+
+    monkeypatch.setattr(tmesh, "_LG_RULES", [*tmesh._LG_RULES, (".out_proj.bias", ("model",))])
+    monkeypatch.setattr(tp, "_PLANS", {})
+    with pytest.raises(ValueError, match=r"transformers\.0\.self_attn\.out_proj\.weight"):
+        tp.tensor_parallel_forward(init_lightglue_params(0), *_forward_inputs(),
+                                   tmesh.make_mesh(8, devices=CPU8))
 
 
 def test_sharded_train_step_rejects_a_batch_that_does_not_split():
