@@ -242,9 +242,13 @@ In order, any failure exiting non-zero:
    frame, nothing of the old PyTorch body, beside at most the one marker
    that opens the profile), the device time of pose_solve
    and of track_frame (both epilogues, and promoting) on 4b's median frame,
-   5 more frames of 4b's
-   default facade (device busy ms a frame, the device's idle share, and
-   its device events a frame against depth 0's from 4h), 5 more frames of
+   of 4e's median mono frame and of track_frame_batched at Q 1 and 16, each
+   also over its plain twin's LM iterations; each frame of 4b's window
+   alone beside its LM iterations, and the median frame after a write that
+   evicts L2; 5 more frames of 4b's
+   default facade (device busy ms a frame, the device's idle share, its
+   device events a frame against depth 0's from 4h, and each track_frame
+   call's device time), 5 more frames of
    4e's default RGB-D facade (the same figures), and last 5 more steps of
    4f's S = 4 tracker (device busy ms a step, idle share);
 10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
@@ -346,10 +350,12 @@ MONO_PERMS, MONO_SPREAD = 8, 2.0
 # f32 Gram-Schmidt and 3 x 3 products in another order.
 EPILOGUE_ATOL = 1e-5
 XW_RTOL = 1e-5  # the promoted world points: a point's error over its norm
-# f32 operations a correspondence costs in the kernel (pose_solve.cu): the
-# normal equations' ~350 and the trial error's ~45 an LM iteration; ~40 a
-# reprojection for the gate and each chi2 round.
-POSE_OPS_ITER, POSE_OPS_REPROJ = 395, 40
+# f32 operations a correspondence costs in the kernel (pose_solve.cuh's
+# point_terms): ~150 an LM iteration for its error and its 27 normal-equation
+# terms together (the projection, the robust weight, M = Jp^T W Jp, M [p]x
+# and the sums); ~40 a reprojection for the gate and each chi2 round.
+POSE_OPS_ITER, POSE_OPS_REPROJ = 150, 40
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2: the write evicts it
 ACCURACY_LEGS = ("stereo", "stereo_sync", "stereo_devkf", "stereo_nogate",
                  "stereo_passthrough", "stereo_devtrack", "stereo_devkf_nohybrid",
                  "stereo_devkf_passthrough", "stereo_covis03", "rgbd", "rgbd_devtrack",
@@ -1491,7 +1497,6 @@ def check_pose_solve(torch, captured):
     keyframes of the default phase's run, on a frame cut below min_matches
     (coast) and on one whose first chi2 round stops the re-solves; timed on
     the run's median frame. Returns the kernel's row of the kernels line."""
-    from superslam_tpu_torch.ops import pose_solver
     from superslam_tpu_torch.ops.cuda import pose_solve as pose_solve_mod
     from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve, pose_solve_plain
 
@@ -1538,27 +1543,17 @@ def check_pose_solve(torch, captured):
           f"{POSE_ATOL}); n and ok exact, kept within 1% of n")
 
     # What this frame's solve needs: the plain version's LM iterations.
-    iters = []
-    system = pose_solver._system
-
-    def counting(*a, **k):
-        iters.append(1)
-        return system(*a, **k)
-
-    pose_solver._system = counting
-    try:
-        pose_solve_plain(*a0, **kw0)
-    finally:
-        pose_solver._system = system
+    iters = lm_iterations(lambda: pose_solve_plain(*a0, **kw0))
     k = a0[4].shape[0]
     rounds = 1 + (1 if kw0["gate_px"] > 0 else 0) + kw0["chi2_rounds"]
-    ops = float(k) * (POSE_OPS_ITER * len(iters) + POSE_OPS_REPROJ * rounds)
+    ops = float(k) * (POSE_OPS_ITER * iters + POSE_OPS_REPROJ * rounds)
     io = nbytes(*a0) + 12 * 4 + 2 * 4 + k + k * 2 * 4
     ms = time_ms(torch, lambda: pose_solve(*a0, **kw0))
     plain_ms = time_ms(torch, lambda: pose_solve_plain(*a0, **kw0))
     bnd = bound(io, f32_ops=ops)
-    print(f"kernel pose_solve: K {k}, {len(iters)} LM iterations on the timed frame; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound {bnd[0]:.6f} ms "
+    print(f"kernel pose_solve: K {k}, {iters} LM iterations on the timed frame; kernel "
+          f"{ms:.4f} ms ({ms / iters * 1e3:.3f} us an LM iteration), plain {plain_ms:.4f} ms, "
+          f"library none, bound {bnd[0]:.6f} ms "
           f"({bnd[1]}: {io} B, {ops:.3g} f32 operations)")
     return {
         "name": "pose_solve", "route": "cuda", "source": KERNEL_INFO["pose_solve"][0],
@@ -1581,6 +1576,20 @@ def solve_call(call):
     args = [R_prev, t_prev, R_prev @ Rr, R_prev @ tr + t_prev, kl, disp, sok, tm, state[3],
             state[4]]
     return args, solve_kw
+
+
+def lm_iterations(fn) -> int:
+    """The LM iterations of the plain twins that fn runs: their _system
+    calls, one an iteration."""
+    from superslam_tpu_torch.ops import pose_solver
+
+    iters, system = [], pose_solver._system
+    pose_solver._system = lambda *a, **k: iters.append(1) or system(*a, **k)
+    try:
+        fn()
+    finally:
+        pose_solver._system = system
+    return len(iters)
 
 
 def frame_case(call, *, since=None, t_nan=False, support_px=None, cut=None, usable=None,
@@ -1633,7 +1642,6 @@ def check_track_frame(torch, captured):
     and its poses within EPILOGUE_ATOL. Timed on the median frame (and its
     scan epilogue and its promotion) beside the twin and the bound. Returns
     the kernel's row of the kernels line."""
-    from superslam_tpu_torch.ops import pose_solver
     from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve_plain
     from superslam_tpu_torch.ops.cuda.track_frame import (
         track_frame,
@@ -1711,22 +1719,11 @@ def check_track_frame(torch, captured):
 
     # What the median frame's work needs: its LM iterations, the gate, the
     # chi2 rounds and the support count; its state's one source and copy.
-    iters = []
-    system = pose_solver._system
-
-    def counting(*a, **k):
-        iters.append(1)
-        return system(*a, **k)
-
-    pose_solver._system = counting
-    try:
-        track_frame_plain(*mid[0], **mid[1])
-    finally:
-        pose_solver._system = system
+    iters = lm_iterations(lambda: track_frame_plain(*mid[0], **mid[1]))
     (carry, frame, tm, state), kw = mid
     k = frame[0].shape[0]
     rounds = 2 + (1 if kw["gate_px"] > 0 else 0) + kw["chi2_rounds"]
-    ops = float(k) * (POSE_OPS_ITER * len(iters) + POSE_OPS_REPROJ * rounds)
+    ops = float(k) * (POSE_OPS_ITER * iters + POSE_OPS_REPROJ * rounds)
     desc = state[1].numel() * state[1].element_size()
     solve_in = nbytes(*carry, frame[0], frame[4], frame[5], tm, state[3], state[4])
     state_io = 2 * (desc + k * (2 * 4 + 1 + 3 * 4 + 1))  # one source read, the new state written
@@ -1738,8 +1735,9 @@ def check_track_frame(torch, captured):
     scan_ms = time_ms(torch, lambda: track_frame(*scan_args, **scan_kw))
     promo_ms = time_ms(torch, lambda: track_frame(*promo_args, **promo_kw))
     bnd = bound(io, f32_ops=ops)
-    print(f"kernel track_frame: K {k}, {len(iters)} LM iterations on the timed frame; kernel "
-          f"{ms:.4f} ms (track_scan's epilogue, one block, no copy: {scan_ms:.4f} ms; a "
+    print(f"kernel track_frame: K {k}, {iters} LM iterations on the timed frame; kernel "
+          f"{ms:.4f} ms ({ms / iters * 1e3:.3f} us an LM iteration; track_scan's epilogue, one "
+          f"block, no copy: {scan_ms:.4f} ms, {scan_ms / iters * 1e3:.3f} us an iteration; a "
           f"promoting frame {promo_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, bound "
           f"{bnd[0]:.6f} ms ({bnd[1]}: {io} B, {ops:.3g} f32 operations)")
     return {
@@ -1825,27 +1823,38 @@ def check_scan_body(torch, scan_call) -> None:
         fail(f"track_kf_scan: device events other than one track_frame kernel a frame: {events}")
 
 
-def profile_solve_kernels(torch, call, n: int = 10) -> None:
-    """Device time a call of the per-frame kernels on one captured frame,
-    each run n times under torch.profiler: the solve alone (pose_solve),
-    the whole body (track_frame), its track_scan epilogue (one block, no
-    copy) and the same frame promoting (the copy from the frame)."""
+def kernel_calls_ms(prof, name: str) -> list:
+    """Each device event of the profile whose name holds name: its device
+    time in ms, in launch order."""
+    evs = [e for e in prof.events()
+           if name in e.name and "CPU" not in str(getattr(e, "device_type", "CPU"))]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in evs]
+
+
+def profile_solve_kernels(torch, call, window, mono_call, n: int = 10) -> None:
+    """Device time a call of the per-frame kernels, each run n times under
+    torch.profiler, and a call over its plain twin's LM iterations: on 4b's
+    median frame the solve alone (pose_solve), the whole body (track_frame),
+    its track_scan epilogue (one block, no copy) and the same frame
+    promoting (the copy from the frame); 4e's median mono frame (K 1000);
+    track_frame_batched at Q 1 and the largest Q (over the longest
+    sequence's iterations). Then what the default frame's profile adds to
+    a call alone: every frame of 4b's window alone in one session, each
+    call's device time beside its iterations, and the median frame after a
+    write of L2_FLUSH_BYTES (more than the card's 50 MB L2) before each
+    call."""
     from torch.profiler import ProfilerActivity, profile
 
-    from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve
-    from superslam_tpu_torch.ops.cuda.track_frame import track_frame
+    from superslam_tpu_torch.ops.cuda.pose_solve import pose_solve, pose_solve_plain
+    from superslam_tpu_torch.ops.cuda.track_frame import (
+        track_frame,
+        track_frame_batched,
+        track_frame_batched_plain,
+        track_frame_plain,
+    )
 
-    solve_args, solve_kw = solve_call(call)
-    scan_args, scan_kw = frame_case(call, scan=True)
-    promo_args, promo_kw = frame_case(call, since=call[1]["keyframes"]["kf_max_frames"])
-    for label, name, fn in (
-        ("pose_solve", "pose_solve_kernel", lambda: pose_solve(*solve_args, **solve_kw)),
-        ("track_frame", "track_frame_kernel", lambda: track_frame(*call[0], **call[1])),
-        ("track_frame, track_scan's epilogue", "track_frame_kernel",
-         lambda: track_frame(*scan_args, **scan_kw)),
-        ("track_frame, promoting", "track_frame_kernel",
-         lambda: track_frame(*promo_args, **promo_kw)),
-    ):
+    def device_ms(fn, name):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1854,9 +1863,59 @@ def profile_solve_kernels(torch, call, n: int = 10) -> None:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if name in e.key and device_us(e) > 0]
         calls = sum(e.count for e in rows)
-        us = sum(device_us(e) for e in rows)
-        print(f"profile: {label} on the median frame: {us / 1e3 / max(calls, 1):.4f} ms of device "
-              f"time a call ({calls} calls)")
+        return sum(device_us(e) for e in rows) / 1e3 / max(calls, 1), calls
+
+    solve_args, solve_kw = solve_call(call)
+    scan_args, scan_kw = frame_case(call, scan=True)
+    promo_args, promo_kw = frame_case(call, since=call[1]["keyframes"]["kf_max_frames"])
+    iters = lm_iterations(lambda: pose_solve_plain(*solve_args, **solve_kw))
+    mono_iters = lm_iterations(lambda: track_frame_plain(*mono_call[0], **mono_call[1]))
+    cases = [
+        ("pose_solve", "pose_solve_kernel", lambda: pose_solve(*solve_args, **solve_kw), iters),
+        ("track_frame", "track_frame_kernel", lambda: track_frame(*call[0], **call[1]), iters),
+        ("track_frame, track_scan's epilogue", "track_frame_kernel",
+         lambda: track_frame(*scan_args, **scan_kw), iters),
+        ("track_frame, promoting", "track_frame_kernel",
+         lambda: track_frame(*promo_args, **promo_kw), iters),
+        (f"track_frame, mono K {TUM_KP}", "track_frame_kernel",
+         lambda: track_frame(*mono_call[0], **mono_call[1]), mono_iters),
+    ]
+    for q_count in (1, BATCHED_Q[-1]):
+        frame0, batch_kw = batched_frame0(torch, q_count)
+        longest = max(lm_iterations(lambda q=q, f0=frame0, kw=batch_kw: track_frame_batched_plain(
+            *(a[q:q + 1] for a in f0), **kw)) for q in range(q_count))
+        cases.append((f"track_frame_batched, Q {q_count}", "track_frame_kernel",
+                      lambda f0=frame0, kw=batch_kw: track_frame_batched(*f0, **kw), longest))
+    for label, name, fn, it in cases:
+        ms, calls = device_ms(fn, name)
+        print(f"profile: {label} on the median frame: {ms:.4f} ms of device time a call ({calls} "
+              f"calls), {ms / it * 1e3:.3f} us an LM iteration over the twin's {it}")
+
+    # The default frame's profile against a call alone: the window's frames
+    # (their work differs: iterations, rounds, promotions) and a cold L2.
+    marker = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARKERS):  # the session's first device events may be lost
+            marker.neg_()
+        for args, kw in window:
+            track_frame(*args, **kw)
+        torch.cuda.synchronize()
+    got = kernel_calls_ms(prof, "track_frame_kernel")[-len(window):]
+    if not got:
+        fail("track_frame: the window's profile recorded no kernel")
+    its = [lm_iterations(lambda c=c: track_frame_plain(*c[0], **c[1])) for c in window]
+    its = its[len(its) - len(got):]  # lost events are the first ones
+    print(f"profile: track_frame alone on {len(got)} of the window's {len(window)} frames: device "
+          f"ms {[round(t, 4) for t in got]}, LM iterations {its}; mean {np.mean(got):.4f} ms over "
+          f"a mean {np.mean(its):.1f} iterations, {np.median(np.array(got) / its) * 1e3:.3f} us an "
+          f"iteration (median over frames)")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    warm, _ = device_ms(lambda: track_frame(*call[0], **call[1]), "track_frame_kernel")
+    cold, _ = device_ms(lambda: (flush.fill_(1), track_frame(*call[0], **call[1])),
+                        "track_frame_kernel")
+    print(f"profile: track_frame on the median frame after a {L2_FLUSH_BYTES >> 20} MB write "
+          f"before each call (a cold L2): {cold:.4f} ms of device time a call, against "
+          f"{warm:.4f} back to back")
 
 
 def time_design_costs(torch, slam, captured) -> None:
@@ -2158,8 +2217,10 @@ def check_track_frame_mono(torch, captured) -> None:
           f"than {POSE_ATOL} or 1% of n in kept: {len(wide)} {wide}; on the kernel's own solve "
           f"the twin's epilogue: counts exact, poses {worst_epi:.3g} (limit {EPILOGUE_ATOL})")
     mid = captured[len(captured) // 2]
-    print(f"kernel track_frame (mono, K {TUM_KP}): kernel "
-          f"{time_ms(torch, lambda: track_frame(*mid[0], **mid[1])):.4f} ms, plain "
+    ms = time_ms(torch, lambda: track_frame(*mid[0], **mid[1]))
+    iters = lm_iterations(lambda: track_frame_plain(*mid[0], **mid[1]))
+    print(f"kernel track_frame (mono, K {TUM_KP}): kernel {ms:.4f} ms ({iters} LM iterations, "
+          f"{ms / iters * 1e3:.3f} us an iteration), plain "
           f"{time_ms(torch, lambda: track_frame_plain(*mid[0], **mid[1])):.4f} ms on the median "
           "frame")
 
@@ -2348,7 +2409,8 @@ def profile_rgbd(torch, slam, frames) -> None:
         slam.flush()
 
     rows = profile_device(torch, track, n, "frame", "frames of the default RGB-D facade "
-                          "(depth 3, device-tracked, 640x480, K 1000)", top=12)
+                          "(depth 3, device-tracked, 640x480, K 1000)", top=12,
+                          calls_of="track_frame_kernel")
     print(f"profile: RGB-D device events a frame {sum(e.count for e in rows) / n:g}")
 
 def check_extractor_kernel_route(torch, sp_params, left, right) -> int:
@@ -2793,13 +2855,29 @@ def batched_scan_plain(torch, arrays, carry, kw):
     return torch.stack(rows, 1), c
 
 
+def batched_frame0(torch, q_count: int):
+    """track_frame_batched's arguments for frame 0 of batched_scene's Q
+    sequences: (carry, kl, disp, stereo_ok, tm, kf_xw, kf_dok), keywords."""
+    from superslam_tpu_torch.ops.frontend_step import _track_gate_defaults
+
+    arrays, carry, kw = batched_scene(torch, q_count)
+    gate_px, chi2_px, chi2_rounds = _track_gate_defaults(None, None, None)
+    kl, disp, sok, tm, xw, dok = arrays
+    c0 = torch.cat([carry[0].reshape(q_count, 9), carry[1], carry[2].reshape(q_count, 9),
+                    carry[3]], 1)
+    solve_kw = dict(calib=kw["calib"], min_matches=kw["min_matches"],
+                    inv_sig_uLv=1.0 / kw["track_sigma_px"], disp_sigma0=kw["disp_sigma0"],
+                    disp_cond=kw["disp_cond"], mono=False, gate_px=gate_px,
+                    chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=20)
+    return (c0, kl[:, 0], disp[:, 0], sok[:, 0], tm[:, 0], xw, dok), solve_kw
+
+
 def check_batched_track_scan(torch) -> tuple[dict, int]:
     """batched_track_scan at Q in (1,) + BATCHED_Q sequences, BATCHED_S
     frames, K = MAX_KP: exactly BATCHED_S launches a call, pose columns and
     carry within BATCHED_ATOL of the plain twin's, counts exact; one
     launch's time at each Q and its bound. Returns the kernels-line row
     (timed at the largest Q) and the launches of that Q's call."""
-    from superslam_tpu_torch.ops import pose_solver
     from superslam_tpu_torch.ops.cuda import _build
     from superslam_tpu_torch.ops.cuda.track_frame import (
         _SMALL,
@@ -2832,31 +2910,25 @@ def check_batched_track_scan(torch) -> tuple[dict, int]:
             fail(f"batched_track_scan: the coasting sequence's counts {out[-1, :, 12].tolist()}")
         worst = max(worst, err)
         # One launch (frame 0 of every sequence) and what its work needs.
-        kl, disp, sok, tm, xw, dok = arrays
-        c0 = torch.cat([carry[0].reshape(q_count, 9), carry[1], carry[2].reshape(q_count, 9),
-                        carry[3]], 1)
-        solve_kw = dict(calib=kw["calib"], min_matches=kw["min_matches"],
-                        inv_sig_uLv=1.0 / kw["track_sigma_px"], disp_sigma0=kw["disp_sigma0"],
-                        disp_cond=kw["disp_cond"], mono=False, gate_px=gate_px,
-                        chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=20)
-        frame0 = (c0, kl[:, 0], disp[:, 0], sok[:, 0], tm[:, 0], xw, dok)
+        frame0, solve_kw = batched_frame0(torch, q_count)
+        c0 = frame0[0]
         ms = time_ms(torch, lambda: track_frame_batched(*frame0, **solve_kw))
-        iters = []
-        system = pose_solver._system
-        pose_solver._system = lambda *a, **k: iters.append(1) or system(*a, **k)
-        try:
-            plain_ms = time_ms(torch, lambda: track_frame_batched_plain(*frame0, **solve_kw),
-                               warmup=0, iters=1)
-        finally:
-            pose_solver._system = system
+        plain = []
+        iters = lm_iterations(lambda: plain.append(time_ms(
+            torch, lambda: track_frame_batched_plain(*frame0, **solve_kw), warmup=0, iters=1)))
+        plain_ms = plain[0]
+        # The launch lasts as long as its longest sequence's chain.
+        longest = max(lm_iterations(lambda q=q: track_frame_batched_plain(
+            *(a[q:q + 1] for a in frame0), **solve_kw)) for q in range(q_count))
         rounds = 1 + (1 if gate_px > 0 else 0) + chi2_rounds
-        ops = float(MAX_KP) * (POSE_OPS_ITER * len(iters) + POSE_OPS_REPROJ * rounds * q_count)
+        ops = float(MAX_KP) * (POSE_OPS_ITER * iters + POSE_OPS_REPROJ * rounds * q_count)
         io = nbytes(c0[:, :24], *frame0[1:]) + q_count * 4 * (TRACK_COLS + _SMALL + 3)
         bnd = bound(io, f32_ops=ops)
         print(f"kernel track_frame_batched: Q {q_count}, K {MAX_KP}: {BATCHED_S} launches a call, "
               f"poses within {err:.3g} of the twin (limit {BATCHED_ATOL}), counts exact; one "
-              f"launch {ms:.4f} ms ({ms / q_count:.4f} ms a sequence), plain {plain_ms:.4f} ms, "
-              f"{len(iters)} LM iterations over the {q_count} sequences, bound {bnd[0]:.6f} ms "
+              f"launch {ms:.4f} ms ({ms / q_count:.4f} ms a sequence; {ms / longest * 1e3:.3f} us "
+              f"an LM iteration of the longest sequence's {longest}), plain {plain_ms:.4f} ms, "
+              f"{iters} LM iterations over the {q_count} sequences, bound {bnd[0]:.6f} ms "
               f"({bnd[1]}: {io} B, {ops:.3g} f32 operations)", flush=True)
         row = {
             "name": "track_frame_batched", "route": "cuda",
@@ -3187,7 +3259,7 @@ def profile_default(torch, slam, n: int, depth0_events: float) -> None:
         slam.flush()
 
     rows = profile_device(torch, track, n, "frame", "frames of the default facade (depth 3, "
-                          "device keyframes)", top=12)
+                          "device keyframes)", top=12, calls_of="track_frame_kernel")
     for e in rows:
         if "track_frame_kernel" in e.key:
             print(f"profile: track_frame in the default frame: {device_us(e) / 1e3 / e.count:.4f} "
@@ -3210,9 +3282,11 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> list:
+def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25,
+                   calls_of: str = "") -> list:
     """Run fn (n units of work) under torch.profiler, print the busy share
-    of the window and the kernels by device time per unit, and return the
+    of the window and the kernels by device time per unit (and, with
+    calls_of, each call of the kernels so named), and return the
     device-side events by device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3245,6 +3319,9 @@ def profile_device(torch, fn, n: int, unit: str, label: str, top: int = 25) -> l
             f"profile:   {device_us(e) / 1e3 / n:8.4f} ms/{unit}  "
             f"{e.count / n:6.1f} calls/{unit}  {e.key[:90]}"
         )
+    if calls_of:
+        print(f"profile: each {calls_of} call, device ms in order: "
+              f"{[round(t, 4) for t in kernel_calls_ms(prof, calls_of)]}")
     return rows
 
 
@@ -3804,7 +3881,6 @@ def main() -> int:
     kernels["pose_solve"] = check_pose_solve(torch, [solve_call(c) for c in captured])
     time_design_costs(torch, slam_d, captured)
     mid_call = captured[len(captured) // 2]
-    del captured
     run_accuracy_legs(torch)
     # RGB-D: its kernels at its shapes, the facade host-solved at depth 0 and
     # as a user gets it (depth 3, device-tracked), distorted; then the loop's
@@ -3821,6 +3897,7 @@ def main() -> int:
     if not (slam_r._tracker and slam_r._tracker.depth == 3 and slam_r._tracker.device_tracking):
         fail(f"rgbd facade (default): {facade_mode(slam_r)}, want depth 3, device-tracked")
     check_track_frame_mono(torch, captured_r)
+    mono_call = captured_r[len(captured_r) // 2]
     del captured_r
     check_distorted_rgbd(torch, frames_r[:RGBD_DIST_FRAMES])
     check_loop_pieces(torch, rgbd_frames[0][0])
@@ -3867,8 +3944,8 @@ def main() -> int:
     profile_score_half(torch, sp, *frames[0])
     profile_gather(torch, sp, *frames[0])
     check_scan_body(torch, scan_call)
-    profile_solve_kernels(torch, mid_call)
-    del scan_call, mid_call
+    profile_solve_kernels(torch, mid_call, captured, mono_call)
+    del scan_call, mid_call, captured, mono_call
     profile_default(torch, slam_d, 5, depth0_events)
     slam_d.shutdown()
     profile_rgbd(torch, slam_r, rgbd_frames[RGBD_FRAMES:])

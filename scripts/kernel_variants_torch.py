@@ -2,7 +2,7 @@
 """Build variants of a hand-written kernel side by side and time them on the
 card at the main path's shapes.
 
-    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block|nms|nms_map] [--source DIR] [NAME[:EDIT,EDIT...] ...]
+    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block|nms|nms_map|track_frame] [--source DIR] [NAME[:EDIT,EDIT...] ...]
 
 Kernels (``--kernel``, default ``pair``):
 
@@ -27,7 +27,15 @@ Kernels (``--kernel``, default ``pair``):
   pre-NMS map, radius 4, beside the composition of ``torch.softmax``,
   ``pixel_shuffle`` and a ``max_pool2d`` compare; and in map mode on a
   (2, 384, 1248) map with ties, beside the ``max_pool2d`` compare;
-  ``nms_map`` the map mode alone (an ``nms.cu`` without the logits mode).
+  ``nms_map`` the map mode alone (an ``nms.cu`` without the logits mode);
+- ``track_frame``: the per-frame tracking kernel (``track_frame.cu`` with
+  its engine ``pose_solve.cuh``) on frames built from a seed as
+  tests/test_torch_track_frame_model.py's ``_case`` builds them: track_kf_scan's
+  epilogue at K 600 (a cluster of 8 blocks, 256 f32 descriptors a
+  feature, no promotion), track_scan's mono at K 1000, and
+  ``track_frame_batched`` (one block a sequence) at Q 1, 4 and 16, K 600.
+  Each case prints its plain twin's LM iterations (the longest sequence's
+  for the batched ones) and its time per iteration.
 
 ``--source DIR`` builds from the kernel sources in DIR instead of this
 checkout's: with an unpacked parent commit's ``superslam_tpu_torch/ops/cuda``
@@ -49,14 +57,26 @@ a diagnostic patch of ``PATCHES`` (pair: ``noA``, A operands from
 registers, no ldmatrix; ``nomma``, no mma, one ALU operation per product
 instead; ``nostep``, no tap step at all; ``noprologue``, no CUDA-core
 conv_a in the gray pair; attn_bwd and attn_fwd: ``tf32x1``, one TF32
-product instead of three). Patched variants compute wrong results: they
-only split the time. With no variant: pair ``tree p2:NPASS1=2
-nostep:nostep nomma:nomma noprologue:noprologue``; conv3x3 ``tree
-w8:NWARPS3=8,NPASS3=2,MINB3=2``;
+product instead of three; track_frame: ``frozen``, each LM step scaled by
+zero after the solve, so the pose never moves and every LM solve runs
+until lambda passes 1e8 (14 iterations), ``nopoints`` the same without
+the per-point arithmetic (the sums are zero, the reduction stays) and
+``nosolve`` the same without the 6 x 6 LU (a zero step): the three share
+one control flow, and their differences split an iteration's time;
+``lmcount``, the kernel's own LM iterations, printed beside the twin's
+(they part where rounding decides a converged step); ``frozen_prev`` and
+``lmcount_prev`` the same for the engine before its one-barrier schedule,
+one thread solving the 6 x 6 system, with ``--source`` at its sources).
+Patched variants compute wrong results: they only split the time. With
+no variant: pair ``tree p2:NPASS1=2 nostep:nostep nomma:nomma
+noprologue:noprologue``; conv3x3 ``tree w8:NWARPS3=8,NPASS3=2,MINB3=2``;
 attn_bwd ``tree r32:BR=32``; attn_fwd ``tree s3:KSTAGES=3 s4:KSTAGES=4
 q32:BQ=32 f32q32:FQ=32 f32q128:FQ=128``; block ``tree ring4:RING=4
 ring5:RING=5 r16:BM=16 r64:BM=64 w16:NWARPS=16``; nms ``tree c4x16:TCX=16
-c8x16:TCY=8,TCX=16``.
+c8x16:TCY=8,TCX=16``; track_frame ``tree count:lmcount frozen:frozen
+nopoints:frozen,nopoints nosolve:frozen,nosolve
+t512frozen:THREADS=512,PPT=2,frozen`` (with ``--source`` at that earlier
+engine's sources: ``prev prevcount:lmcount_prev prevfrozen:frozen_prev``).
 
 Each variant is compiled with the port's nvcc flags into its own library
 under ``build/kernel_variants/<kernel>/`` (one nvcc per variant, all at once)
@@ -65,7 +85,8 @@ held against the plain version (max error / max|plain| <= 2e-2 for the
 convs, the blocks and bf16 attention, 1e-4 for f32 attention and the
 backward; nms: the pre-NMS map within 1e-6 of the plain softmax's and the
 NMS'd map against ``nms_plain`` of the kernel's own pre-NMS map, the map
-mode exact). Then every variant is timed: 4 rounds, in
+mode exact; track_frame: the row's poses within 1e-3 of the twin's,
+its counts exact). Then every variant is timed: 4 rounds, in
 alternating order, of 50 back-to-back launches between two CUDA events, for
 each case. Prints the card and its power limit, registers and spills from
 nvcc's report, and one line per variant and case; conv3x3's cases are also
@@ -93,6 +114,7 @@ sys.path.insert(0, REPO)
 SRC = os.path.join(REPO, "superslam_tpu_torch", "ops", "cuda")
 OUT = os.path.join(REPO, "build", "kernel_variants")
 ENGINE, ATTN, TF32, FWD = "conv_mma.cuh", "attention_bwd.cu", "tf32_mma.cuh", "attention.cuh"
+POSE = "pose_solve.cuh"
 # kernel: (source, headers beside common.cuh, default variants)
 KERNELS = {
     "pair": ("conv_pair_mma.cu", (ENGINE,),
@@ -107,6 +129,9 @@ KERNELS = {
                "w16:NWARPS=16"]),
     "nms": ("nms.cu", (), ["tree", "c4x16:TCX=16", "c8x16:TCY=8,TCX=16"]),
     "nms_map": ("nms.cu", (), ["tree"]),
+    "track_frame": ("track_frame.cu", (POSE,),
+                    ["tree", "count:lmcount", "frozen:frozen", "nopoints:frozen,nopoints",
+                     "nosolve:frozen,nosolve", "t512frozen:THREADS=512,PPT=2,frozen"]),
 }
 SHAPES = {1: (2, 1, 384, 1248), 64: (2, 64, 192, 624)}
 ATTN_SHAPE = (16, 4, 256, 64)
@@ -136,6 +161,44 @@ PATCHES.update({
 """, ""),
     "noexp": (ATTN, "expf(", "fabsf("),
 })
+# The tracking kernel's: a frozen pose (the step scaled by zero after the
+# solve), no per-point arithmetic, no 6 x 6 LU; lmcount: each solve's LM
+# iterations into stats[2] (track_kf_scan's new since then reads wrong). A
+# patch is one (file, text, replacement) or a list of them. frozen_prev and
+# lmcount_prev are the same for the engine before its one-barrier schedule
+# (one thread solving the 6 x 6 system), to time that kernel the same way.
+TRACK = "track_frame.cu"
+_LU = "      finite = __all_sync(FULL, lu_solve(A, b, x));\n"
+_ZERO = "      for (int j = 0; j < 6; ++j) x[j] *= 0.f;\n"
+_SOLVE = ("__device__ __forceinline__ int solve(const Params& q, Points& pt, Reducer& red,\n"
+          "                                     const float (&pred)[12], float (&P)[12]) {\n")
+_SOLVE_PREV = ("__device__ __forceinline__ int solve(const Params& q, Points& pt, Shared& s, "
+               "const float* pred) {\n")
+_LAM = "    lam = accept ? clamp_min(lam * 0.1f, 1e-10f) : lam * 10.f;\n"
+_LAM_PREV = "      s.lam = accept ? clamp_min(s.lam * 0.1f, 1e-10f) : s.lam * 10.f;\n"
+_COUNT_DECL = (POSE, "namespace pose {\n", "namespace pose {\n\n__shared__ int lm_count;\n")
+_COUNT_OUT = [(TRACK, "    stats_out[1] = kept;\n", "    stats_out[1] = kept;\n    stats_out[2] = lm_count;\n"),
+              (TRACK, "      stats_out[2] = promo ? 0 : since1;\n", "      stats_out[2] = lm_count;\n")]
+_POINT = "  float p0, p1, p2, iz, r[3];\n  bool good;\n  to_camera(P, pt.X[k]"
+PATCHES.update({
+    "frozen": (POSE, _LU, _LU + _ZERO),
+    "nopoints": (POSE, _POINT, "  if (q.K > 0) return;\n" + _POINT),
+    "nosolve": (POSE, _LU + _ZERO,
+                "      finite = true;\n      for (int j = 0; j < 6; ++j) x[j] = 0.f;\n"),
+    "lmcount": [_COUNT_DECL, (POSE, _SOLVE, _SOLVE + "  if (threadIdx.x == 0) lm_count = 0;\n"),
+                (POSE, _LAM, _LAM + "    if (threadIdx.x == 0) ++lm_count;\n"), *_COUNT_OUT],
+    "frozen_prev": (POSE, "  s.ok_step = finite;\n",
+                    "  s.ok_step = finite;\n  for (int j = 0; j < 6; ++j) x[j] *= 0.f;\n"),
+    "lmcount_prev": [_COUNT_DECL,
+                     (POSE, _SOLVE_PREV, _SOLVE_PREV + "  if (threadIdx.x == 0) lm_count = 0;\n"),
+                     (POSE, _LAM_PREV, _LAM_PREV + "      ++lm_count;\n"), *_COUNT_OUT],
+})
+TRACK_CALIB = (320.0, 320.0, 320.0, 176.0, 0.3)  # tests/test_torch_pose_solve_model.py's
+TRACK_SOLVE = dict(min_matches=10, inv_sig_uLv=0.1, disp_sigma0=1.0, disp_cond=320.0 * 0.3 / 40.0,
+                   gate_px=10.0, chi2_px=2.0, chi2_rounds=2, track_iters=20)
+TRACK_GATE = dict(accept_frac=0.4, support_px=4.0, kf_min_frames=2, kf_max_frames=99,
+                  kf_min_matches=30, covis_ratio=0.5)
+TRACK_K, TRACK_MONO_K, TRACK_D, TRACK_Q = 600, 1000, 256, (1, 4, 16)
 
 
 def parse(args: list[str]) -> dict[str, tuple[dict[str, str], list[str]]]:
@@ -166,10 +229,10 @@ def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[
         with open(os.path.join(src, f)) as fh:
             files[f] = fh.read()
     for p in patches:
-        f, old, new = PATCHES[p]
-        if f not in files or old not in files[f]:
-            raise SystemExit(f"kernel_variants: patch {p} does not match {kernel}'s sources")
-        files[f] = files[f].replace(old, new)
+        for f, old, new in PATCHES[p] if isinstance(PATCHES[p], list) else [PATCHES[p]]:
+            if f not in files or old not in files[f]:
+                raise SystemExit(f"kernel_variants: patch {p} does not match {kernel}'s sources")
+            files[f] = files[f].replace(old, new)
     for key, value in consts.items():
         hits = 0
         for f in files:
@@ -397,6 +460,145 @@ def nms_cases(torch, dev, rng):
     ]
 
 
+def _track_arrays(rng, k, usable, noise_px=0.3, since=0):
+    """tests/test_torch_track_frame_model.py's ``_case``: a keyframe at the
+    origin, the camera at (0.1, 0, 0.2) with noisy stereo projections of
+    its points, the first ``usable`` matched, every ninth frame feature
+    without stereo; the carry's previous pose at (0.05, 0, 0.1) and a
+    constant-velocity step of the same. Numpy arrays."""
+    fx, fy, cx, cy, b = TRACK_CALIB
+    z = rng.uniform(3.0, 12.0, k)
+    xw = np.stack([(rng.uniform(20, 620, k) - cx) * z / fx, (rng.uniform(20, 332, k) - cy) * z / fy,
+                   z], 1)
+    p = xw - np.asarray((0.1, 0.0, 0.2))
+    kl = np.stack([fx * p[:, 0] / p[:, 2] + cx, fy * p[:, 1] / p[:, 2] + cy], 1)
+    kl += rng.normal(0, noise_px, kl.shape)
+    disp = fx * b / p[:, 2] + rng.normal(0, noise_px, k)
+    tm = np.where(np.arange(k) < usable, np.arange(k), -1).astype(np.int32)
+    f32 = np.float32
+    frame = dict(kl=kl.astype(f32), nkl=((kl - 320.0) / 320.0).astype(f32),
+                 dl=rng.normal(size=(k, TRACK_D)).astype(f32), vl=rng.uniform(size=k) < 0.9,
+                 disp=disp.astype(f32), stereo_ok=np.ones(k, bool))
+    frame["stereo_ok"][::9] = False
+    kf = dict(nk=rng.normal(size=(k, 2)).astype(f32), desc=rng.normal(size=(k, TRACK_D)).astype(f32),
+              valid=np.ones(k, bool), xw=xw.astype(f32), dok=np.ones(k, bool),
+              since=np.asarray(since, np.int32))
+    eye = np.eye(3, dtype=f32)
+    step = np.asarray((0.05, 0.0, 0.1), f32)
+    carry = np.concatenate([eye.ravel(), step, eye.ravel(), step]).astype(f32)
+    return frame, kf, carry, tm
+
+
+def _twin_iterations(torch, frame, kf, carry, tm, mono, keyframes):
+    """The plain twin on the CPU: its row and its LM iterations (its
+    _system calls), and the iterations of the frozen variants, whose pose
+    never moves: each LM solve runs until lambda passes 1e8 (or
+    track_iters), and the chi2 rounds count at the start pose."""
+    from superslam_tpu_torch.ops import pose_solver
+    from superslam_tpu_torch.ops.cuda import pose_solve as ps
+    from superslam_tpu_torch.ops.cuda.track_frame import track_frame_plain
+
+    t = torch.from_numpy
+    c = t(carry)
+    pose_carry = (c[:9].view(3, 3), c[9:12], c[12:21].view(3, 3), c[21:24])
+    args = (pose_carry, tuple(t(frame[n]) for n in ("kl", "nkl", "dl", "vl", "disp", "stereo_ok")),
+            t(tm), tuple(t(kf[n]) for n in ("nk", "desc", "valid", "xw", "dok", "since")))
+    kw = dict(calib=TRACK_CALIB, mono=mono, keyframes=keyframes, **TRACK_SOLVE)
+    iters, system, lm = [], pose_solver._system, ps.pose_only_lm_impl
+    pose_solver._system = lambda *a, **k: iters.append(1) or system(*a, **k)
+    try:
+        row = track_frame_plain(*args, **kw)[0]
+    finally:
+        pose_solver._system = system
+    lam, stop = np.float32(1e-5), 0
+    while stop < TRACK_SOLVE["track_iters"] and not lam > 1e8:
+        lam, stop = np.float32(lam * np.float32(10)), stop + 1
+    solves = []
+    ps.pose_only_lm_impl = lambda R, t_, *a, **k: solves.append(stop) or (R, t_)
+    try:
+        track_frame_plain(*args, **kw)
+    finally:
+        ps.pose_only_lm_impl = lm
+    return row, len(iters), sum(solves)
+
+
+def track_frame_cases(torch, dev, rng):
+    """track_kf_scan's epilogue at K 600, mono track_scan at K 1000 and the
+    batched kernel at each Q of TRACK_Q, K 600. Outputs: the row's poses
+    (within 1e-3 of the twin's) and its counts (exact)."""
+    fx, fy, cx, cy, b = TRACK_CALIB
+    sv = TRACK_SOLVE
+    stream_args = lambda mono: [fx, fy, cx, cy, b, sv["min_matches"], sv["inv_sig_uLv"],  # noqa: E731
+                                sv["disp_sigma0"], sv["disp_cond"], int(mono), sv["gate_px"],
+                                sv["chi2_px"], sv["chi2_rounds"], sv["track_iters"]]
+    g = TRACK_GATE
+    cases = []
+    for label, k, mono, kfmode in ((f"track_kf_scan's epilogue, K {TRACK_K}", TRACK_K, False, True),
+                                   (f"mono track_scan, K {TRACK_MONO_K}", TRACK_MONO_K, True, False)):
+        frame, kf, carry, tm = _track_arrays(rng, k, usable=k * 5 // 6)
+        ref, iters, frozen = _twin_iterations(torch, frame, kf, carry, tm, mono,
+                                              TRACK_GATE if kfmode else None)
+        d = {n: torch.from_numpy(np.asarray(a)).to(dev) for n, a in
+             {**frame, **{f"kf_{n}": a for n, a in kf.items()}, "carry": carry, "tm": tm}.items()}
+        cols = ref.numel()
+        row = torch.empty(cols, dtype=torch.float32, device=dev)
+        match = torch.empty(k, dtype=torch.int32, device=dev)
+        small = torch.empty(36 + 5 * k, dtype=torch.float32, device=dev)
+        stats = torch.empty(3, dtype=torch.int32, device=dev)
+        new_desc, flags = torch.empty_like(d["kf_desc"]), torch.empty(2 * k + 1, dtype=torch.bool,
+                                                                      device=dev)
+        ptr = lambda n: d[n].data_ptr()  # noqa: E731
+        if kfmode:
+            kf_ptrs = [ptr(n) for n in ("nkl", "dl", "vl", "kf_nk", "kf_desc", "kf_valid",
+                                        "kf_since")] + [0]
+            out_ptrs = [small[36:].data_ptr(), new_desc.data_ptr(), flags.data_ptr(),
+                        small[36 + 2 * k:].data_ptr(), flags[k:].data_ptr(), flags[2 * k:].data_ptr()]
+            tail = [1, g["accept_frac"], g["support_px"], g["kf_min_frames"], g["kf_max_frames"],
+                    g["kf_min_matches"], g["covis_ratio"], fx * b]
+        else:
+            kf_ptrs, out_ptrs = [0] * 8, [0] * 6
+            tail = [0, 0.0, 0.0, 0, 0, 0, 0.0, fx * b]
+        args = ([ptr("carry"), ptr("kl"), ptr("disp"), ptr("stereo_ok"), ptr("tm"), 0,
+                 ptr("kf_xw"), ptr("kf_dok"), *kf_ptrs, row.data_ptr(), match.data_ptr(),
+                 small.data_ptr(), stats.data_ptr(), *out_ptrs, k,
+                 new_desc.numel() * 4 if kfmode else 0, *stream_args(mono)[:14], *tail])
+
+        def launch(lib, stream, args=args, keep=(d, row, match, small, stats, new_desc, flags)):
+            return lib.ssl_track_frame(*args, stream)  # keep: what args point into
+
+        ref = ref.to(dev)
+        cases.append((label, launch, [row[:12], row[12:]], [ref[:12], ref[12:]], [1e-3, 0.0],
+                      None, (iters, frozen), lambda stats=stats: int(stats[2])))
+    for q in TRACK_Q:
+        seqs = [_track_arrays(rng, TRACK_K, usable=TRACK_K * 5 // 6) for _ in range(q)]
+        twins = [_twin_iterations(torch, *s_, False, None) for s_ in seqs]
+        stack = lambda key, src: torch.from_numpy(  # noqa: E731
+            np.stack([s_[src][key] if key else s_[src] for s_ in seqs])).to(dev)
+        carry = stack(None, 2)
+        kl, disp, sok = stack("kl", 0), stack("disp", 0), stack("stereo_ok", 0)
+        tm, xw, dok = stack(None, 3), stack("xw", 1), stack("dok", 1)
+        rows = torch.empty((q, 13), dtype=torch.float32, device=dev)
+        small = torch.empty((q, 36), dtype=torch.float32, device=dev)
+        stats = torch.empty((q, 3), dtype=torch.int32, device=dev)
+        pairs = [(t_.data_ptr(), t_.stride(0)) for t_ in (carry, kl, disp, sok, tm, xw, dok, rows,
+                                                           small, stats)]
+        args = [q, *(a for pair in pairs for a in pair), TRACK_K, *stream_args(False)]
+
+        def launch(lib, stream, args=args,
+                   keep=(carry, kl, disp, sok, tm, xw, dok, rows, small, stats)):
+            return lib.ssl_track_frame_batched(*args, stream)  # keep: what args point into
+
+        ref = torch.stack([r for r, _, _ in twins]).to(dev)
+        cases.append((f"track_frame_batched, Q {q}, K {TRACK_K}", launch, [rows[:, :12], rows[:, 12]],
+                      [ref[:, :12], ref[:, 12]], [1e-3, 0.0], None,
+                      (max(i for _, i, _ in twins), max(f for _, _, f in twins)),
+                      lambda stats=stats: int(stats[:, 2].max())))
+    for label, *_, (iters, frozen), _probe in cases:
+        print(f"{label}: the twin's LM iterations {iters} (the longest sequence's when batched); "
+              f"the frozen variants' {frozen}")
+    return cases
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -423,7 +625,8 @@ def main(argv: list[str]) -> int:
                "attn_bwd": ("ssl_masked_attention_bwd",),
                "attn_fwd": ("ssl_masked_attention",),
                "block": ("ssl_fused_self_block", "ssl_fused_cross_block"),
-               "nms": ("ssl_scores_nms", "ssl_nms"), "nms_map": ("ssl_nms",)}[kernel]
+               "nms": ("ssl_scores_nms", "ssl_nms"), "nms_map": ("ssl_nms",),
+               "track_frame": ("ssl_track_frame", "ssl_track_frame_batched")}[kernel]
 
     jobs = {}
     for name, (consts, patches) in variants.items():
@@ -455,25 +658,41 @@ def main(argv: list[str]) -> int:
     cases = {"pair": pair_cases, "conv3x3": conv3x3_cases, "attn_bwd": attn_bwd_cases,
              "attn_fwd": attn_fwd_cases, "block": block_cases,
              "nms": nms_cases,
-             "nms_map": lambda *a: nms_cases(*a)[1:]}[kernel](torch, dev, rng)
+             "nms_map": lambda *a: nms_cases(*a)[1:],
+             "track_frame": track_frame_cases}[kernel](torch, dev, rng)
 
     def call(lib, launch):
         err = launch(lib, stream)
         if err:
             raise RuntimeError(f"launch failed with cudaError {err}")
 
+    bad = False
     for name, lib in libs.items():
         if variants[name][1]:
             continue
-        for label, launch, outs, refs, limit, _ in cases:
+        for label, launch, outs, refs, limits, *_ in cases:
             call(lib, launch)
             torch.cuda.synchronize()
-            for out, ref in zip(outs, refs):
+            for j, (out, ref) in enumerate(zip(outs, refs)):
                 ref = ref() if callable(ref) else ref
+                limit = limits[j] if isinstance(limits, list) else limits
                 rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
                 print(f"{name} {label}: max error / max|plain| {rel:.3g} (limit {limit:g})")
                 if not rel <= limit:
-                    return 1
+                    print(f"{name} {label}: got {out.flatten()[:16].tolist()}, plain "
+                          f"{ref.flatten()[:16].tolist()}")
+                    bad = True
+    if bad:
+        return 1
+
+    # A counting variant's own LM iterations on each case (the longest
+    # sequence's when batched), against the twin's.
+    for name, lib in libs.items():
+        if any(p.startswith("lmcount") for p in variants[name][1]):
+            for c in cases:
+                call(lib, c[1])
+                torch.cuda.synchronize()
+                print(f"{name} {c[0]}: the kernel's LM iterations {c[7]()}, the twin's {c[6][0]}")
 
     def per_call_ms(fn, n=50):
         for _ in range(5):
@@ -499,8 +718,13 @@ def main(argv: list[str]) -> int:
                 if fn:
                     times[(name, i)].append(per_call_ms(fn))
     for (name, i), ts in times.items():
+        per_iter = ""
+        if len(cases[i]) > 6:  # (the twin's LM iterations, the frozen variants')
+            frozen = any(p.startswith("frozen") for p in variants.get(name, ({}, []))[1])
+            n = cases[i][6][1 if frozen else 0]
+            per_iter = f", {statistics.median(ts) / n * 1e3:.3f} us an LM iteration over {n}"
         print(f"time {kernel} {name} {cases[i][0]}: median {statistics.median(ts):.4f} ms a call "
-              f"over 4 x 50 launches ({', '.join(f'{t:.4f}' for t in ts)})")
+              f"over 4 x 50 launches ({', '.join(f'{t:.4f}' for t in ts)}){per_iter}")
     return 0
 
 

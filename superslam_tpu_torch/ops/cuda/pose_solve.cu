@@ -16,16 +16,17 @@
 //
 // Bound on the H100: bytes, and far below a microsecond: at K = 600 it
 // reads ~20 KB and writes ~7 KB (~8 ns at 3.35 TB/s); ~600 points x 20
-// iterations x 3 solves x ~300 f32 operations is ~11 MFLOP, ~0.2 us at 67
-// TFLOP/s. What it pays is latency: up to 60 dependent iterations, each two
-// block reductions and a one-thread 6 x 6 solve, on one SM.
+// iterations x 3 solves x ~400 f32 operations is ~14 MFLOP, ~0.2 us at 67
+// TFLOP/s. What it pays is latency: up to 60 dependent iterations on one
+// SM, each one pass, one block reduction and one barrier, and a 6 x 6 LU
+// that every thread runs (pose_solve.cuh's schedule).
 #include "pose_solve.cuh"
 
 namespace {
 
 using namespace pose;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     pose_solve_kernel(Params q, const float* __restrict__ R_prev, const float* __restrict__ t_prev,
                       const float* __restrict__ R_pred, const float* __restrict__ t_pred,
                       const float* __restrict__ kl, const float* __restrict__ disp,
@@ -34,7 +35,6 @@ __global__ void __launch_bounds__(THREADS)
                       float* __restrict__ pose_out, int* __restrict__ stats_out,
                       uint8_t* __restrict__ ok_out, float* __restrict__ uv_out) {
   __shared__ Shared s;
-  __shared__ float pred[12];
   Points pt;
   load_points(q, kl, disp, stereo_ok, tm, kf_xw, kf_dok, pt);
 #pragma unroll
@@ -45,17 +45,24 @@ __global__ void __launch_bounds__(THREADS)
     uv_out[2 * i] = pt.u[k];
     uv_out[2 * i + 1] = pt.v[k];
   }
-  if (threadIdx.x < 9) {
-    s.pose[threadIdx.x] = R_prev[threadIdx.x];
-    pred[threadIdx.x] = R_pred[threadIdx.x];
-  } else if (threadIdx.x < 12) {
-    s.pose[threadIdx.x] = t_prev[threadIdx.x - 9];
-    pred[threadIdx.x] = t_pred[threadIdx.x - 9];
+  // The poses in every thread's registers.
+  float P[12], pred[12];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    P[j] = R_prev[j];
+    pred[j] = R_pred[j];
   }
-  const int n = block_count(pt.ok);  // its barriers publish the pose and prediction
-  const int kept = solve(q, pt, s, pred);
-  if (threadIdx.x < 12) pose_out[threadIdx.x] = s.pose[threadIdx.x];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    P[9 + j] = t_prev[j];
+    pred[9 + j] = t_pred[j];
+  }
+  Reducer red{s, 0};
+  const int n = red.count(pt.ok);
+  const int kept = solve(q, pt, red, pred, P);
   if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) pose_out[j] = P[j];
     stats_out[0] = n;
     stats_out[1] = kept;
   }

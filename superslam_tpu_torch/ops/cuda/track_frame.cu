@@ -17,18 +17,20 @@
 //   sequences' chains, so Q frames cost about one frame's latency.
 // Its plain twin is ops/cuda/track_frame.py::track_frame_plain.
 //
-// In the JAX step's order, on rank 0's block of 256 threads:
-// - R_pred = R_prev Rr, t_pred = R_prev tr + t_prev (one thread);
+// In the JAX step's order, on rank 0's block of THREADS threads:
+// - R_pred = R_prev Rr, t_pred = R_prev tr + t_prev (every thread: the
+//   solve keeps its poses in every thread's registers);
 // - the solve (pose_solve.cuh), from (R_prev, t_prev), gated at the
 //   prediction;
 // - KF: support = #(ok & z > 0.1 & reprojection < support_px) at the solve
-//   and nref = max(#kf_depth_ok, 1), by __syncthreads_count;
-// - on one thread: finite, accept (KF: n >= min_matches, finite, support >=
-//   max(accept_frac n, min_matches); scan: n >= min_matches), the select
-//   with the prediction, Gram-Schmidt (its 1e-20, and a select that drops
-//   the other side's NaN as torch.where does), the new Rr and tr, and for
-//   KF the gate on since + 1, n and n / nref, promo, the new since and the
-//   hybrid's fresh bit; the row of TRACK_KF_COLS or TRACK_COLS.
+//   and nref = max(#kf_depth_ok, 1), by ballots and one block reduction;
+// - on one thread, once a frame: finite, accept (KF: n >= min_matches,
+//   finite, support >= max(accept_frac n, min_matches); scan: n >=
+//   min_matches), the select with the prediction, Gram-Schmidt (its 1e-20,
+//   and a select that drops the other side's NaN as torch.where does), the
+//   new Rr and tr, and for KF the gate on since + 1, n and n / nref, promo,
+//   the new since and the hybrid's fresh bit; the row of TRACK_KF_COLS or
+//   TRACK_COLS.
 // - KF: the new keyframe state (nk, desc, valid, xw, depth_ok) into fresh
 //   buffers: the frame's features, their world points Xw = R_new Xc +
 //   t_new from the disparity, where promo is set; the old keyframe's where
@@ -36,18 +38,21 @@
 //
 // Bound on the H100: latency. The solve reads ~20 KB; the promotion reads
 // and writes the keyframe state (600 x 256 f32 descriptors: 0.61 MB each
-// way, ~0.4 us at 3.35 TB/s). What a frame pays is the solve's chain of up
-// to 60 dependent LM iterations on one SM (pose_solve.cuh), tens of
-// microseconds, against ~110 launches of small PyTorch ops it replaces. The
-// copy is kept off that chain: the KF kernel is a cluster of CLUSTER
-// blocks. Rank 0 solves. Ranks 1.. copy the old keyframe into the new
-// buffers while it does (the state of most frames), each its own share,
-// then wait at the cluster barrier for rank 0's decision, read promo,
-// R_new and t_new from rank 0's shared memory (distributed shared memory)
-// and, when promo is set, overwrite the same share with the frame's
-// features. A rank rewrites only what it wrote itself, so program order
-// keeps the last write. One block alone would copy at the rate of its own
-// loads in flight: ~10-30 us for 1.2 MB; seven copy at seven SMs' rate.
+// way, ~0.4 us at 3.35 TB/s); the arithmetic, ~2 M f32 operations a frame,
+// is ~0.03 us at 67 TFLOP/s. What a frame pays is the solve's chain of up
+// to 60 dependent LM iterations on one SM, each one pass over the points,
+// one block reduction with one barrier, and a 6 x 6 LU and an SE(3)
+// exponential that every thread runs on the same bits (pose_solve.cuh):
+// ~2.6 us an iteration on an H100, against ~110 launches of small
+// PyTorch ops it replaces. The copy is kept off that chain: the KF kernel is a cluster of
+// CLUSTER blocks. Rank 0 solves. Ranks 1.. copy the old keyframe into the
+// new buffers while it does (the state of most frames), each its own share,
+// then wait at the cluster barrier for rank 0's decision, read promo, R_new
+// and t_new from rank 0's shared memory (distributed shared memory) and,
+// when promo is set, overwrite the same share with the frame's features. A
+// rank rewrites only what it wrote itself, so program order keeps the last
+// write. One block alone would copy at the rate of its own loads in
+// flight: ~10-30 us for 1.2 MB; seven copy at seven SMs' rate.
 //
 // Arithmetic is f32, as in the JAX program; the 3 x 3 algebra and the
 // comparisons follow the PyTorch twin's operations, so with the same solve
@@ -208,7 +213,7 @@ __device__ void promote_points(const Params& q, const Gate& g, const float* kl,
 }
 
 template <bool KF>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     track_frame_kernel(Params q, Gate g, const float* __restrict__ carry_in,
                        const float* __restrict__ kl, const float* __restrict__ disp,
                        const uint8_t* __restrict__ stereo_ok, const int* __restrict__ tm,
@@ -218,7 +223,6 @@ __global__ void __launch_bounds__(THREADS)
                        float* __restrict__ small_out, int* __restrict__ stats_out, KfOut kout,
                        SeqStrides seq) {
   __shared__ Shared s;
-  __shared__ float pred[12];
   __shared__ Decision dec;
   if constexpr (!KF) {
     // This block's sequence (blockIdx.x = 0 for a single frame).
@@ -268,36 +272,30 @@ __global__ void __launch_bounds__(THREADS)
     dok[k] = i < q.K && kf_dok[i];
     if (match_out != nullptr && i < q.K) match_out[i] = use[i];
   }
-  // carry_in: R_prev (9, row-major), t_prev, Rr, tr.
+  // carry_in: R_prev (9, row-major), t_prev, Rr, tr; the poses in every
+  // thread's registers.
   const float* Rp = carry_in;
   const float* tp = carry_in + 9;
-  if (threadIdx.x < 12) s.pose[threadIdx.x] = carry_in[threadIdx.x];
-  if (threadIdx.x == 0) {
-    mat3_mul(Rp, carry_in + 12, pred);
-    float v[3];
-    mat3_vec(Rp, carry_in + 21, v, false);
+  float P[12], pred[12];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) pred[9 + i] = v[i] + tp[i];
-  }
-  const int n = block_count(pt.ok);  // its barriers publish the pose and prediction
-  const int nref = KF ? block_count(dok) : 0;
-  const int kept = solve(q, pt, s, pred);
+  for (int j = 0; j < 12; ++j) P[j] = carry_in[j];
+  mat3_mul(Rp, carry_in + 12, pred);
+  float v[3];
+  mat3_vec(Rp, carry_in + 21, v, false);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pred[9 + i] = v[i] + tp[i];
+  Reducer red{s, 0};
+  const int n = red.count(pt.ok);
+  const int nref = KF ? red.count(dok) : 0;
+  const int kept = solve(q, pt, red, pred, P);
   int support = 0;
   if constexpr (KF) {
     bool sup[PPT];
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      bool zok = false;
-      const float r = threadIdx.x + k * THREADS < q.K
-                          ? reproj(q, s.pose, pt.X[k], pt.Y[k], pt.Z[k], pt.u[k], pt.v[k], zok)
-                          : 0.f;
-      sup[k] = pt.ok[k] && zok && r < g.support_px;
-    }
-    support = block_count(sup);
+    within(q, pt, P, g.support_px, sup);
+    support = red.count(sup);
   }
 
-  if (threadIdx.x == 0) {
-    const float* P = s.pose;  // R_s row-major, t_s
+  if (threadIdx.x == 0) {  // P: R_s row-major, t_s
     bool finite = true;
 #pragma unroll
     for (int j = 0; j < 12; ++j) finite = finite && isfinite(P[j]);

@@ -9,8 +9,9 @@ The kernel runs only on the card. Here:
   and track_scan's (solve and coast, stereo and mono), each a one-frame
   scan on the JAX side: poses within 1e-4, counts and bits exact;
 - a numpy model of what the kernel adds to the solve, in f32: the counts
-  of the support set and of the keyframe's depth-valid features (point by
-  point, as __syncthreads_count counts), and thread 0's epilogue (the
+  of the support set and of the keyframe's depth-valid features (a ballot
+  a point of each thread, each warp's population counts, the warps' counts
+  added in warp order after one barrier), and thread 0's epilogue (the
   acceptance floor, the select, the one-thread Gram-Schmidt with its 1e-20,
   the carry, the gate and the new since) and the promoted world points,
   held to the twin's epilogue on random solves: bits exact, poses and
@@ -224,13 +225,21 @@ def test_hybrid_selects_the_rematch_once_the_keyframe_moved():
 
 
 def count_model(b: np.ndarray) -> int:
-    """The kernel's count of a per-feature predicate: each thread's point k
-    through __syncthreads_count, k = 0..3, features past K counting 0."""
-    total = 0
+    """The kernel's count of a per-feature predicate (pose_solve.cuh's
+    Reducer::count): each warp's ballot of its threads' point k, k = 0..3,
+    features past K voting 0, their population counts summed in the warp,
+    then the warps' counts (exact in f32) added in warp order."""
+    bits = np.zeros((PPT, THREADS), bool)
     for k in range(PPT):
         idx = np.arange(THREADS) + k * THREADS
-        total += int(np.sum(np.where(idx < b.size, b[np.minimum(idx, b.size - 1)], False)))
-    return total
+        bits[k] = np.where(idx < b.size, b[np.minimum(idx, b.size - 1)], False)
+    ballots = np.packbits(bits.reshape(PPT, -1, 32), axis=-1, bitorder="little").view(np.uint32)
+    per_warp = np.array([sum(bin(int(x)).count("1") for x in ballots[:, w, 0])
+                         for w in range(THREADS // 32)], np.float32)
+    total = np.float32(0)
+    for c in per_warp:
+        total = np.float32(total + c)
+    return int(total)
 
 
 def reorthonormalize_model(R: np.ndarray) -> np.ndarray:
@@ -285,7 +294,7 @@ def promoted_points_model(kl, disp, R, t, calib):
     return (np.stack([x, y, z], 1).astype(f) @ R.T.astype(f) + t).astype(f)
 
 
-@pytest.mark.parametrize("k", [1, 255, 600, 1024])
+@pytest.mark.parametrize("k", [1, 31, 255, 256, 600, 1000, 1024])
 def test_count_model(k):
     b = np.random.default_rng(k).uniform(size=k) < 0.3
     assert count_model(b) == int(b.sum())
