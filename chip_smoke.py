@@ -18,8 +18,9 @@ In order, any failure exiting non-zero:
    backward's four (dq and dk/dv kernels, f32 and bf16), the attention
    forward's four (bf16 and f32, in masked_attention.cu and
    lightglue_layer.cu), the fused blocks' two bf16 linears (projection
-   and tail), the NMS kernel's two modes (map and logits), the pose solve
-   and the per-frame tracking kernel's two epilogues; any spill fails;
+   and tail), the NMS kernel's two modes (map and logits), the pose solve,
+   the per-frame tracking kernel's two epilogues and the descriptor
+   gather's two (bf16 and f32 grids); any spill fails;
 3. launches each kernel at the shapes of the main path and holds it against
    its plain PyTorch version on the card (bf16 conv pairs: max error over
    max |plain| <= 2e-2 after the pool; NMS: exact; NMS from SuperPoint's
@@ -30,7 +31,11 @@ In order, any failure exiting non-zero:
    composition printed; bf16 attention: atol
    2e-2, plus the fully-masked row against the mean of v; the fused
    LightGlue self and cross blocks: max error over max |plain| <= 2e-2 in
-   bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5; the
+   bf16 and atol 1e-3 in f32; the descriptor gather: atol 1e-5 at every
+   shape the main path gives it (serving (2, 7488, 256) bf16 with 600
+   int64 and int32 cells, batch 4 and the S = 4 step (8, 7488, 256), RGB-D
+   (1, 4800, 256) with 1000, an f32 grid), timed beside a one-element fill
+   (the card's launch floor); the
    unpooled conv pairs and the single conv: 2e-2 of max |plain|; the conv
    pairs and the single conv on operands prepared once give the same bits
    as on OIHW weights; the forward's row statistics against the plain
@@ -50,9 +55,10 @@ In order, any failure exiting non-zero:
    1248x384; 600 keypoints; the committed render-trained SuperPoint and
    synthetic LightGlue weights) on the default, fused LightGlue route,
    checks the poses are finite, the ATE against ground truth is <= 0.5 m
-   and the kernels ran exactly 1/1/1/9/9 times per frame (conv1a1b,
-   conv_pair, scores_nms, fused_self_block, fused_cross_block; nms,
-   masked_attention, pose_solve and track_frame 0), and prints the fused step's median
+   and the kernels ran exactly 1/1/1/1/9/9 times per frame (conv1a1b,
+   conv_pair, scores_nms, gather_normalize, fused_self_block,
+   fused_cross_block; nms, masked_attention, pose_solve and track_frame
+   0), and prints the fused step's median
    ms, the fps and the host estimator's ms a frame (``vo_track_total`` of
    ``utils/profiler.py``);
 4b. runs the facade as a user gets it on the card, ``SuperSLAM(cfg)`` with
@@ -61,7 +67,8 @@ In order, any failure exiting non-zero:
    the host estimator's ms; over the dispatches of frames 5..29 (counters
    reset before frame 5 is submitted, read before the flush) the launches
    a frame, exactly conv1a1b 1, conv_pair 1, scores_nms 1,
-   fused_self_block 9, fused_cross_block 9, track_frame 1 and pose_solve 0 once the
+   gather_normalize 1, fused_self_block 9, fused_cross_block 9,
+   track_frame 1 and pose_solve 0 once the
    matcher launches of the frames that drain through the host re-match
    path are subtracted (those frames are counted and printed), and every
    dispatch under ``torch.cuda.set_sync_debug_mode("error")``: any
@@ -69,7 +76,14 @@ In order, any failure exiting non-zero:
    the default and depth 0 once more on new facades, in that order (ABBA
    with the two phases before), each printing its fps, ATE, host
    estimator ms and the host ms a frame of the call that issues its device
-   work;
+   work; then the default four times more, ABBA, with the descriptor gather
+   as the parent commit ran it (its plain composition, what
+   ``use_kernel=False`` takes) and as the kernel, each printing its fps,
+   ATE (<= 0.5 m) and the dispatch's host ms a frame; then one child
+   process for each of ``SUPERSLAM_F32_PRECISION=high``, ``tensorfloat32``
+   and ``bfloat16`` runs 10 frames of the default facade: ATE <= 0.5 m,
+   TF32 on for matmuls and cuDNN inside a step's body and the flags as they
+   were after it, the fps printed;
 4c. holds ``track_frame`` (the scans' whole per-frame body) against its
    plain twin on the card on every frame of 4b's window in both epilogues
    (track_kf_scan's and track_scan's), and on a promotion (since at
@@ -105,7 +119,7 @@ In order, any failure exiting non-zero:
    synchronous and host-solved (``SUPERSLAM_PIPELINE=0
    SUPERSLAM_DEVICE_TRACKER=0``), then as a user gets it (``SuperSLAM(cfg)``:
    depth 3, device-tracked mono chain), each at ATE <= 0.5 m with exactly
-   1/1/1/9/9 launches a frame and track_frame 1 (device) or 0 (host) over
+   1/1/1/1/9/9 launches a frame and track_frame 1 (device) or 0 (host) over
    frames 5..29 once the host re-match frames' matcher launches are
    subtracted, the device-tracked dispatches under
    ``set_sync_debug_mode("error")``, printing fps, the host estimator's ms
@@ -124,7 +138,7 @@ In order, any failure exiting non-zero:
    and f32) against their plain versions with the limits of 3, timed;
    ``MultiSequenceTracker`` at S = 4 on the bench circuit (sequence s is
    frames 36 s .. 36 s + 29 of the lap), S = 4, 1, 1, 4 (ABBA, sequence-
-   frames a second over steps 1..29): exactly 1/1/1/9/9 launches a step for
+   frames a second over steps 1..29): exactly 1/1/1/1/9/9 launches a step for
    all four sequences (nothing else), each sequence's ATE <= 0.5 m and its
    largest position gap to the sequence run alone through
    ``FusedStereoPipeline`` and ``VoEstimator`` <= 0.05 m;
@@ -144,7 +158,8 @@ In order, any failure exiting non-zero:
    stderr lines, its JSON line and its device-only ms printed; the mode;
    over the measured window (counts reset before its first frame, read
    after the flush that ends it) exactly conv1a1b 1, conv_pair 1,
-   scores_nms 1, fused_self_block 36, fused_cross_block 36 and track_frame 4
+   scores_nms 1, gather_normalize 1, fused_self_block 36, fused_cross_block
+   36 and track_frame 4
    launches a dispatch and nothing else, once the matcher launches of the
    frames that drain through the host re-match path are subtracted (those
    frames counted and printed); every dispatch and upload of the window
@@ -168,9 +183,10 @@ In order, any failure exiting non-zero:
    (``SUPERSLAM_PALLAS_LG=0``): exactly 1/1/1/18 launches per frame
    (masked_attention 18, the fused blocks 0), ATE <= 0.5 m, and prints the
    largest per-frame position gap between the two routes;
-6. extracts one rendered stereo pair with
-   ``SuperPointExtractor(use_kernel=True)``: descriptors within 1e-5 of
-   the default route's, and the gather_normalize kernel launched; then
+6. extracts one rendered stereo pair with ``SuperPointExtractor`` (its
+   default, the gather kernel): descriptors within 1e-5 of
+   ``use_kernel=False``'s plain composition, and the gather_normalize
+   kernel launched once; then
    runs the map-mode entry point ``nms_suppress`` on that pair's pre-NMS
    map from ``superpoint_dense``: the logits mode's NMS'd map bit for bit;
 7. trains the matcher at full width (9 layers, 256 wide, 4 heads, f32,
@@ -236,8 +252,9 @@ In order, any failure exiting non-zero:
 9. profiles, after every timed phase (a profiler session slows the
    launches that follow it on the host), the score half on one frame's
    logits, the logits mode beside the composition it replaces (PyTorch's
-   softmax and depth-to-space, then the map mode), 10 extractions with
-   ``use_kernel=True`` for the gather kernel's device time, one of 4b's
+   softmax and depth-to-space, then the map mode), 10 extractions for the
+   gather kernel's device time beside a one-element fill's (the launch
+   floor), one of 4b's
    track_kf_scan calls (its device events must be one track_frame kernel a
    frame, nothing of the old PyTorch body, beside at most the one marker
    that opens the profile), the device time of pose_solve
@@ -249,10 +266,14 @@ In order, any failure exiting non-zero:
    default facade (device busy ms a frame, the device's idle share, its
    device events a frame against depth 0's from 4h, and each track_frame
    call's device time), 5 more frames of
-   4e's default RGB-D facade (the same figures), and last 5 more steps of
-   4f's S = 4 tracker (device busy ms a step, idle share);
+   4e's default RGB-D facade (the same figures), 5 frames of the default
+   facade with the parent commit's gather (the plain composition) and 5
+   with the kernel, each on a new facade after the 30 frames (device events
+   and device ms a frame, printed beside 4b's dispatch host ms of each
+   route), and last 5 more steps of 4f's S = 4 tracker (device busy ms a
+   step, idle share);
 10. prints one ``{"kernels": [...]}`` line (each kernel's launches are
-    those of the phase that drives it: the main path's six from 4b's
+    those of the phase that drives it: the main path's seven from 4b's
     window, the others from 5, 6, 7 or 8, pose_solve's 0 from 4b's; row 4
     twice, bf16 from phase 5
     and f32 from phase 7's fixed-batch steps; ``nms``, the map mode, from
@@ -266,6 +287,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -319,7 +341,7 @@ EP_SCRIPT_ARGS = ["--places", "24", "--views", "4", "--eval-places", "8", "--ste
 # unfused one (SUPERSLAM_PALLAS_LG=0).
 PER_FRAME_FUSED = {
     "conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "nms": 0, "fused_self_block": 9,
-    "fused_cross_block": 9, "masked_attention": 0, "gather_normalize": 0,
+    "fused_cross_block": 9, "masked_attention": 0, "gather_normalize": 1,
     "pose_solve": 0, "track_frame": 0,  # depth 0 is host-solved
 }
 PER_FRAME_UNFUSED = {
@@ -379,8 +401,8 @@ LOOP_COSINE = 0.999  # EigenPlaces' device-gray descriptor against the host-imag
 # have to its run alone (the same frames through FusedStereoPipeline: the
 # batch changes only the order of some sums).
 MULTI_S, MULTI_STRIDE, MULTI_PROFILE_STEPS = 4, 36, 5
-PER_STEP_MULTI = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "fused_self_block": 9,
-                  "fused_cross_block": 9}
+PER_STEP_MULTI = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "gather_normalize": 1,
+                  "fused_self_block": 9, "fused_cross_block": 9}
 MULTI_GAP_M = 0.05
 # batched_track_scan: Q sequences of BATCHED_S frames, against its twin
 # within BATCHED_ATOL (exact projections: a well-conditioned solve).
@@ -391,8 +413,9 @@ WS_POSE_TOL = 0.02
 VIEWER_FRAMES = 5
 # The tooling phase (4g): bench_torch.py's run with its settle and measure
 # cut from 15 s and 135 s; a dispatch of its batch-4 device-keyframe step
-# launches the two conv pairs and the NMS kernel's logits mode once over
-# all 8 images, the matcher's 9 layers once batched over
+# launches the two conv pairs, the NMS kernel's logits mode and the
+# descriptor gather once over all 8 images, the matcher's 9 layers once
+# batched over
 # the 4 stereo and 4 keyframe pair problems and once more for each of frames
 # 1-3 (the re-match against the keyframe carried in the scan), and
 # track_frame once a frame. The runners: make_synthetic_sequence_torch.py's
@@ -405,9 +428,20 @@ BENCH_SETTLE_S, BENCH_MEASURE_S = 3.0, 20.0
 # mm a frame over the laps (0.1999 m over the first 1000 measured frames on
 # the H100, PERF.md section 6), and the limit is 1.5x that.
 BENCH_ATE_FRAMES, BENCH_ATE_LIMIT_M = 1000, 0.3
-PER_DISPATCH_BENCH = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "fused_self_block": 36,
-                      "fused_cross_block": 36, "track_frame": 4}
+PER_DISPATCH_BENCH = {"conv1a1b": 1, "conv_pair": 1, "scores_nms": 1, "gather_normalize": 1,
+                      "fused_self_block": 36, "fused_cross_block": 36, "track_frame": 4}
 TOOL_FRAMES, TOOL_W, TOOL_H, TOOL_TIMEOUT_S = 30, 640, 352, 300
+# The descriptor gather at every shape the main path gives it: (label, B,
+# grid cells, keypoints, grid dtype): serving (1248 x 384, 48 x 156 cells),
+# batch 4 and the S = 4 step, RGB-D (640 x 480), and an f32 grid (the
+# training evaluation's 120 x 160 at 256 keypoints).
+GATHER_SHAPES = (("serving", 2, HEIGHT_CELLS * WIDTH_CELLS, MAX_KP, "bfloat16"),
+                 ("batch 4 / S = 4", 8, HEIGHT_CELLS * WIDTH_CELLS, MAX_KP, "bfloat16"),
+                 ("RGB-D", 1, 60 * 80, 1000, "bfloat16"),
+                 ("f32 grid", 1, 15 * 20, 256, "float32"))
+# SUPERSLAM_F32_PRECISION's TF32 modes: one child process each, over
+# PRECISION_FRAMES frames of the default facade.
+PRECISION_MODES, PRECISION_FRAMES = ("high", "tensorfloat32", "bfloat16"), 10
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -507,6 +541,7 @@ REPORTED_KERNELS = {
     "nms_tile_kernel": 2,
     "pose_solve_kernel": 1,
     "track_frame_kernel": 2,
+    "gather_kernel": 2,  # bf16 and f32 grids
 }
 
 
@@ -519,7 +554,7 @@ def _smem_bytes(entry: str) -> int:
 
     if "nms_tile_kernel" in entry:
         return tile_layout()["SMEM_BYTES"]
-    if "pose_solve_kernel" in entry or "track_frame_kernel" in entry:
+    if any(k in entry for k in ("pose_solve_kernel", "track_frame_kernel", "gather_kernel")):
         return 0  # static only
     if "attn_fwd_bf16" in entry:
         return fwd_layout("bf16")["smem_bytes"]
@@ -539,9 +574,10 @@ def _smem_bytes(entry: str) -> int:
 def report_build(build_dir: str) -> None:
     """Print registers, shared memory and spills of every instantiation of
     the mma.sync kernels (the convs, the attention forward and backward, the
-    fused blocks' linears) and of the NMS kernel from nvcc's -Xptxas -v
-    report; fail on any spill (they keep their accumulators or their
-    cell's channels in registers) or a missing instantiation."""
+    fused blocks' linears), of the NMS kernel, the tracking kernels and the
+    descriptor gather from nvcc's -Xptxas -v report; fail on any spill
+    (they keep their accumulators, their cell's channels or their rows in
+    registers) or a missing instantiation."""
     with open(os.path.join(build_dir, "nvcc.log")) as f:
         lines = f.read().splitlines()
     found = dict.fromkeys(REPORTED_KERNELS, 0)
@@ -1060,21 +1096,37 @@ def check_kernels(torch, sp_params, lg_params, frame) -> dict[str, dict]:
             bound(io, bf16_ops=proj_ops + tail_ops + a_bf16, f32_ops=a_f32 + 30.0 * m_rows * 512),
         )
 
-    # The descriptor gather at the main path's grid (48 x 156 cells of a
-    # 1248 x 384 frame, 256 channels, bf16) and keypoint count.
-    grid = torch.from_numpy(rng.standard_normal((2, 48 * 156, 256)).astype(np.float32))
-    grid = F.normalize(grid.to(dev), dim=-1).to(bf16)
-    cells = torch.from_numpy(rng.integers(0, 48 * 156, size=(2, 600))).to(dev)
-    got, ref = gather_normalize(grid, cells), gather_normalize_plain(grid, cells)
-    torch.cuda.synchronize()
-    if got.shape != (2, 600, 256) or got.dtype != torch.float32:
-        fail(f"gather_normalize: output {tuple(got.shape)} {got.dtype}")
-    err = (got - ref).abs().max().item()
-    if not err <= 1e-5:
-        fail(f"gather_normalize: max abs error {err} > 1e-5")
+    # The descriptor gather at every shape the main path gives it (unit
+    # rows, both corner cells among the random ones); the serving shape with
+    # int64 cells, the main path's, is its entry of the kernels line. A
+    # one-element fill in the same call is the card's launch floor.
+    one = torch.empty(1, device=dev)
+    fill_ms = time_ms(torch, lambda: one.fill_(1.0))
+    serving = None
+    for label, b, g, k, dtype in GATHER_SHAPES:
+        grid = torch.from_numpy(rng.standard_normal((b, g, 256)).astype(np.float32))
+        grid = F.normalize(grid.to(dev), dim=-1).to(getattr(torch, dtype))
+        cells = torch.from_numpy(rng.integers(0, g, size=(b, k))).to(dev)
+        cells[:, :2] = torch.tensor([0, g - 1], device=dev)
+        serving = serving or (grid, cells)
+        for c in (cells, cells.to(torch.int32)) if label == "serving" else (cells,):
+            got, ref = gather_normalize(grid, c), gather_normalize_plain(grid, c)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            case = f"{label} {tuple(grid.shape)} {dtype}, {k} {str(c.dtype)[6:]} cells"
+            print(f"kernel gather_normalize ({case}): max abs error {err:.3g} (limit 1e-5), "
+                  f"kernel {time_ms(torch, lambda: gather_normalize(grid, c)):.4f} ms")
+            if got.shape != (b, k, 256) or got.dtype != torch.float32 or not err <= 1e-5:
+                fail(f"gather_normalize ({case}): output {tuple(got.shape)} {got.dtype}, max "
+                     f"abs error {err} (limit 1e-5)")
+    print(f"kernel gather_normalize: a one-element fill in the same call (the launch floor) "
+          f"{fill_ms:.4f} ms")
+    grid, cells = serving
+    got = gather_normalize(grid, cells)
+    err = (got - gather_normalize_plain(grid, cells)).abs().max().item()
     ms = time_ms(torch, lambda: gather_normalize(grid, cells))
     plain_ms = time_ms(torch, lambda: gather_normalize_plain(grid, cells))
-    flat_cells = (cells + torch.arange(2, device=dev)[:, None] * (48 * 156)).reshape(-1)
+    flat_cells = (cells + torch.arange(2, device=dev)[:, None] * grid.shape[1]).reshape(-1)
     flat_grid = grid.reshape(-1, 256)
     lib_ms = time_ms(
         torch, lambda: F.normalize(flat_grid.index_select(0, flat_cells).float(), dim=-1)
@@ -1435,15 +1487,16 @@ def run_reversed_pair(torch, frames, gt) -> None:
             mode, fps, est_ms, issue, n_issue, rmse = sustained_run(torch, frames, gt)
         print(f"facade order: {label} again ({mode}), after the phases above: {fps:.2f} fps "
               f"sustained over frames 1..{len(frames) - 1}, host estimator {est_ms:.3f} ms a "
-              f"frame, {issue} ({n_issue} calls), ATE {rmse:.4f} m")
+              f"frame, {issue[0]} {issue[1]:.3f} ms a frame of host time ({n_issue} calls), "
+              f"ATE {rmse:.4f} m")
         if not np.isfinite(rmse) or rmse > ATE_LIMIT_M:
             fail(f"facade order: {label}: ATE {rmse} m > {ATE_LIMIT_M} m")
 
 
 def sustained_run(torch, frames, gt):
     """A new facade with the env as it stands over the frames; returns (its
-    mode, fps over frames 1.., estimator ms a frame, the issuing call's host
-    ms a frame as text, that call's count, ATE)."""
+    mode, fps over frames 1.., estimator ms a frame, (the issuing call's
+    name, its host ms a frame), that call's count, ATE)."""
     from superslam_tpu_torch.eval.metrics import ate
 
     slam = build_slam()
@@ -1474,8 +1527,114 @@ def sustained_run(torch, frames, gt):
     mode = facade_mode(slam)
     slam.shutdown()
     what = "fused step" if tracker is None else "dispatch"
-    issue_ms = f"{what} {1e3 * sum(spent) / max(len(spent), 1):.3f} ms a frame of host time"
+    issue_ms = (what, 1e3 * sum(spent) / max(len(spent), 1))
     return mode, (len(frames) - 1) / loop_s, est_ms, issue_ms, len(spent), rmse
+
+
+@contextlib.contextmanager
+def plain_gather():
+    """The parent commit's descriptor gather on the main path: the plain
+    composition (what ``use_kernel=False`` takes) in place of the kernel
+    wherever ``select_keypoints`` runs its default."""
+    from superslam_tpu_torch.models import superpoint as spm
+
+    kernel = spm.gather_normalize
+    spm.gather_normalize = spm.gather_normalize_plain
+    try:
+        yield
+    finally:
+        spm.gather_normalize = kernel
+
+
+GATHER_ROUTES = (("parent's plain gather", True), ("gather kernel", False))
+
+
+def compare_gather_routes(torch, frames, gt) -> dict:
+    """The default facade four more times over the frames, ABBA: the
+    parent's gather route (the plain composition), the kernel, the kernel,
+    the parent's; each run's fps, ATE (<= 0.5 m) and dispatch host ms a
+    frame printed. Returns each route's dispatch host ms a frame."""
+    dispatch_ms = {label: [] for label, _ in GATHER_ROUTES}
+    for label, plain in (*GATHER_ROUTES, *GATHER_ROUTES[::-1]):
+        with plain_gather() if plain else contextlib.nullcontext():
+            mode, fps, _, issue, n_issue, rmse = sustained_run(torch, frames, gt)
+        dispatch_ms[label].append(issue[1])
+        print(f"gather route: {label} ({mode}): {fps:.2f} fps over frames 1..{len(frames) - 1}, "
+              f"{issue[0]} {issue[1]:.3f} ms a frame of host time ({n_issue} calls), ATE "
+              f"{rmse:.4f} m", flush=True)
+        if not np.isfinite(rmse) or rmse > ATE_LIMIT_M:
+            fail(f"gather route: {label}: ATE {rmse} m > {ATE_LIMIT_M} m")
+    return dispatch_ms
+
+
+def precision_child() -> int:
+    """In a child process with SUPERSLAM_F32_PRECISION set: PRECISION_FRAMES
+    frames of the default facade; prints one JSON line with the mode, the
+    ATE, the fps over frames 1.., the TF32 flags inside each step's body
+    (read where the body runs LightGlue) and after the frames."""
+    import torch
+
+    from superslam_tpu_torch.eval.metrics import ate
+    from superslam_tpu_torch.ops import frontend_step
+    from superslam_tpu_torch.ops.precision import F32_PRECISION_MODE
+
+    def flags():
+        return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+
+    frames, gt = render_sequence(PRECISION_FRAMES, WIDTH, HEIGHT)
+    slam = build_slam()
+    inside, forward = [], frontend_step.lightglue_forward
+
+    def spy(*a, **kw):
+        inside.append(flags())
+        return forward(*a, **kw)
+
+    frontend_step.lightglue_forward = spy
+    before = flags()
+    t1 = None
+    for i, (left, right) in enumerate(frames):
+        slam.track_stereo(left, right, 0.1 * i)
+        if i == 0:
+            t1 = time.perf_counter()
+    slam.flush()
+    torch.cuda.synchronize()
+    fps = (len(frames) - 1) / (time.perf_counter() - t1)
+    rmse = ate(slam.estimator.corrected_trajectory(), gt).rmse
+    mode = facade_mode(slam)
+    slam.shutdown()
+    print(json.dumps({"mode": F32_PRECISION_MODE, "facade": mode, "ate_m": rmse, "fps": fps,
+                      "before": before, "inside": inside, "after": flags()}))
+    return 0
+
+
+def check_precision_modes() -> None:
+    """One child process a TF32 mode of SUPERSLAM_F32_PRECISION over
+    PRECISION_FRAMES frames of the default facade: ATE <= 0.5 m, TF32 on for
+    matmuls and cuDNN in every step's body, the flags as they were after."""
+    env = {k: v for k, v in os.environ.items() if k != "SUPERSLAM_PROFILE"}
+    for mode in PRECISION_MODES:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.precision_child())"],
+            capture_output=True, text=True, timeout=600, cwd=REPO,
+            env={**env, "SUPERSLAM_F32_PRECISION": mode},
+        )
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith('{"mode"')]
+        if run.returncode != 0 or not lines:
+            fail(f"precision {mode}: exit {run.returncode}: {run.stdout[-2000:]} "
+                 f"{run.stderr[-3000:]}")
+        got = json.loads(lines[-1])
+        inside = {tuple(f) for f in got["inside"]}
+        print(f"precision {mode}: {got['facade']}, {PRECISION_FRAMES} frames, ATE "
+              f"{got['ate_m']:.4f} m, {got['fps']:.2f} fps over frames 1..; TF32 flags (matmul, "
+              f"cuDNN) before {got['before']}, inside the {len(got['inside'])} step bodies "
+              f"{sorted(inside)}, after {got['after']} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if got["mode"] != mode or not np.isfinite(got["ate_m"]) or got["ate_m"] > ATE_LIMIT_M:
+            fail(f"precision {mode}: mode {got['mode']}, ATE {got['ate_m']} m > {ATE_LIMIT_M} m")
+        if not got["inside"] or inside != {(True, True)} or got["after"] != got["before"]:
+            fail(f"precision {mode}: flags inside {sorted(inside)}, before {got['before']}, "
+                 f"after {got['after']}")
 
 
 def cut_matches(args, n: int, usable=None):
@@ -1748,7 +1907,7 @@ def check_track_frame(torch, captured):
 
 
 MARKERS = 16  # check_scan_body's marker negations
-PROFILE_TRIES = 3  # its sessions until one records a marker
+PROFILE_TRIES = 3  # its sessions until one records a marker and an event of the body
 # Host time a session's warm-up step waits after tracing starts: sessions on
 # the H100 have recorded the body's kernel but none of the markers launched
 # just before it (the first device events of a session are lost while
@@ -1769,11 +1928,12 @@ def check_scan_body(torch, scan_call) -> None:
     first, and each session opens with a warm-up step (torch.profiler's
     schedule: tracing on, its events discarded; one marker and
     PROFILE_SETTLE_S of host time) before the recorded step. A session that
-    records no device event at all, or none of the markers (both seen now
-    and then on the H100; after the warm-up step 2-3 of 8 markers were
-    still lost), cannot show that: it is run again, up to PROFILE_TRIES
-    times, and the checks apply to the first that records a marker (or to
-    the last session)."""
+    records no device event at all, none of the markers, or nothing after
+    them (all three seen now and then on the H100; after the warm-up step
+    2-3 of 8 markers were still lost, and once 15 of 16 markers and the
+    body), cannot show that: it is run again, up to PROFILE_TRIES times, and
+    the checks apply to the first that records a marker and an event of the
+    body (or to the last session)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from superslam_tpu_torch.ops import frontend_step
@@ -1803,10 +1963,10 @@ def check_scan_body(torch, scan_call) -> None:
         rows = [e for e in prof.key_averages()
                 if device_us(e) > 0 and "CPU" not in str(getattr(e, "device_type", "CPU"))
                 and not e.key.startswith("ProfilerStep")]
-        if any("neg" in e.key for e in rows):
+        if any("neg" in e.key for e in rows) and any("neg" not in e.key for e in rows):
             break
-        print(f"scan body: session {attempt} of {PROFILE_TRIES} recorded no marker "
-              f"(device events {[e.key[:40] for e in rows]})")
+        print(f"scan body: session {attempt} of {PROFILE_TRIES} recorded no marker or no event "
+              f"of the body (device events {[e.key[:40] for e in rows]})")
     events = {e.key: e.count for e in rows}
     print(f"scan body: {n} frame(s) of track_kf_scan after {MARKERS} marker negations: device "
           f"events {events}")
@@ -2413,34 +2573,33 @@ def profile_rgbd(torch, slam, frames) -> None:
                           calls_of="track_frame_kernel")
     print(f"profile: RGB-D device events a frame {sum(e.count for e in rows) / n:g}")
 
-def check_extractor_kernel_route(torch, sp_params, left, right) -> int:
-    """One stereo extraction through SuperPointExtractor(use_kernel=True):
-    its descriptors against the default route's (atol 1e-5), and the
-    gather_normalize launches it made."""
+def check_extractor_kernel_route(torch, sp_params, left, right) -> None:
+    """One stereo extraction through SuperPointExtractor's default (the
+    gather kernel): its descriptors against use_kernel=False's plain
+    composition (atol 1e-5), and exactly one gather_normalize launch."""
     from superslam_tpu_torch.frontend.extractor import SuperPointExtractor
     from superslam_tpu_torch.ops.cuda import _build
 
     kw = dict(width=WIDTH, height=HEIGHT, max_keypoints=MAX_KP, keypoint_threshold=KP_THRESHOLD)
-    default = SuperPointExtractor(sp_params, **kw).extract_stereo(left, right)
+    plain = SuperPointExtractor(sp_params, use_kernel=False, **kw).extract_stereo(left, right)
     _build.reset_launch_counts()
-    kernel = SuperPointExtractor(sp_params, use_kernel=True, **kw).extract_stereo(left, right)
+    kernel = SuperPointExtractor(sp_params, **kw).extract_stereo(left, right)
     torch.cuda.synchronize()
     launches = _build.launch_counts()["gather_normalize"]
     worst = 0.0
-    for a, b in zip(default, kernel):
+    for a, b in zip(plain, kernel):
         if a.descriptors.n != b.descriptors.n or a.descriptors.n < 100:
             fail(f"extractor: {a.descriptors.n} vs {b.descriptors.n} keypoints")
         worst = max(worst, (a.descriptors.desc - b.descriptors.desc).abs().max().item())
     print(
-        f"extractor (use_kernel=True): {default[0].descriptors.n} + {default[1].descriptors.n} "
-        f"keypoints, descriptors vs the default route max abs diff {worst:.3g} "
-        f"(limit 1e-5), gather_normalize launches {launches}"
+        f"extractor (default, the gather kernel): {kernel[0].descriptors.n} + "
+        f"{kernel[1].descriptors.n} keypoints, descriptors vs use_kernel=False max abs diff "
+        f"{worst:.3g} (limit 1e-5), gather_normalize launches {launches}"
     )
     if not worst <= 1e-5:
-        fail(f"extractor: use_kernel descriptors differ by {worst} > 1e-5")
+        fail(f"extractor: the kernel's descriptors differ by {worst} > 1e-5")
     if launches != 1:
         fail(f"extractor: gather_normalize launched {launches} times, want 1")
-    return launches
 
 
 def check_map_mode(torch, sp_params, left, right) -> int:
@@ -2492,19 +2651,24 @@ def profile_score_half(torch, sp_params, left, right, n: int = 20) -> None:
 
 def profile_gather(torch, sp_params, left, right, n: int = 10) -> None:
     """The gather kernel's device time (row 7) inside n stereo extractions
-    through SuperPointExtractor(use_kernel=True)."""
+    through SuperPointExtractor's default, each followed by a one-element
+    fill (the card's launch floor, in the same session)."""
     from superslam_tpu_torch.frontend.extractor import SuperPointExtractor
 
-    extractor = SuperPointExtractor(sp_params, use_kernel=True, width=WIDTH, height=HEIGHT,
+    extractor = SuperPointExtractor(sp_params, width=WIDTH, height=HEIGHT,
                                     max_keypoints=MAX_KP, keypoint_threshold=KP_THRESHOLD)
-    rows = profile_device(torch, lambda: [extractor.extract_stereo(left, right) for _ in range(n)],
-                          n, "extraction", "extractions with use_kernel=True", top=0)
+    one = torch.empty(1, dtype=torch.int16, device="cuda")  # no other fill of int16 runs here
+    rows = profile_device(torch, lambda: [(extractor.extract_stereo(left, right), one.fill_(1))
+                                          for _ in range(n)],
+                          n, "extraction", "extractions (and one-element fills)", top=0)
     gather = [e for e in rows if "gather_kernel" in e.key]
+    fill = [e for e in rows if "FillFunctor<short>" in e.key]
     if not gather:
         fail("extractor: no gather_normalize kernel in the profile")
-    for e in gather:
-        print(f"extractor (use_kernel=True): {e.key[:60]}: device "
-              f"{device_us(e) / 1e3 / n:.4f} ms a call, {e.count / n:.1f} calls an extraction")
+    for e in gather + fill:
+        what = "extractor (default)" if e in gather else "one-element fill (the launch floor)"
+        print(f"{what}: {e.key[:60]}: device {device_us(e) / 1e3 / e.count:.4f} ms a call, "
+              f"{e.count / n:.1f} calls an extraction")
 
 
 # -- multi-sequence batched tracking, the device window solver, the viewer -----------
@@ -3073,8 +3237,6 @@ def check_bench_run(torch) -> None:
     frames counted and printed); every dispatch and upload of the window
     under set_sync_debug_mode("error"); the ATE against the circuit's poses
     over blocks of BENCH_ATE_FRAMES measured frames that cover the window."""
-    import contextlib
-
     import bench_torch
     from superslam_tpu_torch.eval.metrics import ate
     from superslam_tpu_torch.ops.cuda import _build
@@ -3267,6 +3429,40 @@ def profile_default(torch, slam, n: int, depth0_events: float) -> None:
     events = sum(e.count for e in rows) / n
     print(f"profile: device events a frame: default {events:g}, depth 0 {depth0_events:g}, "
           f"difference {events - depth0_events:+g}")
+
+
+def profile_gather_routes(torch, frames, dispatch_ms: dict, n: int = 5) -> None:
+    """For each gather route, a new default facade over the frames, then n
+    more frames of the lap under torch.profiler (its flush included): the
+    device events and device ms a frame, printed beside the route's
+    dispatch host ms a frame from compare_gather_routes."""
+    more, _ = render_sequence(n, WIDTH, HEIGHT, start=N_FRAMES)
+    summary = []
+    for label, plain in GATHER_ROUTES:
+        with plain_gather() if plain else contextlib.nullcontext():
+            slam = build_slam()
+            for i, (left, right) in enumerate(frames):
+                slam.track_stereo(left, right, 0.1 * i)
+
+            def track():
+                for i, (left, right) in enumerate(more):
+                    slam.track_stereo(left, right, 0.1 * (N_FRAMES + i))
+                slam.flush()
+
+            rows = profile_device(torch, track, n, "frame",
+                                  f"frames of the default facade, {label}", top=6)
+            slam.shutdown()
+        events = sum(e.count for e in rows) / n
+        busy = sum(device_us(e) for e in rows) / 1e3 / n
+        kernel = [e for e in rows if "gather_kernel" in e.key]
+        if not plain and not kernel:
+            fail("gather route: no gather_normalize kernel in the default frame's profile")
+        in_frame = "".join(f", the gather kernel {device_us(e) / 1e3 / e.count:.4f} ms a call"
+                           for e in kernel)
+        summary.append(f"{label}: {events:g} device events and {busy:.3f} ms of device time a "
+                       f"frame{in_frame}, dispatch host ms a frame "
+                       f"{[round(t, 3) for t in dispatch_ms[label]]}")
+    print("gather route, the default frame: " + "; ".join(summary))
 
 
 def is_log_softmax(key: str) -> bool:
@@ -3647,11 +3843,12 @@ def check_training_slice(torch) -> None:
         counts = _build.launch_counts()
     finally:
         spm.superpoint_extract = extract
-    per = {k: counts[k] for k in ("conv1a1b", "conv_pair", "scores_nms")}
+    per = {k: counts[k] for k in ("conv1a1b", "conv_pair", "scores_nms", "gather_normalize")}
     print(f"sp train: evaluate_detector on 4 shape images: {json.dumps(metrics)}; {calls[0]} "
           f"extractions, launches {per}")
     if calls[0] < 1 or any(n != calls[0] for n in per.values()):
-        fail(f"sp train: evaluate_detector launched {per} in {calls[0]} extractions, want 1/1/1 each")
+        fail(f"sp train: evaluate_detector launched {per} in {calls[0]} extractions, want "
+             "1/1/1/1 each")
 
     # 4. scripts/train_superpoint_torch.py in-process.
     with tempfile.TemporaryDirectory() as tmp:
@@ -3876,6 +4073,8 @@ def main() -> int:
                      PER_FRAME_FUSED, est_ms)
     slam_d, counts_d, captured, scan_call = run_default_facade(torch, frames, gt)
     run_reversed_pair(torch, frames, gt)
+    gather_dispatch_ms = compare_gather_routes(torch, frames, gt)
+    check_precision_modes()
     del os.environ["SUPERSLAM_PROFILE"]
     kernels["track_frame"] = check_track_frame(torch, captured)
     kernels["pose_solve"] = check_pose_solve(torch, [solve_call(c) for c in captured])
@@ -3932,7 +4131,7 @@ def main() -> int:
     gap = max(float(np.linalg.norm(a.t - b.t)) for a, b in zip(poses[:n_u], poses_u))
     print(f"routes: largest per-frame position gap fused vs unfused over {n_u} frames {gap:.4f} m")
 
-    gather_launches = check_extractor_kernel_route(torch, sp, *frames[0])
+    check_extractor_kernel_route(torch, sp, *frames[0])
     map_nms_launches = check_map_mode(torch, sp, *frames[0])
 
     f32_fwd_launches, bwd_launches = check_training(torch)
@@ -3948,6 +4147,7 @@ def main() -> int:
     del scan_call, mid_call, captured, mono_call
     profile_default(torch, slam_d, 5, depth0_events)
     slam_d.shutdown()
+    profile_gather_routes(torch, frames, gather_dispatch_ms)
     profile_rgbd(torch, slam_r, rgbd_frames[RGBD_FRAMES:])
     slam_r.shutdown()
     profile_multi(torch, multi, multi_seqs)
@@ -3958,7 +4158,6 @@ def main() -> int:
     launches.update((k, counts_d[k]) for k in OFF_PATH)  # 0: on no path, timed in 4c
     launches["masked_attention"] = counts_u["masked_attention"]
     launches["track_frame_batched"] = batched_launches
-    launches["gather_normalize"] = gather_launches
     launches["nms"] = map_nms_launches
     launches["masked_attention_f32"] = f32_fwd_launches
     launches["masked_attention_bwd"] = bwd_launches

@@ -2,7 +2,7 @@
 """Build variants of a hand-written kernel side by side and time them on the
 card at the main path's shapes.
 
-    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block|nms|nms_map|track_frame] [--source DIR] [NAME[:EDIT,EDIT...] ...]
+    python3 scripts/kernel_variants_torch.py [--kernel pair|conv3x3|attn_bwd|attn_fwd|block|nms|nms_map|track_frame|gather] [--source DIR] [NAME[:EDIT,EDIT...] ...]
 
 Kernels (``--kernel``, default ``pair``):
 
@@ -35,11 +35,21 @@ Kernels (``--kernel``, default ``pair``):
   feature, no promotion), track_scan's mono at K 1000, and
   ``track_frame_batched`` (one block a sequence) at Q 1, 4 and 16, K 600.
   Each case prints its plain twin's LM iterations (the longest sequence's
-  for the batched ones) and its time per iteration.
+  for the batched ones) and its time per iteration;
+- ``gather``: the descriptor gather (``gather.cu``) at the main path's
+  shapes: the serving grid (2, 7488, 256) bf16 with 600 int64 cells, batch
+  4 and the S = 4 multi-sequence step (8, 7488, 256) with 600, RGB-D (1,
+  4800, 256) with 1000, and an f32 grid (1, 300, 256) with 256 (the
+  training evaluation's 120 x 160 at 256 keypoints); the library call
+  beside each is ``index_select`` + ``F.normalize`` on the same inputs, and
+  a one-element ``fill_`` is timed in the same turns as the card's launch
+  floor.
 
 ``--source DIR`` builds from the kernel sources in DIR instead of this
 checkout's: with an unpacked parent commit's ``superslam_tpu_torch/ops/cuda``
-it times the parent's kernel in the same call as this one's.
+it times the parent's kernel in the same call as this one's. A variant
+named ``NAME@DIR`` builds from DIR alone, so the parent's kernel and this
+one's take turns in one process (``tree prev@<parent>/superslam_tpu_torch/ops/cuda``).
 
 A NAME alone is the kernel source as it is. An EDIT is either KEY=VALUE,
 which sets the ``constexpr int KEY`` of the source or of one of its
@@ -52,7 +62,9 @@ the bf16 key/value ring of 3 slots, ``q32:BQ=32``, bf16 blocks of 32
 query rows, ``f32q32:FQ=32`` and ``f32q128:FQ=128``, f32 blocks of 32 or
 128; block: ``ring4:RING=4``, a weight ring of 4 slots, ``r16:BM=16`` and
 ``r64:BM=64``, row tiles of 16 or 64 rows, ``w16:NWARPS=16``; nms:
-``c4x16:TCX=16``, tiles of 4 x 16 cells, ``c8x16:TCY=8,TCX=16``), or the name of
+``c4x16:TCX=16``, tiles of 4 x 16 cells, ``c8x16:TCY=8,TCX=16``; gather:
+``w2:WARPS=2``, blocks of 2 warps, ``k4:kpw,KPW=4``, 4 keypoints a warp
+after the ``kpw`` patch), or the name of
 a diagnostic patch of ``PATCHES`` (pair: ``noA``, A operands from
 registers, no ldmatrix; ``nomma``, no mma, one ALU operation per product
 instead; ``nostep``, no tap step at all; ``noprologue``, no CUDA-core
@@ -66,7 +78,12 @@ one control flow, and their differences split an iteration's time;
 ``lmcount``, the kernel's own LM iterations, printed beside the twin's
 (they part where rounding decides a converged step); ``frozen_prev`` and
 ``lmcount_prev`` the same for the engine before its one-barrier schedule,
-one thread solving the 6 x 6 system, with ``--source`` at its sources).
+one thread solving the 6 x 6 system, with ``--source`` at its sources;
+gather: ``kpw``, KPW (2) keypoints a warp, their cell ids in one load
+and their rows held in registers together; ``nostream``, plain stores
+instead of streaming ones; ``bulk``, each warp's row copied into shared
+memory by Hopper's bulk copy, ``cp.async.bulk`` global -> shared on an
+mbarrier, instead of loaded into registers).
 Patched variants compute wrong results: they only split the time. With
 no variant: pair ``tree p2:NPASS1=2 nostep:nostep nomma:nomma
 noprologue:noprologue``; conv3x3 ``tree w8:NWARPS3=8,NPASS3=2,MINB3=2``;
@@ -76,7 +93,9 @@ ring5:RING=5 r16:BM=16 r64:BM=64 w16:NWARPS=16``; nms ``tree c4x16:TCX=16
 c8x16:TCY=8,TCX=16``; track_frame ``tree count:lmcount frozen:frozen
 nopoints:frozen,nopoints nosolve:frozen,nosolve
 t512frozen:THREADS=512,PPT=2,frozen`` (with ``--source`` at that earlier
-engine's sources: ``prev prevcount:lmcount_prev prevfrozen:frozen_prev``).
+engine's sources: ``prev prevcount:lmcount_prev prevfrozen:frozen_prev``);
+gather ``tree w2:WARPS=2 w8:WARPS=8 k2:kpw k4:kpw,KPW=4 nostream:nostream
+bulk:bulk`` (with ``--source`` at the earlier kernel's sources: ``prev``).
 
 Each variant is compiled with the port's nvcc flags into its own library
 under ``build/kernel_variants/<kernel>/`` (one nvcc per variant, all at once)
@@ -86,9 +105,18 @@ convs, the blocks and bf16 attention, 1e-4 for f32 attention and the
 backward; nms: the pre-NMS map within 1e-6 of the plain softmax's and the
 NMS'd map against ``nms_plain`` of the kernel's own pre-NMS map, the map
 mode exact; track_frame: the row's poses within 1e-3 of the twin's,
-its counts exact). Then every variant is timed: 4 rounds, in
-alternating order, of 50 back-to-back launches between two CUDA events, for
-each case. Prints the card and its power limit, registers and spills from
+its counts exact; gather: 1e-5; patched variants are checked only where
+their patches keep the function, the gather's three). Then every variant is timed: 4
+rounds, in alternating order, of 50 back-to-back launches between two CUDA
+events, for each case; with ``--graph`` the 50 launches are captured in a
+CUDA graph and replayed, so the host's cost of a launch (~9 us through
+ctypes and Python, above a small kernel's time) leaves the figure; with
+``--device-time`` each call's device time (the sum of its kernels' own
+durations in torch.profiler over 20 calls) is printed after the turns, and
+with ``--cold`` too each call's device time after a 64 MB write (more than
+the H100's 50 MB L2) that evicts its inputs, as a caller finds them after
+other work.
+Prints the card and its power limit, registers and spills from
 nvcc's report, and one line per variant and case; conv3x3's cases are also
 timed, in the same turns, through cuDNN (``library``), attn_fwd's
 through scaled_dot_product_attention and nms's through the compositions
@@ -132,6 +160,8 @@ KERNELS = {
     "track_frame": ("track_frame.cu", (POSE,),
                     ["tree", "count:lmcount", "frozen:frozen", "nopoints:frozen,nopoints",
                      "nosolve:frozen,nosolve", "t512frozen:THREADS=512,PPT=2,frozen"]),
+    "gather": ("gather.cu", (), ["tree", "w2:WARPS=2", "w8:WARPS=8", "k2:kpw", "k4:kpw,KPW=4",
+                                 "nostream:nostream", "bulk:bulk"]),
 }
 SHAPES = {1: (2, 1, 384, 1248), 64: (2, 64, 192, 624)}
 ATTN_SHAPE = (16, 4, 256, 64)
@@ -193,6 +223,140 @@ PATCHES.update({
                      (POSE, _SOLVE_PREV, _SOLVE_PREV + "  if (threadIdx.x == 0) lm_count = 0;\n"),
                      (POSE, _LAM_PREV, _LAM_PREV + "      ++lm_count;\n"), *_COUNT_OUT],
 })
+# The gather's variants, each the kernel's function at D up to 256. kpw: KPW
+# keypoints a warp, lane j < KPW loading keypoint j's cell id, every row of
+# the warp's held in registers at once (no chunks past the registers').
+# nostream: plain stores. bulk: lane 0 copies the warp's row into shared
+# memory with cp.async.bulk on the warp's mbarrier; every lane waits on it,
+# then reads its chunks from shared memory.
+GATHER = "gather.cu"
+_GATHER_ONE = """  const int kp = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (kp >= N) return;
+"""
+_GATHER_KPW_HEAD = """  const int first = (blockIdx.x * WARPS + threadIdx.x / 32) * KPW;
+  if (first >= N) return;
+  const int nch = D / 4;  // chunks a row
+
+  // Lane j < KPW: keypoint first + j's row offset, clamped into the grid.
+  long long mine = 0;
+  if (lane < KPW && first + lane < N) {
+    const int kp = first + lane;
+    long long cell = __ldg(cells + kp);
+    cell = cell < 0 ? 0 : (cell >= G ? G - 1 : cell);
+    mine = ((long long)(kp / K) * G + cell) * D;
+  }
+
+  float4 v[KPW][NC];
+#pragma unroll
+  for (int j = 0; j < KPW; ++j) {
+    const T* row = grid + __shfl_sync(FULL, mine, j);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int ch = lane + 32 * c;
+      v[j][c] = (ch < nch && first + j < N) ? load4(row + 4 * ch) : make_float4(0, 0, 0, 0);
+    }
+  }
+  float sq[KPW];
+#pragma unroll
+  for (int j = 0; j < KPW; ++j) {
+    sq[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) sq[j] += sum_sq(v[j][c]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < KPW; ++j) sq[j] += __shfl_xor_sync(FULL, sq[j], o);
+#pragma unroll
+  for (int j = 0; j < KPW; ++j) {
+    if (first + j >= N) break;
+    const float inv = rsqrtf(sq[j] + 1e-12f);
+    float* dst = out + size_t(first + j) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int ch = lane + 32 * c;
+      if (ch < nch) store4(dst + 4 * ch, v[j][c], inv);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+    gather_one(const T* __restrict__ grid, const long long* __restrict__ cells,
+               float* __restrict__ out, int N, int G, int K, int D) {
+  const int lane = threadIdx.x % 32;
+  const int kp = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (kp >= N) return;
+"""
+_GATHER_LOAD = """  float4 v[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int ch = lane + 32 * c;
+    v[c] = ch < nch ? load4(row + 4 * ch) : make_float4(0, 0, 0, 0);
+  }
+"""
+_GATHER_BULK = """  float4 v[NC];
+  {
+    __shared__ alignas(128) T stage[WARPS][NC * 128];
+    __shared__ alignas(8) unsigned long long bar[WARPS];
+    const int w = threadIdx.x / 32;
+    const int held = nch < 32 * NC ? nch : 32 * NC;  // chunks copied
+    const unsigned b = unsigned(__cvta_generic_to_shared(&bar[w]));
+    if (lane == 0) {
+      const unsigned bytes = unsigned(held * 4 * sizeof(T));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b));
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(b), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];"
+          ::"r"(unsigned(__cvta_generic_to_shared(&stage[w][0]))), "l"(row), "r"(bytes), "r"(b)
+          : "memory");
+    }
+    __syncwarp();
+    unsigned done = 0;
+    while (!done)
+      asm volatile("{\\n .reg .pred p;\\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+                   " selp.u32 %0, 1, 0, p;\\n}" : "=r"(done) : "r"(b), "r"(0u) : "memory");
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int ch = lane + 32 * c;
+      v[c] = ch < held ? load4_shared(&stage[w][4 * ch]) : make_float4(0, 0, 0, 0);
+    }
+  }
+"""
+_GATHER_SHARED = "__device__ __forceinline__ float sum_sq("
+_GATHER_SHARED_LOAD = """__device__ __forceinline__ float4 load4_shared(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_shared(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float sum_sq("""
+_STCS = "  __stcs(reinterpret_cast<float4*>(p), make_float4("
+PATCHES.update({
+    # The kernel's head becomes the KPW kernel's whole body; the rest of the
+    # one-keypoint body is left to an unused kernel, gather_one.
+    "kpw": [(GATHER, "constexpr unsigned FULL", "constexpr int KPW = 2;\nconstexpr unsigned FULL"),
+            (GATHER, _GATHER_ONE, _GATHER_KPW_HEAD),
+            (GATHER, "  const int blocks = (N + WARPS - 1) / WARPS;",
+             "  const int blocks = (N + WARPS * KPW - 1) / (WARPS * KPW);")],
+    "nostream": (GATHER, _STCS, "  *reinterpret_cast<float4*>(p) = (make_float4("),
+    "bulk": [(GATHER, _GATHER_SHARED, _GATHER_SHARED_LOAD), (GATHER, _GATHER_LOAD, _GATHER_BULK)],
+})
+EXACT_PATCHES = {"kpw", "nostream", "bulk"}  # patches that keep the function: checked
+# (label, B, G, K, grid dtype): serving, batch 4 and the S = 4 step, RGB-D, and
+# the training evaluation (120 x 160, 256 keypoints).
+GATHER_SHAPES = (("serving", 2, 48 * 156, 600, "bfloat16"),
+                 ("batch 4", 8, 48 * 156, 600, "bfloat16"),
+                 ("RGB-D", 1, 60 * 80, 1000, "bfloat16"),
+                 ("training evaluation", 1, 15 * 20, 256, "float32"))
+
 TRACK_CALIB = (320.0, 320.0, 320.0, 176.0, 0.3)  # tests/test_torch_pose_solve_model.py's
 TRACK_SOLVE = dict(min_matches=10, inv_sig_uLv=0.1, disp_sigma0=1.0, disp_cond=320.0 * 0.3 / 40.0,
                    gate_px=10.0, chi2_px=2.0, chi2_rounds=2, track_iters=20)
@@ -202,9 +366,14 @@ TRACK_K, TRACK_MONO_K, TRACK_D, TRACK_Q = 600, 1000, 256, (1, 4, 16)
 
 
 def parse(args: list[str]) -> dict[str, tuple[dict[str, str], list[str]]]:
+    """NAME[@DIR][:EDIT,...] -> {NAME: (constants, patches)}; the sources'
+    directories, where given, in ``SOURCES``."""
     variants = {}
     for arg in args:
         name, _, edits = arg.partition(":")
+        name, _, src = name.partition("@")
+        if src:
+            SOURCES[name] = src
         consts, patches = {}, []
         for edit in filter(None, edits.split(",")):
             if "=" in edit:
@@ -216,6 +385,9 @@ def parse(args: list[str]) -> dict[str, tuple[dict[str, str], list[str]]]:
                 raise SystemExit(f"kernel_variants: unknown edit {edit!r} of {arg!r}")
         variants[name] = (consts, patches)
     return variants
+
+
+SOURCES: dict[str, str] = {}  # a variant's own sources' directory (NAME@DIR)
 
 
 def write_variant(kernel: str, name: str, consts: dict[str, str], patches: list[str],
@@ -460,6 +632,35 @@ def nms_cases(torch, dev, rng):
     ]
 
 
+def gather_cases(torch, dev, rng):
+    """Each GATHER_SHAPES grid (unit rows) with random int64 cells, both
+    corners among them."""
+    import torch.nn.functional as F
+
+    from superslam_tpu_torch.ops.cuda.gather import gather_normalize_plain
+
+    cases = []
+    for label, b, g, k, dtype in GATHER_SHAPES:
+        grid = torch.from_numpy(rng.standard_normal((b, g, 256)).astype(np.float32)).to(dev)
+        grid = F.normalize(grid, dim=-1).to(getattr(torch, dtype))
+        cells = torch.from_numpy(rng.integers(0, g, size=(b, k))).to(dev)
+        cells[:, :2] = torch.tensor([0, g - 1], device=dev)
+        flat_grid = grid.reshape(-1, 256)
+        flat_cells = (cells + torch.arange(b, device=dev)[:, None] * g).reshape(-1)
+        out = torch.empty((b, k, 256), dtype=torch.float32, device=dev)
+
+        def launch(lib, stream, grid=grid, cells=cells, out=out, b=b, g=g, k=k):
+            return lib.ssl_gather_normalize(grid.data_ptr(), cells.data_ptr(), out.data_ptr(),
+                                            b, g, k, 256, int(grid.dtype == torch.bfloat16),
+                                            stream)
+
+        cases.append((f"{label} ({b}, {g}, 256) {dtype}, {k} cells", launch, [out],
+                      [gather_normalize_plain(grid, cells)], 1e-5,
+                      lambda fg=flat_grid, fc=flat_cells: F.normalize(
+                          fg.index_select(0, fc).float(), dim=-1)))
+    return cases
+
+
 def _track_arrays(rng, k, usable, noise_px=0.3, since=0):
     """tests/test_torch_track_frame_model.py's ``_case``: a keyframe at the
     origin, the camera at (0.1, 0, 0.2) with noisy stereo projections of
@@ -609,6 +810,12 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--source", default=SRC,
                     help="the kernel sources' directory (default: this checkout's); another "
                          "commit's, unpacked, times its kernel in the same call")
+    ap.add_argument("--graph", action="store_true",
+                    help="time 50 launches captured in a CUDA graph, not issued from the host")
+    ap.add_argument("--device-time", action="store_true",
+                    help="also print each call's device time from torch.profiler")
+    ap.add_argument("--cold", action="store_true",
+                    help="with --device-time, also after a 64 MB write that evicts L2")
     ap.add_argument("variants", nargs="*")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -626,11 +833,12 @@ def main(argv: list[str]) -> int:
                "attn_fwd": ("ssl_masked_attention",),
                "block": ("ssl_fused_self_block", "ssl_fused_cross_block"),
                "nms": ("ssl_scores_nms", "ssl_nms"), "nms_map": ("ssl_nms",),
-               "track_frame": ("ssl_track_frame", "ssl_track_frame_batched")}[kernel]
+               "track_frame": ("ssl_track_frame", "ssl_track_frame_batched"),
+               "gather": ("ssl_gather_normalize",)}[kernel]
 
     jobs = {}
     for name, (consts, patches) in variants.items():
-        src = write_variant(kernel, name, consts, patches, args.source)
+        src = write_variant(kernel, name, consts, patches, SOURCES.get(name, args.source))
         lib = os.path.join(os.path.dirname(src), "lib.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, src]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -659,16 +867,16 @@ def main(argv: list[str]) -> int:
              "attn_fwd": attn_fwd_cases, "block": block_cases,
              "nms": nms_cases,
              "nms_map": lambda *a: nms_cases(*a)[1:],
-             "track_frame": track_frame_cases}[kernel](torch, dev, rng)
+             "track_frame": track_frame_cases, "gather": gather_cases}[kernel](torch, dev, rng)
 
     def call(lib, launch):
-        err = launch(lib, stream)
+        err = launch(lib, torch.cuda.current_stream().cuda_stream if args.graph else stream)
         if err:
             raise RuntimeError(f"launch failed with cudaError {err}")
 
     bad = False
     for name, lib in libs.items():
-        if variants[name][1]:
+        if not set(variants[name][1]) <= EXACT_PATCHES:
             continue
         for label, launch, outs, refs, limits, *_ in cases:
             call(lib, launch)
@@ -694,7 +902,53 @@ def main(argv: list[str]) -> int:
                 torch.cuda.synchronize()
                 print(f"{name} {c[0]}: the kernel's LM iterations {c[7]()}, the twin's {c[6][0]}")
 
+    def graph_ms(fn, n):
+        """n calls captured in one CUDA graph (after warm-up calls on the
+        capturing stream), one replay between two events."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev) if args.cold else None
+
+    def device_ms(fn, n=20, cold=False):
+        """Sum of the kernels' own device durations over n calls, a call;
+        and the kernels a call. cold: each call after the L2-evicting write
+        (its int8 fill left out of the sums)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if cold:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if "CPU" not in str(getattr(e, "device_type", "CPU"))
+                and (getattr(e, "self_device_time_total", 0) or 0) > 0
+                and not (cold and "FillFunctor<signed char>" in e.key)]
+        return (sum(e.self_device_time_total for e in rows) / 1e3 / n,
+                sum(e.count for e in rows) / n)
+
     def per_call_ms(fn, n=50):
+        if args.graph:
+            return graph_ms(fn, n)
         for _ in range(5):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -710,6 +964,9 @@ def main(argv: list[str]) -> int:
     fns = {name: [lambda c=c, lib=lib: call(lib, c[1]) for c in cases] for name, lib in libs.items()}
     if any(c[5] for c in cases):
         fns["library"] = [c[5] for c in cases]
+    if kernel == "gather":  # the launch floor: a one-element fill
+        one = torch.empty(1, device=dev)
+        fns["fill"] = [lambda: one.fill_(1.0)] + [None] * (len(cases) - 1)
     times = {(name, i): [] for name, row in fns.items() for i, fn in enumerate(row) if fn}
     order = list(fns)
     for rnd in range(4):
@@ -723,8 +980,21 @@ def main(argv: list[str]) -> int:
             frozen = any(p.startswith("frozen") for p in variants.get(name, ({}, []))[1])
             n = cases[i][6][1 if frozen else 0]
             per_iter = f", {statistics.median(ts) / n * 1e3:.3f} us an LM iteration over {n}"
-        print(f"time {kernel} {name} {cases[i][0]}: median {statistics.median(ts):.4f} ms a call "
-              f"over 4 x 50 launches ({', '.join(f'{t:.4f}' for t in ts)}){per_iter}")
+        label = "one-element fill_ (the launch floor)" if name == "fill" else cases[i][0]
+        how = "in a CUDA graph" if args.graph else "back to back"
+        print(f"time {kernel} {name} {label}: median {statistics.median(ts):.4f} ms a call "
+              f"over 4 x 50 launches {how} ({', '.join(f'{t:.4f}' for t in ts)}){per_iter}")
+    if args.device_time:
+        for name in order:
+            for i, fn in enumerate(fns[name]):
+                if fn:
+                    ms, kernels = device_ms(fn)
+                    label = "one-element fill_ (the launch floor)" if name == "fill" else cases[i][0]
+                    cold = ""
+                    if args.cold:
+                        cold = f"; after a 64 MB write {device_ms(fn, cold=True)[0]:.4f} ms"
+                    print(f"device {kernel} {name} {label}: {ms:.4f} ms a call ({kernels:g} "
+                          f"kernels a call, torch.profiler over 20 calls){cold}")
     return 0
 
 

@@ -39,12 +39,14 @@ class SuperPointExtractor:
         remove_borders: int = 4,
         nms_radius: int = 4,
         device="cuda",
-        use_kernel: bool = False,
+        use_kernel: bool = True,
     ):
-        """``use_kernel=True`` routes the descriptor gather through the
-        hand-written gather_normalize kernel (models/superpoint.py::
-        select_keypoints); the default is torch.gather, as the JAX
-        package's default is its XLA gather."""
+        """The descriptor gather is the hand-written gather_normalize kernel
+        (models/superpoint.py::select_keypoints) by default, where the JAX
+        package's default is XLA's gather with the bf16 -> f32 conversion
+        fused into it, which eager PyTorch cannot fuse; ``use_kernel=False``
+        (the JAX package's ``use_pallas=False``) takes the plain
+        torch.gather composition."""
         self.device = resolve_device(device)
         self.params = prepare_superpoint_params(params, self.device)
         self.width = int(width)

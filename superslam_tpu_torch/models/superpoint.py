@@ -19,9 +19,14 @@ Routing, as on the TPU's default route:
   head's channels_last logits once, keeps the probabilities in its tile and
   writes the NMS'd and the pre-NMS map once each, where the JAX package
   lets XLA fuse the softmax and the depth-to-space ahead of its Pallas NMS;
-- the descriptor gather of ``select_keypoints`` is ``torch.gather`` by
-  default and the hand-written kernel (``ops/cuda/gather.py``) with
-  ``use_kernel=True``, as the JAX package's ``use_pallas``.
+- the descriptor gather of ``select_keypoints`` is the hand-written
+  kernel (``ops/cuda/gather.py``, its plain version on CPU) by default,
+  where the JAX package's default is XLA's gather with the bf16 -> f32
+  conversion fused into it: eager PyTorch has no counterpart of that
+  fusion (its composition gathers, widens and normalizes in seven
+  launches). ``use_kernel=False``, the
+  counterpart of the JAX package's ``use_pallas=False``, takes the plain
+  composition for a caller that asks for it.
 
 Parameters are a flat dict of torch-layout tensors (OIHW convs) keyed by
 the torch state-dict names (plus the derived ``<pair>.__kernel`` entries of
@@ -181,7 +186,7 @@ def select_keypoints(
     true_width: int | None = None,
     true_height: int | None = None,
     raw_scores: torch.Tensor | None = None,
-    use_kernel: bool = False,
+    use_kernel: bool = True,
 ):
     """On-device top-K keypoint selection + nearest-cell descriptor gather.
 
@@ -200,8 +205,8 @@ def select_keypoints(
         parabolic fits over the raw 3x3 neighbourhood (offsets clamped to
         +-0.5 px).
       use_kernel: gather and renormalize the descriptor rows with the
-        hand-written kernel (one launch for the whole batch) instead of
-        torch.gather + rsqrt.
+        hand-written kernel (one launch for the whole batch; the default);
+        False takes torch.gather + rsqrt.
     Returns:
       kpts (B, K, 2) f32 (x, y) pixels; kp_scores (B, K) f32;
       valid (B, K) bool; desc (B, K, D) gathered rows (renormalized f32).
@@ -274,13 +279,13 @@ def superpoint_extract(
     true_width: int | None = None,
     true_height: int | None = None,
     subpixel: bool = False,
-    use_kernel: bool = False,
+    use_kernel: bool = True,
 ):
     """Full extraction: dense heads + on-device selection.
 
     image: (B, H, W) f32 in [0, 1]; the stereo path is B=2. subpixel=True
-    adds the 3x3 parabolic refinement, use_kernel=True the hand-written
-    descriptor gather (select_keypoints)."""
+    adds the 3x3 parabolic refinement; use_kernel=False takes the plain
+    descriptor gather instead of the hand-written kernel (select_keypoints)."""
     with torch.no_grad():
         out = superpoint_dense(params, image, nms_radius=nms_radius, return_pre_nms=subpixel)
         return select_keypoints(

@@ -18,10 +18,11 @@ from . import _build
 
 
 def gather_normalize_plain(grid: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
-    """torch.gather + rsqrt; grid (B, G, D), cells (B, K) integer."""
-    g = grid.float()
-    idx = cells.to(torch.int64)[..., None].expand(-1, -1, g.shape[-1])
-    desc = torch.gather(g, 1, idx)
+    """torch.gather + rsqrt; grid (B, G, D), cells (B, K) integer. The rows
+    are gathered in the grid's dtype and then widened to f32 (exact from
+    bf16), so no f32 copy of the whole grid is made."""
+    idx = cells.to(torch.int64)[..., None].expand(-1, -1, grid.shape[-1])
+    desc = torch.gather(grid, 1, idx).float()
     return desc * torch.rsqrt(torch.sum(torch.square(desc), dim=-1, keepdim=True) + 1e-12)
 
 

@@ -491,18 +491,57 @@ def test_masked_attention_forward_lengths(cuda, dtype, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [600, 77])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("k", [600, 1000, 77])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gather_normalize_kernel(cuda, dtype, k):
-    rng = np.random.default_rng(k)
-    grid = torch.from_numpy(rng.standard_normal((2, 48 * 156, 256)).astype(np.float32))
+def test_gather_normalize_kernel(cuda, dtype, k, b):
+    """B 1, 2 and 8 (RGB-D, serving, batch 4), K 600, 1000 and 77 (not a
+    multiple of a block's keypoints), the corner cells 0 and G - 1, int64
+    and int32 cells: atol 1e-5 against the plain version."""
+    rng = np.random.default_rng(k + b)
+    grid = torch.from_numpy(rng.standard_normal((b, 48 * 156, 256)).astype(np.float32))
     grid = grid.to(cuda, dtype)
-    cells = torch.from_numpy(rng.integers(0, 48 * 156, size=(2, k))).to(cuda)
+    cells = torch.from_numpy(rng.integers(0, 48 * 156, size=(b, k))).to(cuda)
     cells[:, :2] = torch.tensor([0, 48 * 156 - 1], device=cuda)
     for c in (cells, cells.to(torch.int32)):
         got = gather_normalize(grid, c)
-        assert got.shape == (2, k, 256) and got.dtype == torch.float32
+        assert got.shape == (b, k, 256) and got.dtype == torch.float32
         assert (got - gather_normalize_plain(grid, c)).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells_dtype", [torch.int64, torch.int32])
+def test_gather_normalize_kernel_clamps_out_of_range_cells(cuda, cells_dtype):
+    """Cell ids below 0 and at or past G read row 0 and row G - 1 (the
+    plain version raises on them); D 8, 128, 512 and 1000 beside 256 (above
+    256 a lane's chunks past its registers go through the strided loop)."""
+    rng = np.random.default_rng(4)
+    for d in (8, 128, 256, 512, 1000):
+        grid = torch.from_numpy(rng.standard_normal((2, 100, d)).astype(np.float32)).to(cuda)
+        cells = torch.tensor([[-5, -1, 0, 99, 100, 1 << 20], [7, -1 << 20, 101, 50, 99, 0]],
+                             device=cuda, dtype=cells_dtype)
+        got = gather_normalize(grid.to(torch.bfloat16), cells)
+        ref = gather_normalize_plain(grid.to(torch.bfloat16), cells.clamp(0, 99))
+        assert (got - ref).abs().max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_gather_normalize_kernel_is_the_main_path_default(cuda):
+    """select_keypoints on CUDA tensors launches the kernel once, and
+    use_kernel=False launches nothing of it; the rows agree within 1e-5."""
+    from superslam_tpu_torch.models.superpoint import select_keypoints
+
+    rng = np.random.default_rng(6)
+    scores = torch.from_numpy(rng.uniform(0, 1, (2, 64, 96)).astype(np.float32)).to(cuda)
+    desc = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((2, 8, 12, 256)).astype(np.float32)), dim=-1)
+    desc = desc.to(cuda, torch.bfloat16)
+    _build.reset_launch_counts()
+    got = select_keypoints(scores, desc, 48)[3]
+    assert _build.launch_counts()["gather_normalize"] == 1
+    ref = select_keypoints(scores, desc, 48, use_kernel=False)[3]
+    assert _build.launch_counts()["gather_normalize"] == 1
+    assert (got - ref).abs().max() <= 1e-5
 
 
 @pytest.mark.gpu
