@@ -1215,6 +1215,20 @@ def build_slam(width: int = WIDTH, height: int = HEIGHT, max_kp: int = MAX_KP,
         return SuperSLAM(cfg, use_viewer=use_viewer)
 
 
+@contextlib.contextmanager
+def estimator_scopes(pinned_env, env: dict):
+    """``pinned_env(env)`` with ``SUPERSLAM_PROFILE=1`` and the profiler's
+    switch on (the variable is read once, at import)."""
+    from superslam_tpu_torch.utils.profiler import set_enabled
+
+    with pinned_env({**env, "SUPERSLAM_PROFILE": "1"}):
+        set_enabled(True)
+        try:
+            yield
+        finally:
+            set_enabled(False)
+
+
 def estimator_ms() -> tuple[float, int]:
     """Mean ms and count of the host estimator's ``vo_track_total`` scope
     (utils/profiler.py, on under SUPERSLAM_PROFILE=1) since the last call;
@@ -4044,6 +4058,7 @@ def main() -> int:
     from scripts.accuracy_suite_torch import leg_environment as pinned_env
     from superslam_tpu_torch.models.weights import load_safetensors
     from superslam_tpu_torch.ops.cuda import _build
+    from superslam_tpu_torch.utils.profiler import set_enabled as set_profiling
 
     t0 = time.perf_counter()
     _build.library()
@@ -4065,6 +4080,7 @@ def main() -> int:
                  "SUPERSLAM_PIPELINE_BATCH", "SUPERSLAM_DEVICE_TRACKER", "SUPERSLAM_DEVICE_KF"):
         os.environ.pop(knob, None)  # the facade's defaults
     os.environ["SUPERSLAM_PROFILE"] = "1"  # the host estimator's scopes
+    set_profiling(True)  # the switch the variable sets at import
     with pinned_env(DEPTH0_ENV):
         slam, poses, step_ms, loop_s, counts, n_kf, est_ms = run_facade(
             torch, frames, WIDTH, HEIGHT, MAX_KP
@@ -4076,6 +4092,7 @@ def main() -> int:
     gather_dispatch_ms = compare_gather_routes(torch, frames, gt)
     check_precision_modes()
     del os.environ["SUPERSLAM_PROFILE"]
+    set_profiling(False)
     kernels["track_frame"] = check_track_frame(torch, captured)
     kernels["pose_solve"] = check_pose_solve(torch, [solve_call(c) for c in captured])
     time_design_costs(torch, slam_d, captured)
@@ -4088,10 +4105,10 @@ def main() -> int:
     rgbd_frames, rgbd_gt = render_rgbd_sequence(RGBD_FRAMES + RGBD_PROFILE_FRAMES)
     check_rgbd_kernels(torch, sp, lg, rgbd_frames[0][0])
     frames_r, gt_r = rgbd_frames[:RGBD_FRAMES], rgbd_gt[:RGBD_FRAMES]
-    with pinned_env({**DEPTH0_ENV, "SUPERSLAM_PROFILE": "1"}):
+    with estimator_scopes(pinned_env, DEPTH0_ENV):
         slam_r0, _ = run_rgbd_facade(torch, frames_r, gt_r, "depth 0, host-solved")
     slam_r0.shutdown()
-    with pinned_env({"SUPERSLAM_PROFILE": "1"}):
+    with estimator_scopes(pinned_env, {}):
         slam_r, captured_r = run_rgbd_facade(torch, frames_r, gt_r, "default")
     if not (slam_r._tracker and slam_r._tracker.depth == 3 and slam_r._tracker.device_tracking):
         fail(f"rgbd facade (default): {facade_mode(slam_r)}, want depth 3, device-tracked")
@@ -4119,7 +4136,7 @@ def main() -> int:
     slam.shutdown()
 
     n_u = N_FRAMES_UNFUSED
-    with pinned_env({**DEPTH0_ENV, "SUPERSLAM_PALLAS_LG": "0", "SUPERSLAM_PROFILE": "1"}):
+    with estimator_scopes(pinned_env, {**DEPTH0_ENV, "SUPERSLAM_PALLAS_LG": "0"}):
         slam_u, poses_u, step_ms_u, loop_s_u, counts_u, n_kf_u, est_ms_u = run_facade(
             torch, frames[:n_u], WIDTH, HEIGHT, MAX_KP
         )

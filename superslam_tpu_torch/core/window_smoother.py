@@ -141,45 +141,38 @@ class WindowSmoother:
 
         # Group landmark tracks (>=2 views) by track length for batching
         # (profiled as ws_rebuild, matching the reference's scope names).
-        from ..utils.profiler import Profiler
-        import time as _time
-
-        _t0 = _time.perf_counter()
-        # Vectorized rebuild over the per-keyframe columnar copies,
-        # ordering-identical to the per-obs Python loop it replaces (~12 ms
-        # of attribute walks + per-track np.stack on the drain path):
-        # tracks appear in first-observation order, each track's views stay
-        # in window order (stable argsort), and the groups dict is keyed in
-        # first-seen track-length order.
-        ids = np.concatenate([self._obs_arr[kf][0] for kf in kf_ids])
-        meas_all = np.concatenate([self._obs_arr[kf][1] for kf in kf_ids])
-        view_all = np.concatenate(
-            [
-                np.full(self._obs_arr[kf][0].shape[0], idx_of[kf], np.int64)
-                for kf in kf_ids
-            ]
-        )
-        groups: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-        if ids.size:
-            _u, first, inv, counts = np.unique(
-                ids, return_index=True, return_inverse=True, return_counts=True
+        with profile_scope("ws_rebuild"):
+            # Vectorized rebuild over the per-keyframe columnar copies,
+            # ordering-identical to the per-obs Python loop it replaces (~12 ms
+            # of attribute walks + per-track np.stack on the drain path):
+            # tracks appear in first-observation order, each track's views stay
+            # in window order (stable argsort), and the groups dict is keyed in
+            # first-seen track-length order.
+            ids = np.concatenate([self._obs_arr[kf][0] for kf in kf_ids])
+            meas_all = np.concatenate([self._obs_arr[kf][1] for kf in kf_ids])
+            view_all = np.concatenate(
+                [
+                    np.full(self._obs_arr[kf][0].shape[0], idx_of[kf], np.int64)
+                    for kf in kf_ids
+                ]
             )
-            perm = np.argsort(inv, kind="stable")
-            starts = np.concatenate(([0], np.cumsum(counts[:-1])))
-            views_s = view_all[perm]
-            meas_s = meas_all[perm]
-            fs_order = np.argsort(first, kind="stable")
-            for m in dict.fromkeys(counts[fs_order].tolist()):
-                if m < 2:
-                    continue
-                sel = counts == m
-                row_start = starts[sel][np.argsort(first[sel], kind="stable")]
-                gi = row_start[:, None] + np.arange(m)[None, :]
-                groups[int(m)] = (views_s[gi], meas_s[gi])
-        if Profiler.enabled():
-            Profiler.instance().add(
-                "ws_rebuild", (_time.perf_counter() - _t0) * 1e3
-            )
+            groups: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+            if ids.size:
+                _u, first, inv, counts = np.unique(
+                    ids, return_index=True, return_inverse=True, return_counts=True
+                )
+                perm = np.argsort(inv, kind="stable")
+                starts = np.concatenate(([0], np.cumsum(counts[:-1])))
+                views_s = view_all[perm]
+                meas_s = meas_all[perm]
+                fs_order = np.argsort(first, kind="stable")
+                for m in dict.fromkeys(counts[fs_order].tolist()):
+                    if m < 2:
+                        continue
+                    sel = counts == m
+                    row_start = starts[sel][np.argsort(first[sel], kind="stable")]
+                    gi = row_start[:, None] + np.arange(m)[None, :]
+                    groups[int(m)] = (views_s[gi], meas_s[gi])
         if not groups:
             return
 

@@ -83,19 +83,26 @@ class UploadRing:
 
     def upload(self, prepare) -> torch.Tensor:
         """``prepare(out=None)`` writes the uint8 frame into ``out`` (a host
-        array of ``shape``) or returns a new one."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(prepare())
-        while len(self._slots) < self.slots:
-            host = torch.empty(self.shape, dtype=torch.uint8, pin_memory=True)
-            self._slots.append((host, torch.cuda.Event()))
-        host, copied = self._slots[self._next]
-        self._next = (self._next + 1) % len(self._slots)
-        copied.synchronize()
-        prepare(out=host.numpy())
-        dev = host.to(self.device, non_blocking=True)
-        copied.record()
-        return dev
+        array of ``shape``) or returns a new one. Spans: ``upload``, and in it
+        ``upload.wait`` (for the slot's last copy), ``upload.prepare`` and
+        ``upload.copy`` (the copy's issue)."""
+        with profile_scope("upload"):
+            if self.device.type != "cuda":
+                with profile_scope("upload.prepare"):
+                    return torch.from_numpy(prepare())
+            while len(self._slots) < self.slots:
+                host = torch.empty(self.shape, dtype=torch.uint8, pin_memory=True)
+                self._slots.append((host, torch.cuda.Event()))
+            host, copied = self._slots[self._next]
+            self._next = (self._next + 1) % len(self._slots)
+            with profile_scope("upload.wait"):
+                copied.synchronize()
+            with profile_scope("upload.prepare"):
+                prepare(out=host.numpy())
+            with profile_scope("upload.copy"):
+                dev = host.to(self.device, non_blocking=True)
+                copied.record()
+            return dev
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -74,16 +74,19 @@ class _AsyncHost:
         if t.device.type == "cpu":
             self._host = t
             return
-        key = (tuple(t.shape), t.dtype)
-        free = pool.setdefault(key, [])
-        self._host = free.pop() if free else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self._host.copy_(t, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record()
+        with profile_scope("readback.issue"):
+            key = (tuple(t.shape), t.dtype)
+            free = pool.setdefault(key, [])
+            self._host = free.pop() if free else torch.empty(t.shape, dtype=t.dtype,
+                                                             pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
 
     def result(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with profile_scope("readback.wait"):
+                self._event.synchronize()
         return self._host.numpy()
 
     def release(self) -> None:

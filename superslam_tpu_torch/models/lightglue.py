@@ -52,6 +52,7 @@ from ..ops.cuda.lightglue_layer import (
     prep_cross_weights,
     prep_self_weights,
 )
+from ..utils.profiler import profile_scope
 
 Params = dict[str, torch.Tensor]
 
@@ -367,10 +368,13 @@ def _pair_rows(kpts0, desc0, kpts1, desc1, mask0, mask1):
 
 def _final_assignment(x, mask0, mask1, params):
     """The last layer's log-assignment of the interleaved rows x (early
-    exit disabled: only the final layer's assignment head is used)."""
-    x0 = x[0::2, : mask0.shape[1]]
-    x1 = x[1::2, : mask1.shape[1]]
-    return _log_assignment(x0, x1, mask0, mask1, params, f"log_assignment.{NUM_LAYERS - 1}")
+    exit disabled: only the final layer's assignment head is used; span
+    ``match.assign``)."""
+    with profile_scope("match.assign"):
+        x0 = x[0::2, : mask0.shape[1]]
+        x1 = x[1::2, : mask1.shape[1]]
+        return _log_assignment(x0, x1, mask0, mask1, params,
+                               f"log_assignment.{NUM_LAYERS - 1}")
 
 
 def extract_matches(

@@ -44,6 +44,7 @@ import torch
 from ..models.lightglue import extract_matches, lightglue_forward
 from ..models.superpoint import select_keypoints, superpoint_dense
 from ..utils.env import env_flag, env_float, env_int
+from ..utils.profiler import profile_scope
 from .cuda.track_frame import TRACK_COLS, TRACK_KF_COLS, track_frame
 from .precision import highest_f32_matmuls
 
@@ -62,22 +63,24 @@ def _superpoint_stereo_features(
     true_height: int,
 ):
     """SuperPoint over the interleaved L/R batch + top-K selection + L/R
-    split + LightGlue-frame normalization. Returns (kl, kr, dl, dr, vl, vr,
-    nkl, nkr)."""
-    images = images_u8.float() / 255.0
-    # Sub-pixel peaks (env-gated, default on): disparity noise converts to
-    # depth noise as Z^2/(fx*b) per px.
-    subpixel = env_flag("SUPERSLAM_SP_SUBPIXEL", True)
-    out = superpoint_dense(sp_params, images, nms_radius=nms_radius, return_pre_nms=subpixel)
-    kpts, _scores, valid, desc = select_keypoints(
-        out[0], out[1], max_keypoints, keypoint_threshold, remove_borders,
-        true_width, true_height, raw_scores=out[2] if subpixel else None,
-    )
-    kl, kr = kpts[0::2], kpts[1::2]  # (S, K, 2)
-    dl, dr = desc[0::2], desc[1::2]
-    vl, vr = valid[0::2], valid[1::2]
-    center, scale = _norm_frame(true_width, true_height, kpts.device)
-    return kl, kr, dl, dr, vl, vr, (kl - center) / scale, (kr - center) / scale
+    split + LightGlue-frame normalization (spans ``detect``, ``select``).
+    Returns (kl, kr, dl, dr, vl, vr, nkl, nkr)."""
+    with profile_scope("detect"):
+        images = images_u8.float() / 255.0
+        # Sub-pixel peaks (env-gated, default on): disparity noise converts to
+        # depth noise as Z^2/(fx*b) per px.
+        subpixel = env_flag("SUPERSLAM_SP_SUBPIXEL", True)
+        out = superpoint_dense(sp_params, images, nms_radius=nms_radius, return_pre_nms=subpixel)
+    with profile_scope("select"):
+        kpts, _scores, valid, desc = select_keypoints(
+            out[0], out[1], max_keypoints, keypoint_threshold, remove_borders,
+            true_width, true_height, raw_scores=out[2] if subpixel else None,
+        )
+        kl, kr = kpts[0::2], kpts[1::2]  # (S, K, 2)
+        dl, dr = desc[0::2], desc[1::2]
+        vl, vr = valid[0::2], valid[1::2]
+        center, scale = _norm_frame(true_width, true_height, kpts.device)
+        return kl, kr, dl, dr, vl, vr, (kl - center) / scale, (kr - center) / scale
 
 
 def _norm_frame(true_width: int, true_height: int, device):
@@ -136,48 +139,52 @@ def _frontend_core(
         sp_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
         nms_radius, true_width, true_height,
     )
-    center, scale = _norm_frame(true_width, true_height, kl.device)
-    nkf = kf_kpts if kf_prenormalized else (kf_kpts - center) / scale
+    with profile_scope("match"):
+        center, scale = _norm_frame(true_width, true_height, kl.device)
+        nkf = kf_kpts if kf_prenormalized else (kf_kpts - center) / scale
 
-    # 2S pair problems in one LightGlue forward: S stereo matches (L_s, R_s)
-    # and S track matches (KF, L_s). kf_* may be shared (K, ...) or
-    # per-sequence (S, K, ...).
-    if kf_kpts.dim() == 2:
-        kf_k = nkf[None].expand(S, -1, -1)
-        kf_d = kf_desc[None].to(dl.dtype).expand(S, -1, -1)
-        kf_v = kf_valid[None].expand(S, -1)
-    else:
-        kf_k, kf_d, kf_v = nkf, kf_desc.to(dl.dtype), kf_valid
-    q_kpts = torch.cat([nkl, kf_k], dim=0)
-    q_desc = torch.cat([dl, kf_d], dim=0)
-    q_valid = torch.cat([vl, kf_v], dim=0)
-    t_kpts = torch.cat([nkr, nkl], dim=0)
-    t_desc = torch.cat([dr, dl], dim=0)
-    t_valid = torch.cat([vr, vl], dim=0)
-    la = lightglue_forward(lg_params, q_kpts, q_desc, t_kpts, t_desc, q_valid, t_valid)
-    matches, _mscores = extract_matches(la, q_valid, t_valid, match_threshold)
-    stereo_m = matches[:S]  # (S, K)
-    track_m = matches[S:]  # match confidence is not consumed downstream
+        # 2S pair problems in one LightGlue forward: S stereo matches (L_s, R_s)
+        # and S track matches (KF, L_s). kf_* may be shared (K, ...) or
+        # per-sequence (S, K, ...).
+        if kf_kpts.dim() == 2:
+            kf_k = nkf[None].expand(S, -1, -1)
+            kf_d = kf_desc[None].to(dl.dtype).expand(S, -1, -1)
+            kf_v = kf_valid[None].expand(S, -1)
+        else:
+            kf_k, kf_d, kf_v = nkf, kf_desc.to(dl.dtype), kf_valid
+        q_kpts = torch.cat([nkl, kf_k], dim=0)
+        q_desc = torch.cat([dl, kf_d], dim=0)
+        q_valid = torch.cat([vl, kf_v], dim=0)
+        t_kpts = torch.cat([nkr, nkl], dim=0)
+        t_desc = torch.cat([dr, dl], dim=0)
+        t_valid = torch.cat([vr, vl], dim=0)
+        la = lightglue_forward(lg_params, q_kpts, q_desc, t_kpts, t_desc, q_valid, t_valid)
+    with profile_scope("extract"):
+        matches, _mscores = extract_matches(la, q_valid, t_valid, match_threshold)
+        stereo_m = matches[:S]  # (S, K)
+        track_m = matches[S:]  # match confidence is not consumed downstream
 
-    disparity, stereo_ok = _stereo_gates(kl, kr, vl, stereo_m, min_disparity)
+    with profile_scope("pack"):
+        disparity, stereo_ok = _stereo_gates(kl, kr, vl, stereo_m, min_disparity)
     return kl, nkl, dl, vl, disparity, stereo_ok, track_m
 
 
 def _pack(kl, vl, disparity, stereo_ok, track_m):
     S, K = kl.shape[0], kl.shape[1]
-    neg = torch.full_like(disparity, -1.0)
-    packed = torch.stack(
-        [
-            torch.where(vl, kl[..., 0] * PACK_SCALE, neg),
-            kl[..., 1] * PACK_SCALE,
-            torch.where(stereo_ok, disparity * PACK_SCALE, neg),
-            track_m.float(),
-        ],
-        dim=1,
-    )
-    # torch.round rounds half to even, as jnp.round does.
-    packed = torch.round(packed).to(torch.int16)
-    return packed.reshape(S * PACK_ROWS, K)
+    with profile_scope("pack"):
+        neg = torch.full_like(disparity, -1.0)
+        packed = torch.stack(
+            [
+                torch.where(vl, kl[..., 0] * PACK_SCALE, neg),
+                kl[..., 1] * PACK_SCALE,
+                torch.where(stereo_ok, disparity * PACK_SCALE, neg),
+                track_m.float(),
+            ],
+            dim=1,
+        )
+        # torch.round rounds half to even, as jnp.round does.
+        packed = torch.round(packed).to(torch.int16)
+        return packed.reshape(S * PACK_ROWS, K)
 
 
 @torch.inference_mode()
@@ -205,12 +212,13 @@ def fused_stereo_step_multi(
     single host readback for all S frames (frame s owns rows
     [s*PACK_ROWS, (s+1)*PACK_ROWS)); every frame's track match refers to the
     same keyframe state."""
-    kl, _nkl, dl, vl, disparity, stereo_ok, track_m = _frontend_core(
-        sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, max_keypoints,
-        keypoint_threshold, remove_borders, nms_radius, true_width, true_height,
-        min_disparity, match_threshold,
-    )
-    return _pack(kl, vl, disparity, stereo_ok, track_m), dl, kl, vl
+    with profile_scope("step"):
+        kl, _nkl, dl, vl, disparity, stereo_ok, track_m = _frontend_core(
+            sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, max_keypoints,
+            keypoint_threshold, remove_borders, nms_radius, true_width, true_height,
+            min_disparity, match_threshold,
+        )
+        return _pack(kl, vl, disparity, stereo_ok, track_m), dl, kl, vl
 
 
 def fused_stereo_step(
@@ -281,14 +289,16 @@ def track_scan(
         disp_sigma0=disp_sigma0, disp_cond=disp_cond, mono=mono, gate_px=gate_px,
         chi2_px=chi2_px, chi2_rounds=chi2_rounds, track_iters=track_iters,
     )
-    track_out = torch.empty((kl.shape[0], TRACK_COLS), dtype=torch.float32, device=kl.device)
-    kf_state = (None, None, None, kf_xw, kf_depth_ok, None)
-    tm = track_m.to(torch.int32)
-    for s in range(kl.shape[0]):
-        _row, _tm, carry, _kf, _fresh, _raw = track_frame(
-            carry, (kl[s], None, None, None, disparity[s], stereo_ok[s]), tm[s], kf_state,
-            out=(track_out[s], None), **solve_kw,
-        )
+    with profile_scope("track"):
+        track_out = torch.empty((kl.shape[0], TRACK_COLS), dtype=torch.float32,
+                                device=kl.device)
+        kf_state = (None, None, None, kf_xw, kf_depth_ok, None)
+        tm = track_m.to(torch.int32)
+        for s in range(kl.shape[0]):
+            _row, _tm, carry, _kf, _fresh, _raw = track_frame(
+                carry, (kl[s], None, None, None, disparity[s], stereo_ok[s]), tm[s], kf_state,
+                out=(track_out[s], None), **solve_kw,
+            )
     return track_out, carry
 
 
@@ -351,18 +361,19 @@ def fused_stereo_track_step_multi(
             "device tracking is single-sequence: the pose chain carry and the (K, 3) "
             "keyframe world points have no per-sequence axis"
         )
-    kl, _nkl, dl, vl, disparity, stereo_ok, track_m = _frontend_core(
-        sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, max_keypoints,
-        keypoint_threshold, remove_borders, nms_radius, true_width, true_height,
-        min_disparity, match_threshold,
-    )
-    track_out, carry = track_scan(
-        kl, disparity, stereo_ok, track_m, kf_xw, kf_depth_ok,
-        (carry_R, carry_t, rel_R, rel_t),
-        calib=calib, min_matches=min_matches, track_sigma_px=track_sigma_px,
-        disp_sigma0=disp_sigma0, disp_cond=disp_cond, track_iters=track_iters,
-    )
-    return _pack(kl, vl, disparity, stereo_ok, track_m), dl, kl, vl, track_out, carry
+    with profile_scope("step"):
+        kl, _nkl, dl, vl, disparity, stereo_ok, track_m = _frontend_core(
+            sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid, max_keypoints,
+            keypoint_threshold, remove_borders, nms_radius, true_width, true_height,
+            min_disparity, match_threshold,
+        )
+        track_out, carry = track_scan(
+            kl, disparity, stereo_ok, track_m, kf_xw, kf_depth_ok,
+            (carry_R, carry_t, rel_R, rel_t),
+            calib=calib, min_matches=min_matches, track_sigma_px=track_sigma_px,
+            disp_sigma0=disp_sigma0, disp_cond=disp_cond, track_iters=track_iters,
+        )
+        return _pack(kl, vl, disparity, stereo_ok, track_m), dl, kl, vl, track_out, carry
 
 
 def _extract_stereo(
@@ -387,9 +398,12 @@ def _extract_stereo(
         sp_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
         nms_radius, true_width, true_height,
     )
-    la = lightglue_forward(lg_params, nkl, dl, nkr, dr, vl, vr)
-    stereo_m, _ = extract_matches(la, vl, vr, match_threshold)
-    disparity, stereo_ok = _stereo_gates(kl, kr, vl, stereo_m, min_disparity)
+    with profile_scope("match"):
+        la = lightglue_forward(lg_params, nkl, dl, nkr, dr, vl, vr)
+    with profile_scope("extract"):
+        stereo_m, _ = extract_matches(la, vl, vr, match_threshold)
+    with profile_scope("pack"):
+        disparity, stereo_ok = _stereo_gates(kl, kr, vl, stereo_m, min_disparity)
     return kl, nkl, dl, vl, disparity, stereo_ok
 
 
@@ -484,18 +498,22 @@ def track_kf_scan(
             tm_s = track_m0[s].to(torch.int32)
         else:
             kf_nk, kf_d, kf_v = kf_state[:3]
-            la = lightglue_forward(
-                lg_params, kf_nk[None], kf_d[None], nkl[s][None], dl[s][None], kf_v[None],
-                vl[s][None],
-            )
-            tm_s = extract_matches(la, kf_v[None], vl[s][None], match_threshold)[0][0]
+            with profile_scope("match"):
+                la = lightglue_forward(
+                    lg_params, kf_nk[None], kf_d[None], nkl[s][None], dl[s][None], kf_v[None],
+                    vl[s][None],
+                )
+            with profile_scope("extract"):
+                tm_s = extract_matches(la, kf_v[None], vl[s][None], match_threshold)[0][0]
             if hybrid:
                 # The kernel selects with the carried bit.
                 tm_s, rematch = track_m0[s].to(torch.int32), tm_s
-        _row, _tm, pose_carry, kf_state, fresh, _raw = track_frame(
-            pose_carry, (kl[s], nkl[s], dl[s], vl[s], disparity[s], stereo_ok[s]), tm_s,
-            kf_state, rematch=rematch, fresh=fresh, out=(track_out[s], matches[s]), **solve_kw,
-        )
+        with profile_scope("track"):
+            _row, _tm, pose_carry, kf_state, fresh, _raw = track_frame(
+                pose_carry, (kl[s], nkl[s], dl[s], vl[s], disparity[s], stereo_ok[s]), tm_s,
+                kf_state, rematch=rematch, fresh=fresh, out=(track_out[s], matches[s]),
+                **solve_kw,
+            )
     return track_out, matches, kf_state, pose_carry
 
 
@@ -546,21 +564,22 @@ def fused_stereo_track_kf_step_multi(
         sp_params, lg_params, images_u8, max_keypoints, keypoint_threshold, remove_borders,
         nms_radius, true_width, true_height, min_disparity, match_threshold,
     )
-    if hybrid:
-        kl, nkl, dl, vl, disparity, stereo_ok, track_m0 = _frontend_core(
-            *front[:3], kf_state[0], kf_state[1], kf_state[2], *front[3:],
-            kf_prenormalized=True,
+    with profile_scope("step"):
+        if hybrid:
+            kl, nkl, dl, vl, disparity, stereo_ok, track_m0 = _frontend_core(
+                *front[:3], kf_state[0], kf_state[1], kf_state[2], *front[3:],
+                kf_prenormalized=True,
+            )
+        else:
+            kl, nkl, dl, vl, disparity, stereo_ok = _extract_stereo(*front)
+            track_m0 = None
+        track_out, track_m, kf_state2, pose_carry2 = track_kf_scan(
+            lg_params, kl, nkl, dl, vl, disparity, stereo_ok, kf_state, pose_carry,
+            track_m0=track_m0, calib=calib, min_matches=min_matches,
+            track_sigma_px=track_sigma_px, disp_sigma0=disp_sigma0, disp_cond=disp_cond,
+            match_threshold=match_threshold, accept_frac=accept_frac, support_px=support_px,
+            kf_min_frames=kf_min_frames, kf_max_frames=kf_max_frames,
+            kf_min_matches=kf_min_matches, covis_ratio=covis_ratio, track_iters=track_iters,
         )
-    else:
-        kl, nkl, dl, vl, disparity, stereo_ok = _extract_stereo(*front)
-        track_m0 = None
-    track_out, track_m, kf_state2, pose_carry2 = track_kf_scan(
-        lg_params, kl, nkl, dl, vl, disparity, stereo_ok, kf_state, pose_carry,
-        track_m0=track_m0, calib=calib, min_matches=min_matches,
-        track_sigma_px=track_sigma_px, disp_sigma0=disp_sigma0, disp_cond=disp_cond,
-        match_threshold=match_threshold, accept_frac=accept_frac, support_px=support_px,
-        kf_min_frames=kf_min_frames, kf_max_frames=kf_max_frames,
-        kf_min_matches=kf_min_matches, covis_ratio=covis_ratio, track_iters=track_iters,
-    )
-    packed = _pack(kl, vl, disparity, stereo_ok, track_m)
-    return packed, dl, kl, vl, track_out, kf_state2, pose_carry2
+        packed = _pack(kl, vl, disparity, stereo_ok, track_m)
+        return packed, dl, kl, vl, track_out, kf_state2, pose_carry2

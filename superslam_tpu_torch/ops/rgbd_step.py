@@ -23,6 +23,7 @@ import torch
 from ..models.lightglue import extract_matches, lightglue_forward
 from ..models.superpoint import select_keypoints, superpoint_dense
 from ..utils.env import env_flag
+from ..utils.profiler import profile_scope
 from .frontend_step import PACK_SCALE, _norm_frame, track_scan
 from .precision import highest_f32_matmuls
 
@@ -53,34 +54,42 @@ def fused_rgbd_step_multi(
     block. Frame s owns rows [s*RGBD_PACK_ROWS, (s+1)*RGBD_PACK_ROWS).
 
     Returns (packed int16, desc (S, K, D), kpts (S, K, 2), valid (S, K))."""
-    S = images_u8.shape[0]
-    images = images_u8.float() / 255.0
-    subpixel = env_flag("SUPERSLAM_SP_SUBPIXEL", True)
-    out = superpoint_dense(sp_params, images, nms_radius=nms_radius, return_pre_nms=subpixel)
-    kpts, _scores, valid, desc = select_keypoints(
-        out[0], out[1], max_keypoints, keypoint_threshold, remove_borders, true_width,
-        true_height, raw_scores=out[2] if subpixel else None,
-    )
-    center, scale = _norm_frame(true_width, true_height, kpts.device)
-    nk = (kpts - center) / scale
-    kf_k = ((kf_kpts - center) / scale)[None].expand(S, -1, -1)
-    kf_d = kf_desc[None].to(desc.dtype).expand(S, -1, -1)
-    kf_v = kf_valid[None].expand(S, -1)
-    la = lightglue_forward(lg_params, kf_k, kf_d, nk, desc, kf_v, valid)
-    track_m, _ = extract_matches(la, kf_v, valid, match_threshold)
+    with profile_scope("step"):
+        S = images_u8.shape[0]
+        with profile_scope("detect"):
+            images = images_u8.float() / 255.0
+            subpixel = env_flag("SUPERSLAM_SP_SUBPIXEL", True)
+            out = superpoint_dense(
+                sp_params, images, nms_radius=nms_radius, return_pre_nms=subpixel
+            )
+        with profile_scope("select"):
+            kpts, _scores, valid, desc = select_keypoints(
+                out[0], out[1], max_keypoints, keypoint_threshold, remove_borders, true_width,
+                true_height, raw_scores=out[2] if subpixel else None,
+            )
+            center, scale = _norm_frame(true_width, true_height, kpts.device)
+            nk = (kpts - center) / scale
+        with profile_scope("match"):
+            kf_k = ((kf_kpts - center) / scale)[None].expand(S, -1, -1)
+            kf_d = kf_desc[None].to(desc.dtype).expand(S, -1, -1)
+            kf_v = kf_valid[None].expand(S, -1)
+            la = lightglue_forward(lg_params, kf_k, kf_d, nk, desc, kf_v, valid)
+        with profile_scope("extract"):
+            track_m, _ = extract_matches(la, kf_v, valid, match_threshold)
 
-    neg = torch.full_like(kpts[..., 0], -1.0)
-    packed = torch.stack(
-        [
-            torch.where(valid, kpts[..., 0] * PACK_SCALE, neg),
-            kpts[..., 1] * PACK_SCALE,
-            track_m.float(),
-        ],
-        dim=1,
-    )  # (S, 3, K)
-    # torch.round rounds half to even, as jnp.round does.
-    packed = torch.round(packed).to(torch.int16)
-    return packed.reshape(S * RGBD_PACK_ROWS, -1), desc, kpts, valid
+        with profile_scope("pack"):
+            neg = torch.full_like(kpts[..., 0], -1.0)
+            packed = torch.stack(
+                [
+                    torch.where(valid, kpts[..., 0] * PACK_SCALE, neg),
+                    kpts[..., 1] * PACK_SCALE,
+                    track_m.float(),
+                ],
+                dim=1,
+            )  # (S, 3, K)
+            # torch.round rounds half to even, as jnp.round does.
+            packed = torch.round(packed).to(torch.int16)
+            return packed.reshape(S * RGBD_PACK_ROWS, -1), desc, kpts, valid
 
 
 def fused_rgbd_step(
@@ -162,20 +171,21 @@ def fused_rgbd_track_step_multi(
 
     Returns (packed, desc, kpts, valid, track_out (S, TRACK_COLS) f32,
     (carry_R, carry_t, rel_R, rel_t))."""
-    packed, desc, kpts, valid = fused_rgbd_step_multi(
-        sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid,
-        max_keypoints=max_keypoints, keypoint_threshold=keypoint_threshold,
-        remove_borders=remove_borders, nms_radius=nms_radius, true_width=true_width,
-        true_height=true_height, match_threshold=match_threshold,
-    )
-    S = images_u8.shape[0]
-    track_m = packed.reshape(S, RGBD_PACK_ROWS, -1)[:, 2]
-    kl = kpts if dist is None else undistort_points(kpts, calib, dist)
-    track_out, carry = track_scan(
-        kl, torch.zeros_like(kl[..., 0]), valid, track_m, kf_xw, kf_depth_ok,
-        (carry_R, carry_t, rel_R, rel_t),
-        calib=calib, min_matches=min_matches, track_sigma_px=track_sigma_px,
-        disp_sigma0=1.0, disp_cond=1.0,  # unused in mono mode
-        track_iters=track_iters, mono=True,
-    )
-    return packed, desc, kpts, valid, track_out, carry
+    with profile_scope("step"):
+        packed, desc, kpts, valid = fused_rgbd_step_multi(
+            sp_params, lg_params, images_u8, kf_kpts, kf_desc, kf_valid,
+            max_keypoints=max_keypoints, keypoint_threshold=keypoint_threshold,
+            remove_borders=remove_borders, nms_radius=nms_radius, true_width=true_width,
+            true_height=true_height, match_threshold=match_threshold,
+        )
+        S = images_u8.shape[0]
+        track_m = packed.reshape(S, RGBD_PACK_ROWS, -1)[:, 2]
+        kl = kpts if dist is None else undistort_points(kpts, calib, dist)
+        track_out, carry = track_scan(
+            kl, torch.zeros_like(kl[..., 0]), valid, track_m, kf_xw, kf_depth_ok,
+            (carry_R, carry_t, rel_R, rel_t),
+            calib=calib, min_matches=min_matches, track_sigma_px=track_sigma_px,
+            disp_sigma0=1.0, disp_cond=1.0,  # unused in mono mode
+            track_iters=track_iters, mono=True,
+        )
+        return packed, desc, kpts, valid, track_out, carry
