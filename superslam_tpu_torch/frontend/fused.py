@@ -12,14 +12,21 @@ operands are prepared once at construction.
 On the card every host-to-device copy goes through pinned memory without
 blocking the host (a copy from pageable memory waits for every queued
 kernel): frames through a ring of pinned slots (``upload``), anything else
-through ``to_device``.
+through ``to_device``. A batch of many images is written into its slot by
+a pool of host threads (``fill_padded``).
 """
 
 from __future__ import annotations
 
+import functools
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
+from .. import native
 from ..core.frame import StereoFrame
 from ..core.interfaces import MatchResult
 from ..geometry.stereo_camera import StereoCalib
@@ -65,6 +72,85 @@ def decode_packed(
         scores=np.ones(qi.size, np.float32),
     )
     return frame, matches
+
+
+# The fill's pool: at most FILL_WORKERS host threads, made at the first fill
+# that splits and shared by every caller. A fill of fewer than
+# FILL_MIN_IMAGES images runs on the calling thread. Both constants are the
+# best of a sweep on the card's host (scripts/time_fill_torch.py). The
+# images' addresses are read on the calling thread, so a share is one call
+# of the native fill, which holds no interpreter lock, and the shares run
+# side by side; numpy's copies, a few calls an image, pass the lock between
+# the threads at every call and gain little from a second thread.
+FILL_WORKERS = 4
+FILL_MIN_IMAGES = 12
+_fill_pool: ThreadPoolExecutor | None = None
+_fill_pool_lock = threading.Lock()
+
+
+def _pool() -> ThreadPoolExecutor:
+    global _fill_pool
+    with _fill_pool_lock:
+        if _fill_pool is None:
+            _fill_pool = ThreadPoolExecutor(FILL_WORKERS, thread_name_prefix="upload-fill")
+        return _fill_pool
+
+
+def _as_uint8(img) -> np.ndarray:
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        a = np.clip(a, 0, 255).astype(np.uint8)
+    if a.ndim != 2:
+        raise ValueError(f"an image of shape {a.shape}, not (H, W)")
+    return a
+
+
+def _fill_numpy(out: np.ndarray, images: list, lo: int, hi: int) -> None:
+    """The native fill's work in numpy's copies, where its library does not build."""
+    pad_h, pad_w = out.shape[1:]
+    for k in range(lo, hi):
+        a = images[k]
+        h, w = min(a.shape[0], pad_h), min(a.shape[1], pad_w)
+        out[k, :h, :w] = a[:h, :w]
+        out[k, h:] = 0
+        out[k, :h, w:] = 0
+
+
+def _filler(out: np.ndarray, images: list):
+    """``fill(lo, hi)``: images ``lo:hi`` into ``out[lo:hi]``."""
+    native_fill = native.padded_fill(out, images) if out.flags.c_contiguous else None
+    if native_fill is not None:
+        return native_fill.fill
+    return functools.partial(_fill_numpy, out, images)
+
+
+def _fill_share(fill, lo: int, hi: int) -> None:
+    with profile_scope("upload.fill"):
+        fill(lo, hi)
+
+
+def fill_padded(out: np.ndarray, images) -> np.ndarray:
+    """Write the 2-D ``images`` into the uint8 ``out`` (N, padH, padW), one
+    an image, each at the top left and cropped to the pad, its pad zeroed:
+    ``out`` may hold an earlier batch or nothing. Non-uint8 images are
+    clipped to [0, 255]. Split into contiguous shares of whole images over
+    ``min(cores, FILL_WORKERS, N)`` pool threads, each share under an
+    ``upload.fill`` span on its thread (so the spans count the shares);
+    inline, with no span, below FILL_MIN_IMAGES."""
+    n = len(images)
+    if out.dtype != np.uint8 or out.ndim != 3 or out.shape[0] != n:
+        raise ValueError(f"out {out.dtype} {out.shape} does not hold {n} uint8 images")
+    fill = _filler(out, [_as_uint8(img) for img in images])
+    workers = min(len(os.sched_getaffinity(0)), FILL_WORKERS, n)
+    if n < FILL_MIN_IMAGES or workers < 2:
+        fill(0, n)
+        return out
+    bounds = [n * i // workers for i in range(workers + 1)]
+    pool = _pool()
+    shares = [pool.submit(_fill_share, fill, lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    for f in shares:
+        f.result()
+    return out
 
 
 class UploadRing:

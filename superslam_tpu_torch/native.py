@@ -6,13 +6,21 @@ loops — the per-frame pose-only LM and the pose-graph batch LM. The library
 is optional: ``available()`` is False until ``make -C csrc`` has produced
 ``libsuperslam_core.so`` (the test suite builds it on demand), and every
 caller falls back to the numpy implementation.
+
+The multi-sequence step's upload fill (``padded_fill``) is the port's own
+library: ``csrc/fill.cpp`` beside this module, built at its first use
+(``fill_library``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
+import threading
+import warnings
 
 import numpy as np
 
@@ -31,6 +39,7 @@ _SO = os.environ.get(
 _d = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
 def build(force: bool = False) -> bool:
@@ -91,6 +100,89 @@ def _load() -> ctypes.CDLL | None:
 
 def available() -> bool:
     return _load() is not None
+
+
+_FILL_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "fill.cpp")
+_FILL_BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "build", "superslam_tpu_torch")
+_FILL_LOCK = threading.Lock()
+_FILL_LIB: ctypes.CDLL | None = None
+_FILL_TRIED = False
+
+
+def _build_fill() -> ctypes.CDLL | None:
+    # The name carries the source's hash, so an edited source is never
+    # served from an older build; a build is renamed into place whole, so
+    # processes that build at once each load a finished library.
+    with open(_FILL_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    so = os.path.join(_FILL_BUILD_DIR, f"libsuperslam_fill_{digest}.so")
+    try:
+        if not os.path.exists(so):
+            os.makedirs(_FILL_BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cxx = shutil.which("g++") or shutil.which("c++") or "c++"
+            subprocess.run([cxx, "-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared",
+                            "-o", tmp, _FILL_SRC], check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+    except (OSError, subprocess.SubprocessError) as e:
+        warnings.warn(f"the upload fill's library did not build ({e}): the fill takes "
+                      "numpy's copies", RuntimeWarning, stacklevel=4)
+        return None
+    lib.ssl_fill_padded.restype = None
+    lib.ssl_fill_padded.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _i64,
+    ]
+    return lib
+
+
+def fill_library() -> ctypes.CDLL | None:
+    """The fill's library, built into the git-ignored ``build/`` at the
+    repository root at the first call of the process; None, with one
+    warning, where no C++ compiler builds it."""
+    global _FILL_LIB, _FILL_TRIED
+    with _FILL_LOCK:
+        if not _FILL_TRIED:
+            _FILL_TRIED = True
+            _FILL_LIB = _build_fill()
+        return _FILL_LIB
+
+
+class PaddedFill:
+    """The native fill of one batch: the 2-D uint8 ``images`` into the
+    C-contiguous uint8 ``out`` (len(images), padH, padW), each at the top
+    left and cropped to the pad, the rest of its slot zeroed. The images'
+    addresses are read once, at construction; ``fill(lo, hi)`` writes images
+    ``lo:hi`` and holds no interpreter lock, so calls on disjoint ranges run
+    side by side on several threads."""
+
+    def __init__(self, lib: ctypes.CDLL, out: np.ndarray, images: list[np.ndarray]):
+        n, pad_h, pad_w = out.shape
+        if out.dtype != np.uint8 or not out.flags.c_contiguous or len(images) != n:
+            raise ValueError(f"out {out.dtype} {out.shape} does not hold {len(images)} images")
+        if any(a.dtype != np.uint8 or a.ndim != 2 for a in images):
+            raise ValueError("the native fill takes 2-D uint8 images")
+        # Rows must be contiguous; a copy of what the pad keeps where they are
+        # not. The list keeps every image the table points at alive.
+        self.images = [a if a.strides[1] == 1 else np.ascontiguousarray(a[:pad_h, :pad_w])
+                       for a in images]
+        self.table = np.array([(a.ctypes.data, *a.shape, a.strides[0]) for a in self.images],
+                              np.int64).reshape(n, 4)
+        self.lib, self.out, self.pad = lib, out, (pad_h, pad_w)
+
+    def fill(self, lo: int, hi: int) -> None:
+        if not 0 <= lo <= hi <= len(self.images):
+            raise IndexError(f"images {lo}:{hi} of {len(self.images)}")
+        pad_h, pad_w = self.pad
+        self.lib.ssl_fill_padded(self.out[lo:hi].ctypes.data, hi - lo, pad_h, pad_w,
+                                 self.table[lo:hi])
+
+
+def padded_fill(out: np.ndarray, images: list[np.ndarray]) -> PaddedFill | None:
+    """``PaddedFill(out, images)``, or None where the fill's library does
+    not build."""
+    lib = fill_library()
+    return None if lib is None else PaddedFill(lib, out, images)
 
 
 def _pack(p: Pose3) -> np.ndarray:

@@ -22,7 +22,7 @@ import torch
 from ..core.vo_estimator import VoEstimator
 from ..frontend.extractor import pad_to_multiple
 from ..frontend.features import PaddedFeatures
-from ..frontend.fused import UploadRing, decode_packed
+from ..frontend.fused import UploadRing, decode_packed, fill_padded
 from ..geometry.se3 import Pose3
 from ..geometry.stereo_camera import StereoCalib
 from ..models.lightglue import prepare_params
@@ -113,18 +113,9 @@ class MultiSequenceTracker:
         return next(g for g in self.groups if s in g.seqs)
 
     def _prepare(self, lefts, rights, seqs, out=None) -> np.ndarray:
-        batch = np.empty((2 * len(seqs), self.pad_h, self.pad_w), np.uint8) if out is None else out
-        batch.fill(0)
-        for j, s in enumerate(seqs):
-            for slot, img in ((2 * j, lefts[s]), (2 * j + 1, rights[s])):
-                a = np.asarray(img)
-                if a.dtype != np.uint8:
-                    a = np.clip(a, 0, 255).astype(np.uint8)
-                h, w = a.shape
-                batch[slot, : min(h, self.pad_h), : min(w, self.pad_w)] = a[
-                    : self.pad_h, : self.pad_w
-                ]
-        return batch
+        if out is None:
+            out = np.empty((2 * len(seqs), self.pad_h, self.pad_w), np.uint8)
+        return fill_padded(out, [img for s in seqs for img in (lefts[s], rights[s])])
 
     def step(
         self,
