@@ -30,15 +30,14 @@ def readings(workload, seeds, control_seeds, seconds, device, manifest=None, log
     import torch
 
     from slambench import compare, harness
-    from slambench.reference import Reference
 
     man = manifest
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
     cfg = man.config(man.workload(workload)["config"])
+    matcher = man.matcher(cfg.get("matcher"))
 
     def control(units):
-        ref = Reference(os.path.join(man.root, cfg["superpoint"]["checkpoint"]),
-                        os.path.join(man.root, cfg["lightglue"]["checkpoint"]), device, "fp8")
+        ref = harness.check_reference(cfg, matcher, man.root, device, "fp8")
         return compare.program_like(ref, units, cfg)
 
     runs = []

@@ -68,7 +68,7 @@ def correspond(p: np.ndarray, r: np.ndarray):
 
 def judge(units: list[Unit], ref, cfg: dict) -> dict[str, float]:
     """The numbers of the module docstring over ``units``."""
-    sp, lg, cam = cfg["superpoint"], cfg["lightglue"], cfg["camera"]
+    sp, cam = cfg["superpoint"], cfg["camera"]
     w, h = cam["width"], cam["height"]
     stereo = units[0].right is not None
     imgs = [u.left for u in units]
@@ -81,14 +81,14 @@ def judge(units: list[Unit], ref, cfg: dict) -> dict[str, float]:
     L = tuple(t[:n] for t in feats)
     if stereo:
         R = tuple(t[n : 2 * n] for t in feats)
-        _, m_st = ref.match(L, R, lg, w, h)
+        _, m_st = ref.match(L, R, w, h)
         disp, ok = stereo_gates(L[0].to(m_st.device), R[0].to(m_st.device), L[1].to(m_st.device),
                                 m_st, cfg["stereo"]["min_disparity"])
         disp, ok = disp.cpu().numpy(), ok.cpu().numpy()
     base = 2 * n if stereo else n
     KF = tuple(t[base:] for t in feats)
     if kf_units:
-        _, m_tr = ref.match(KF, tuple(t[kf_units] for t in L), lg, w, h)
+        _, m_tr = ref.match(KF, tuple(t[kf_units] for t in L), w, h)
         m_tr = m_tr.cpu().numpy()
 
     miss = total = 0
@@ -164,7 +164,7 @@ def program_like(ref, units: list[Unit], cfg: dict) -> list[Unit]:
     """The reference put in the program's place: the same units with packed
     blocks and descriptors computed by ``ref`` (the control runs it at
     float8). The keyframe's rows come from ``ref`` too."""
-    sp, lg, cam = cfg["superpoint"], cfg["lightglue"], cfg["camera"]
+    sp, cam = cfg["superpoint"], cfg["camera"]
     w, h = cam["width"], cam["height"]
     stereo = units[0].right is not None
     n = len(units)
@@ -178,13 +178,13 @@ def program_like(ref, units: list[Unit], cfg: dict) -> list[Unit]:
     rows = []
     if stereo:
         R = tuple(t[n : 2 * n] for t in feats)
-        _, m = ref.match(L, R, lg, w, h)
+        _, m = ref.match(L, R, w, h)
         d, ok = stereo_gates(L[0].to(m.device), R[0].to(m.device), L[1].to(m.device), m,
                              cfg["stereo"]["min_disparity"])
         disp_row = torch.where(ok, d * PACK_SCALE, torch.full_like(d, -1.0)).cpu()
     track = torch.full((n, L[0].shape[1]), -1, dtype=torch.int64)
     if kf_units:
-        _, m_tr = ref.match(KF, tuple(t[kf_units] for t in L), lg, w, h)
+        _, m_tr = ref.match(KF, tuple(t[kf_units] for t in L), w, h)
         track[kf_units] = m_tr.cpu()
 
     def pack(k, v):

@@ -39,11 +39,11 @@ class Entry:
         calib = StereoCalib(fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"],
                             baseline=cam["bf"] / cam["fx"])
         self.trk = MultiSequenceTracker(
-            ctx.sp_params, ctx.lg_params, calib, self.S, cam["width"], cam["height"],
+            ctx.sp_params, ctx.matcher_params, calib, self.S, cam["width"], cam["height"],
             max_keypoints=sp["max_keypoints"], keypoint_threshold=sp["keypoint_threshold"],
             remove_borders=sp["remove_borders"], nms_radius=sp["nms_radius"],
-            min_disparity=cfg["stereo"]["min_disparity"],
-            match_threshold=cfg["lightglue"]["match_threshold"], device=ctx.device,
+            min_disparity=cfg["stereo"]["min_disparity"], device=ctx.device,
+            **ctx.matcher.port_kwargs(cfg),
         )
         self.g = self.trk.groups[0]
         n = ctx.frames.shape[0]

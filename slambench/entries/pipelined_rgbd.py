@@ -42,11 +42,11 @@ class Entry:
         calib = StereoCalib(fx=cam["fx"], fy=cam["fy"], cx=cam["cx"], cy=cam["cy"],
                             baseline=cam["bf"] / cam["fx"])
         self.pl = FusedRgbdPipeline(
-            ctx.sp_params, ctx.lg_params, calib, cam["width"], cam["height"],
+            ctx.sp_params, ctx.matcher_params, calib, cam["width"], cam["height"],
             depth_factor=cam["depth_map_factor"], max_depth=40.0,
             max_keypoints=sp["max_keypoints"], keypoint_threshold=sp["keypoint_threshold"],
-            remove_borders=sp["remove_borders"], nms_radius=sp["nms_radius"],
-            match_threshold=cfg["lightglue"]["match_threshold"], device=ctx.device,
+            remove_borders=sp["remove_borders"], nms_radius=sp["nms_radius"], device=ctx.device,
+            **ctx.matcher.port_kwargs(cfg),
         )
         self.pl.upload_slots = max(self.pl.upload_slots, self.depth * self.B + 1)
         n = ctx.frames.shape[0]
@@ -91,8 +91,8 @@ class Entry:
         with self.ctx.span("issue"):
             images = torch.cat(staged, dim=0)
             packed, desc, kpts, valid = fused_rgbd_step_multi(
-                pl.sp_params, pl.lg_params, images, pl._kf_kpts, pl._kf_desc, pl._kf_valid,
-                **pl.step_kw())
+                pl.sp_params, self.ctx.matcher.prepared(pl), images, pl._kf_kpts, pl._kf_desc,
+                pl._kf_valid, **pl.step_kw())
             fut = _AsyncHost(packed, self.pool, 1)
         self.pending.append((i, t_disp, fut, desc, kpts, valid))
         self.i += 1

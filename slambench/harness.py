@@ -32,7 +32,8 @@ class Context:
     frames: np.ndarray  # (frames, views, h, w) uint8, the seed's noise added
     rng: np.random.Generator
     sp_params: dict
-    lg_params: dict
+    matcher: object  # the configuration's matcher module (``matchers/<matcher>.py``)
+    matcher_params: dict  # its ``load``: the parameters handed to the port
     spans: list = field(default_factory=list)  # (name, start ns, end ns)
 
     @contextlib.contextmanager
@@ -77,12 +78,22 @@ def add_noise(frames: np.ndarray, sigma: float, seed: int, device) -> np.ndarray
     return torch.clamp(torch.round(x.float() + noise), 0, 255).to(torch.uint8).cpu().numpy()
 
 
-def load_models(config: dict, root: str, device):
-    """The committed checkpoints, read by the benchmark (safetensors, f32)."""
+def load_models(config: dict, matcher, root: str, device):
+    """The committed checkpoints, read by the benchmark (safetensors, f32):
+    SuperPoint's and the matcher's."""
     from slambench.reference import load_weights
 
     return (load_weights(os.path.join(root, config["superpoint"]["checkpoint"]), device),
-            load_weights(os.path.join(root, config["lightglue"]["checkpoint"]), device))
+            matcher.load(config, root, device))
+
+
+def check_reference(config: dict, matcher, root: str, device, precision: str = "f32"):
+    """The check's reference: SuperPoint's features and the matcher's
+    reference, both at ``precision`` (``"fp8"``: the control)."""
+    from slambench.reference import Reference
+
+    return Reference(os.path.join(root, config["superpoint"]["checkpoint"]),
+                     matcher.Reference(config, root, device, precision), device, precision)
 
 
 def power_limit() -> float | None:
@@ -119,6 +130,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device, t
     man = manifest or Manifest()
     cell = man.workload(workload)
     cfg = man.config(cell["config"])
+    matcher = man.matcher(cfg.get("matcher"))
     tr = man.traffic(cell["traffic"])
     limits = man.limits(workload)
     entry_mod = man.entry(tr["entry"])
@@ -128,8 +140,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device, t
     log(f"frame cache: {'hit' if cached else 'rendered'}, {render.cache_bytes()} bytes in "
         f"{render.CACHE_DIR}")
     frames = add_noise(arc, cfg["assumed"]["noise_sigma"], seed, device)
-    sp, lg = load_models(cfg, man.root, device)
-    ctx = Context(cfg, tr, device, seed, frames, np.random.default_rng([seed, 0x0FF5]), sp, lg)
+    sp, mp = load_models(cfg, matcher, man.root, device)
+    ctx = Context(cfg, tr, device, seed, frames, np.random.default_rng([seed, 0x0FF5]), sp,
+                  matcher, mp)
     entry = entry_mod.Entry(ctx)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -154,7 +167,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device, t
     latencies = [(b - a) * 1e-6 for a, b in done]
     run = Run(cfg, tr, workload, seconds, len(done), len(done) * entry.frames_per_step, latencies,
               setup_s, [s for s in ctx.spans if s[1] >= t0 and s[2] <= t_end],
-              flops.window_work(cfg, entry.window_work()), launches,
+              flops.window_work(cfg, matcher, entry.window_work()), launches,
               power_limit() if on_card else None)
     log(f"window: {run.steps} dispatches, {run.frames} stream-frames, {dispatched} frames "
         f"dispatched; step latency median {np.median(latencies):.4f} ms, p95 over "
@@ -195,11 +208,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device, t
     del entry
     if on_card:
         torch.cuda.empty_cache()
-    from slambench.reference import Reference
-
     t_check = time.monotonic()
-    ref = Reference(os.path.join(man.root, cfg["superpoint"]["checkpoint"]),
-                    os.path.join(man.root, cfg["lightglue"]["checkpoint"]), device)
+    ref = check_reference(cfg, matcher, man.root, device)
     judged = control(units) if control is not None else units
     judge = getattr(entry_mod, "judge", compare.judge)
     numbers = judge(judged, ref, cfg) if judged else {}

@@ -3,7 +3,10 @@
 Everything that belongs to one configuration, traffic mix, cell or metric
 sits in a file of its own, so a later change adds files and edits none:
 
-- ``configs/<config>.json``: the configuration (the manifest's ``file``);
+- ``configs/<config>.json``: the configuration (the manifest's ``file``),
+  whose ``"matcher"`` names its matcher;
+- ``matchers/<matcher>.py``: a matcher's settings block, its parameters and
+  keyword arguments for the port, its plain reference and its work;
 - ``traffic/<traffic>.json``: the mix's parameters, naming its ``entry``;
 - ``entries/<entry>.py``: how the program is driven (``Entry``; a ``judge``
   there replaces ``compare.judge`` for its cells);
@@ -67,6 +70,15 @@ class Manifest:
     def entry(self, name: str):
         return _load_module(os.path.join(self.bench_dir, "entries", f"{name}.py"),
                             f"slambench_entry_{name}")
+
+    def matcher(self, name: str | None):
+        """The module of the matcher a configuration's ``"matcher"`` names."""
+        if name is None:
+            raise KeyError('the configuration names no matcher: its file needs a "matcher" key')
+        path = os.path.join(self.bench_dir, "matchers", f"{name}.py")
+        if not NAME.match(str(name)) or not os.path.isfile(path):
+            raise KeyError(f"no matcher {name!r}: {path} is missing")
+        return _load_module(path, f"slambench_matcher_{name.replace('.', '_')}")
 
     def end_to_end(self, workload: str) -> list[dict]:
         return [m for m in self.data["end_to_end"] if workload in m.get("workloads", [workload])]

@@ -1,5 +1,6 @@
-"""matcher_roofline_pct: as detector_roofline_pct, for LightGlue and the
-match extraction (``layers/matcher.json``), its work counted at the
+"""matcher_roofline_pct: as detector_roofline_pct, for the matcher and the
+match extraction (``layers/matcher.json``), its work the configuration's
+matcher module's ``work`` (``matchers/<matcher>.py``) counted at the
 keypoints each side of a pair has."""
 
 from slambench.flops import least_seconds

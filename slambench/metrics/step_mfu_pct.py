@@ -1,8 +1,9 @@
 """step_mfu_pct: the model operations of the dispatches completed in the
-traced window (SuperPoint over every image, LightGlue over every pair
-problem at the keypoints each side has: ``flops.window_work``) over the
-window's seconds, in % of one H100's dense bf16 peak (989 TFLOP/s). The
-run prints the card's power limit beside it."""
+traced window (SuperPoint over every image, the configuration's matcher
+over every pair problem at the keypoints each side has, by its module's
+``work``: ``flops.window_work``) over the window's seconds, in % of one
+H100's dense bf16 peak (989 TFLOP/s). The run prints the card's power
+limit beside it."""
 
 from slambench.flops import PEAK_FLOPS
 

@@ -1,10 +1,10 @@
-"""The plain reference of the front end: SuperPoint and LightGlue in f32.
+"""The plain reference of the front end: SuperPoint in f32, and the check's
+reference built from it and the configuration's matcher.
 
-Written from the models' definitions (SuperPoint's VGG encoder, detector
-and descriptor heads; LightGlue's 9 layers of rotary self-attention and
-cross-attention, dual-softmax assignment and mutual matching, early exit
-and pruning off), in plain PyTorch with TF32 off. It loads the committed
-safetensors itself and imports nothing of the program.
+Written from SuperPoint's definition (its VGG encoder, detector and
+descriptor heads) in plain PyTorch with TF32 off; the matcher's reference
+is its module's (``matchers/<matcher>.py``), built on the helpers here. It
+loads the committed safetensors itself and imports nothing of the program.
 
 ``precision="fp8"`` is the benchmark's control: every operand of a
 convolution, a linear layer and an attention product rounded to float8
@@ -48,6 +48,14 @@ def _fp8(t: torch.Tensor) -> torch.Tensor:
     return (t / s).to(torch.float8_e4m3fn).float() * s
 
 
+def quantizer(precision: str):
+    """What every operand goes through: nothing at ``"f32"``, ``_fp8`` at
+    ``"fp8"``."""
+    if precision not in ("f32", "fp8"):
+        raise ValueError(f"precision {precision}")
+    return _fp8 if precision == "fp8" else (lambda t: t)
+
+
 def load_weights(path: str, device) -> dict[str, torch.Tensor]:
     from safetensors.torch import load_file
 
@@ -55,13 +63,14 @@ def load_weights(path: str, device) -> dict[str, torch.Tensor]:
 
 
 class Reference:
-    def __init__(self, sp_path: str, lg_path: str, device, precision: str = "f32"):
-        if precision not in ("f32", "fp8"):
-            raise ValueError(f"precision {precision}")
+    """SuperPoint's features; ``match`` is ``matcher``'s, the reference of the
+    configuration's matcher module built at the same precision."""
+
+    def __init__(self, sp_path: str, matcher, device, precision: str = "f32"):
+        self.q = quantizer(precision)
         self.device = torch.device(device)
         self.sp = load_weights(sp_path, self.device)
-        self.lg = load_weights(lg_path, self.device)
-        self.q = _fp8 if precision == "fp8" else (lambda t: t)
+        self.matcher = matcher
 
     # -- SuperPoint ---------------------------------------------------------
     def _conv(self, x, name):
@@ -109,90 +118,10 @@ class Reference:
         return select(scores, pre, grid, sp_cfg["max_keypoints"], sp_cfg["keypoint_threshold"],
                       sp_cfg["remove_borders"], true_w, true_h)
 
-    # -- LightGlue -----------------------------------------------------------
-    def _linear(self, x, name):
-        y = self.q(x) @ self.q(self.lg[f"{name}.weight"]).t()
-        b = self.lg.get(f"{name}.bias")
-        return y if b is None else y + b
-
-    def _attention(self, q, k, v, key_mask):
-        logits = torch.einsum("bhid,bhjd->bhij", self.q(q), self.q(k)) / float(q.shape[-1]) ** 0.5
-        logits = torch.where(key_mask[:, None, None, :], logits, torch.full_like(logits, NEG))
-        p = torch.softmax(logits, dim=-1)
-        return torch.einsum("bhij,bhjd->bhid", self.q(p), self.q(v))
-
-    def _ffn(self, x, msg, prefix):
-        h = self._linear(torch.cat([x, msg], dim=-1), f"{prefix}.0")
-        h = F.layer_norm(h, h.shape[-1:], self.lg[f"{prefix}.1.weight"], self.lg[f"{prefix}.1.bias"], 1e-5)
-        return x + self._linear(F.gelu(h), f"{prefix}.3")
-
-    def lightglue(self, kpts0, desc0, kpts1, desc1, mask0, mask1, heads: int, layers: int):
-        """Log-assignment (B, M, N) of normalized keypoints and unit
-        descriptors; masks mark real keypoints."""
-        b, n, _ = desc0.shape
-        x = torch.stack([desc0, desc1], 1).reshape(2 * b, n, -1)
-        kp = torch.stack([kpts0, kpts1], 1).reshape(2 * b, n, 2)
-        mask = torch.stack([mask0, mask1], 1).reshape(2 * b, n)
-        dim = x.shape[-1]
-        hd = dim // heads
-        x = self._linear(x, "input_proj")
-        proj = kp @ self.lg["posenc.Wr.weight"].t()
-        cos = torch.repeat_interleave(torch.cos(proj), 2, dim=-1)[:, None]
-        sin = torch.repeat_interleave(torch.sin(proj), 2, dim=-1)[:, None]
-
-        def rotate(t):
-            t2 = t.reshape(*t.shape[:-1], -1, 2)
-            half = torch.stack([-t2[..., 1], t2[..., 0]], dim=-1).reshape(t.shape)
-            return t * cos + half * sin
-
-        def split(t):
-            return t.reshape(2 * b, n, heads, hd).permute(0, 2, 1, 3)
-
-        def merge(t):
-            return t.permute(0, 2, 1, 3).reshape(2 * b, n, dim)
-
-        def swap(t):
-            return t.reshape(b, 2, *t.shape[1:]).flip(1).reshape(t.shape)
-
-        for i in range(layers):
-            p = f"transformers.{i}.self_attn"
-            qkv = self._linear(x, f"{p}.Wqkv").reshape(2 * b, n, heads, hd, 3).permute(0, 2, 1, 3, 4)
-            ctx = self._attention(rotate(qkv[..., 0]), rotate(qkv[..., 1]), qkv[..., 2], mask)
-            x = self._ffn(x, self._linear(merge(ctx), f"{p}.out_proj"), f"{p}.ffn")
-            p = f"transformers.{i}.cross_attn"
-            qk, v = split(self._linear(x, f"{p}.to_qk")), split(self._linear(x, f"{p}.to_v"))
-            ctx = self._attention(qk, swap(qk), swap(v), swap(mask))
-            x = self._ffn(x, self._linear(merge(ctx), f"{p}.to_out"), f"{p}.ffn")
-        a = f"log_assignment.{layers - 1}"
-        x0, x1 = x[0::2], x[1::2]
-        s = float(dim) ** 0.25
-        d0 = self._linear(x0, f"{a}.final_proj") / s
-        d1 = self._linear(x1, f"{a}.final_proj") / s
-        sim = torch.einsum("bmd,bnd->bmn", self.q(d0), self.q(d1))
-        both = mask0[:, :, None] & mask1[:, None, :]
-        sim = torch.where(both, sim, torch.full_like(sim, NEG))
-        z0 = self._linear(x0, f"{a}.matchability")[..., 0]
-        z1 = self._linear(x1, f"{a}.matchability")[..., 0]
-        cert = F.logsigmoid(z0)[:, :, None] + F.logsigmoid(z1)[:, None, :]
-        return torch.log_softmax(sim, dim=2) + torch.log_softmax(sim, dim=1) + cert
-
-    @torch.no_grad()
-    def match(self, f0, f1, lg_cfg: dict, true_w: int, true_h: int, block: int = 8):
-        """Log-assignment and mutual matches of pairs (kpts, valid, desc)
-        f0 -> f1, each (B, K, ...), in blocks of pairs."""
-        center = torch.tensor([true_w / 2.0, true_h / 2.0], device=self.device)
-        scale = max(true_w, true_h) / 2.0
-        la, mt = [], []
-        for i in range(0, f0[0].shape[0], block):
-            sl = slice(i, i + block)
-            k0, v0, d0 = (t[sl].to(self.device) for t in f0[:3])
-            k1, v1, d1 = (t[sl].to(self.device) for t in f1[:3])
-            with full_f32():
-                p = self.lightglue((k0 - center) / scale, d0, (k1 - center) / scale, d1, v0, v1,
-                                   lg_cfg["heads"], lg_cfg["layers"])
-            la.append(p)
-            mt.append(extract_matches(p, v0, v1, lg_cfg["match_threshold"]))
-        return torch.cat(la), torch.cat(mt)
+    def match(self, f0, f1, true_w: int, true_h: int, block: int = 8):
+        """The configuration's matcher on pairs of ``features`` f0 -> f1:
+        (log-assignment, mutual matches)."""
+        return self.matcher.match(f0, f1, true_w, true_h, block)
 
 
 def select(scores, pre, grid, K: int, threshold: float, borders: int, true_w: int, true_h: int):

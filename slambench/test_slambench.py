@@ -2,11 +2,12 @@
 
 On the CPU they check the manifest against the contract's characters, that
 every cell's files are found by name (and that a new configuration,
-traffic mix, metric and layer are found by adding files alone), the work
-arithmetic against hand counts, and whole runs of tiny cells through the
-port's CPU path: sound runs come out correct; the control (the reference
-at float8 in the program's place) and the program's faults do not. Tests
-marked ``gpu`` run the real cells on a card and skip without one.
+traffic mix, metric, layer and matcher are found by adding files alone),
+the work arithmetic against hand counts, and whole runs of tiny cells
+through the port's CPU path: sound runs come out correct; the control (the
+reference at float8 in the program's place) and the program's faults do
+not. Tests marked ``gpu`` run the real cells on a card and skip without
+one.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ def _run(man, workload, seed=20260, control=None):
                             manifest=man, log=lambda s: None, control=control)
 
 
+def _lightglue():
+    return Manifest().matcher("lightglue")
+
+
 # -- the manifest --------------------------------------------------------------
 
 
@@ -134,6 +139,8 @@ def test_every_cells_files_are_found_by_name():
         assert entry.VIEWS in (1, 2) and hasattr(entry, "Entry")
         assert set(man.limits(w["name"])) >= {"kpt_miss_pct", "desc_err", "track_disagree_pct"}
         assert cfg["name"] == w["config"]
+        matcher = man.matcher(cfg["matcher"])
+        assert cfg[matcher.BLOCK] and callable(matcher.work) and hasattr(matcher, "Reference")
         for m in man.per_layer(w["name"]):
             assert callable(man.reader(m["name"]).read)
     assert {ly["layer"] for ly in man.layers()} >= {"detector", "matcher"}
@@ -183,6 +190,100 @@ def test_a_new_cell_metric_and_layer_are_files_alone(tmp_path):
     assert all(after[p] == d for p, d in before.items())
 
 
+def _add_cell(root: str, name: str, like: str, edit) -> None:
+    """A cell ``name`` of its own configuration and limits, copied from tiny
+    cell ``like`` with ``edit(config)`` applied, on ``like``'s traffic."""
+    bench = os.path.join(root, "slambench")
+    cfg = json.load(open(os.path.join(bench, "configs", f"{like}-config.json")))
+    cfg["name"] = f"{name}-config"
+    edit(cfg)
+    with open(os.path.join(bench, "configs", f"{name}-config.json"), "w") as f:
+        json.dump(cfg, f)
+    shutil.copy(os.path.join(bench, "limits", f"{like}.json"), os.path.join(bench, "limits", f"{name}.json"))
+    data = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    data["configs"].append({"name": f"{name}-config", "source": "tiny", "reduced": [],
+                            "file": f"slambench/configs/{name}-config.json", "why": "tiny"})
+    data["workloads"].append({"name": name, "config": f"{name}-config", "chips": 1,
+                              "traffic": f"{like}-traffic", "why": "tiny"})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(data, f)
+
+
+class _Clock:
+    """``time.time_ns`` advancing a fixed tick a call, so that a window holds
+    the same dispatches in every run of the same code."""
+
+    def __init__(self, tick_ns: int):
+        self.t, self.tick = 0, tick_ns
+
+    def __call__(self) -> int:
+        self.t += self.tick
+        return self.t
+
+
+def test_a_new_matcher_is_files_alone(tmp_path, monkeypatch):
+    """A matcher that is LightGlue under another block name, added as files
+    only (its module, configurations without a ``"lightglue"`` block, their
+    cells), runs each tiny cell as the LightGlue configuration does."""
+    root = _tiny_checkout(str(tmp_path))
+    bench = os.path.join(root, "slambench")
+    monkeypatch.setattr(render, "CACHE_DIR", os.path.join(root, "cache"))
+
+    def digests():
+        return {p: hashlib.sha1(open(p, "rb").read()).hexdigest()
+                for p in glob.glob(os.path.join(bench, "**", "*"), recursive=True) if os.path.isfile(p)}
+
+    before = digests()
+    src = open(os.path.join(bench, "matchers", "lightglue.py")).read()
+    assert src.count('BLOCK = "lightglue"') == 1
+    with open(os.path.join(bench, "matchers", "other.py"), "w") as f:
+        f.write(src.replace('BLOCK = "lightglue"', 'BLOCK = "other"'))
+
+    def rename(cfg):
+        cfg["other"] = cfg.pop("lightglue")
+        cfg["matcher"] = "other"
+
+    for like in sorted(TINY):
+        _add_cell(root, like.replace("tiny", "other"), like, rename)
+    man = Manifest(root, bench)
+    assert "lightglue" not in man.config("other.rgbd-config")
+    work = []
+    window_work = flops.window_work
+    monkeypatch.setattr(flops, "window_work", lambda *a: work.append(window_work(*a)) or work[-1])
+    got = {}
+    for cell in ["tiny.rgbd", "other.rgbd", "tiny.stereo", "other.stereo"]:
+        monkeypatch.setattr(time, "time_ns", _Clock(50_000_000))
+        r = _run(man, cell)
+        rates = {k: v for k, v in r["metrics"].items() if k != "setup_s"}
+        got[cell] = (r["correct"], r["attempted"], rates, r["checks"], work[-1])
+    for like in sorted(TINY):
+        assert got[like][0], got[like]
+        assert got[like.replace("tiny", "other")] == got[like]
+    after = digests()
+    assert all(after[p] == d for p, d in before.items())
+
+
+@pytest.mark.parametrize("matcher", [None, "nowhere"])
+def test_a_configuration_must_name_a_matcher_file(tmp_path, monkeypatch, matcher):
+    """Without a ``"matcher"`` key, or with one that names no file, a run
+    stops with the reason before its set-up renders a frame."""
+    root = _tiny_checkout(str(tmp_path))
+
+    def edit(cfg):
+        cfg.pop("matcher")
+        if matcher is not None:
+            cfg["matcher"] = matcher
+
+    _add_cell(root, "unmatched", "tiny.rgbd", edit)
+
+    def frame_set(*a):
+        raise AssertionError("set-up began")
+
+    monkeypatch.setattr(render, "frame_set", frame_set)
+    with pytest.raises(KeyError, match="matcher"):
+        _run(Manifest(root, os.path.join(root, "slambench")), "unmatched")
+
+
 # -- the arithmetic ------------------------------------------------------------
 
 
@@ -203,27 +304,33 @@ def test_lightglue_flops_by_hand():
     attn = 2 * 2 * d * (n0 * n0 + n1 * n1) + 2 * 2 * d * (2 * n0 * n1)
     by_hand = 2 * d * d * t + (linears * t + attn) + (2 * d * d * t + 2 * n0 * n1 * d + 2 * d * t) \
         + 2 * 2 * (d // 2 // 2) * t
-    assert flops.lightglue_flops(n0, n1, d, 1, 2) == by_hand
+    assert _lightglue().lightglue_flops(n0, n1, d, 1, 2) == by_hand
 
 
 def test_bytes_by_hand():
     assert flops.superpoint_params() == 1_300_865  # SuperPoint's 1.3 M parameters
     assert flops.superpoint_bytes(8, 16, 2, 4) == 8 * 16 + 2 * 1_300_865 + 2 * (8 + 1 + 16)
     # Linear weights and biases of one layer at width 8: input 72, the blocks 1320, the head 72 + 9.
-    assert flops.lightglue_linear_params(8, 1) == 72 + 1320 + 72 + 9
-    assert flops.lightglue_bytes(2, 3, 8, 1) == 5 * (8 + 1 + 32) + 2 * 1473 + 4 * 2
+    lg = _lightglue()
+    assert lg.lightglue_linear_params(8, 1) == 72 + 1320 + 72 + 9
+    assert lg.lightglue_bytes(2, 3, 8, 1) == 5 * (8 + 1 + 32) + 2 * 1473 + 4 * 2
     assert flops.least_seconds(989e12, 1.0) == 1.0 and flops.least_seconds(1.0, 3.35e12) == 1.0
 
 
 def test_window_work_counts_images_and_pairs():
     cfg = json.load(open(os.path.join(HERE, "configs", "kitti00-stereo.json")))
-    w = flops.window_work(cfg, [(32, [(600, 600)] * 32), (2, [(500, 400)])])
+    lg = _lightglue()
+    w = flops.window_work(cfg, lg, [(32, [(600, 600)] * 32), (2, [(500, 400)])])
     assert w["detector_flops"] == 34 * flops.superpoint_flops(376, 1241)
-    assert w["matcher_flops"] == 32 * flops.lightglue_flops(600, 600, 256, 9, 4) \
-        + flops.lightglue_flops(500, 400, 256, 9, 4)
+    assert w["matcher_flops"] == 32 * lg.lightglue_flops(600, 600, 256, 9, 4) \
+        + lg.lightglue_flops(500, 400, 256, 9, 4)
+    assert w["matcher_bytes"] == 32 * lg.lightglue_bytes(600, 600, 256, 9) \
+        + lg.lightglue_bytes(500, 400, 256, 9)
+    assert lg.work(cfg, 500, 400) == (lg.lightglue_flops(500, 400, 256, 9, 4),
+                                      lg.lightglue_bytes(500, 400, 256, 9))
     # SuperPoint at 1248 x 376 is some 80 GFLOP, LightGlue at K 600 some 41.
     assert 79e9 < flops.superpoint_flops(376, 1241) < 82e9
-    assert 40e9 < flops.lightglue_flops(600, 600, 256, 9, 4) < 42e9
+    assert 40e9 < lg.lightglue_flops(600, 600, 256, 9, 4) < 42e9
 
 
 # -- the trace -------------------------------------------------------------------
@@ -250,7 +357,7 @@ def test_readers_on_a_known_trace():
 
     man = Manifest()
     cfg = man.config("kitti00-stereo")
-    work = flops.window_work(cfg, [(32, [(600, 600)] * 32)] * 250)
+    work = flops.window_work(cfg, man.matcher(cfg["matcher"]), [(32, [(600, 600)] * 32)] * 250)
     tr = Trace(window_s=10.0, busy_s=8.0, layer_s={"detector": 4.0, "matcher": 3.5})
     spans = [("prep_upload", 0, 7_000_000), ("issue", 7_000_000, 17_000_000)] * 2
     lat = [float(i) for i in range(1, 101)]
@@ -284,11 +391,8 @@ def test_reference_against_the_port_at_a_tiny_size(tiny, workload):
 
 @pytest.mark.parametrize("workload", sorted(TINY))
 def test_the_control_is_not_correct(tiny, workload):
-    from slambench.reference import Reference
-
     cfg = tiny.config(tiny.workload(workload)["config"])
-    ref = Reference(os.path.join(ROOT, cfg["superpoint"]["checkpoint"]),
-                    os.path.join(ROOT, cfg["lightglue"]["checkpoint"]), "cpu", "fp8")
+    ref = harness.check_reference(cfg, tiny.matcher(cfg["matcher"]), tiny.root, "cpu", "fp8")
     r = _run(tiny, workload, control=lambda units: compare.program_like(ref, units, cfg))
     assert not r["correct"], r["checks"]
 
@@ -348,6 +452,19 @@ def test_no_benchmark_source_imports_jax_or_the_jax_package():
                 names = [node.module]
             for n in names:
                 assert n.split(".")[0] not in banned, (path, n)
+
+
+def test_only_the_matcher_modules_name_lightglue():
+    """What is LightGlue's sits in ``matchers/lightglue.py``: no other source
+    of the benchmark names it, its configuration block or its parameters
+    (the tests aside, which test that module)."""
+    for path in glob.glob(os.path.join(HERE, "**", "*.py"), recursive=True):
+        rel = os.path.relpath(path, HERE)
+        if rel.startswith("matchers" + os.sep) or os.path.basename(rel).startswith("test_"):
+            continue
+        text = open(path).read()
+        for word in ("lightglue", "lightglue_", "lg_params"):
+            assert word not in text, (rel, word)
 
 
 def test_a_run_loads_no_jax_module(tmp_path):
