@@ -12,6 +12,12 @@ before drained when a new one is due. The last frame of each drained
 dispatch becomes the keyframe (``FusedRgbdPipeline.set_keyframe``, the
 step's own device outputs), so dispatch i matches the last frame of
 dispatch i - depth.
+
+Keypoint scores, for a matcher whose encoder reads them: where the step
+returns the frames' scores after ``packed, desc, kpts, valid``, they go
+with the dispatch into its keyframe (``LazySlotFeatures(..., scores=)``),
+and where the pipeline keeps the keyframe's (``_kf_scores``), the step
+gets them as ``kf_scores``. A step that does neither runs as it is.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ class Entry:
         self.offset = int(ctx.rng.integers(0, 2 * (n - 1)))
         self.frames_per_step = self.B
         self.i = 0  # global dispatch number, warm-up included
-        self.pending: deque = deque()  # (dispatch, t_dispatch, _AsyncHost, desc, kpts, valid)
+        self.pending: deque = deque()  # (dispatch, t_dispatch, _AsyncHost, desc, kpts, valid, scores)
         self.pool: dict = {}
         self.blocks: dict[int, np.ndarray] = {}  # dispatch -> its packed block on the host
         self.window: list[int] = []  # the dispatches drained inside the window
@@ -67,14 +73,14 @@ class Entry:
         keyframe. Returns (dispatch, t_dispatch, desc)."""
         from superslam_tpu_torch.frontend.features import LazySlotFeatures
 
-        i, t_disp, fut, desc, kpts, valid = self.pending.popleft()
+        i, t_disp, fut, desc, kpts, valid, scores = self.pending.popleft()
         with self.ctx.span("readback_wait"):
             block = fut.result().copy()
         fut.release()
         with self.ctx.span("kf_write"):
             self.pl.set_keyframe(LazySlotFeatures(
                 kpts, desc, valid, slot=self.B - 1, n=0, width=self.pl.width,
-                height=self.pl.height))
+                height=self.pl.height, **({} if scores is None else {"scores": scores})))
         self.blocks[i] = block
         return i, t_disp, desc
 
@@ -90,11 +96,14 @@ class Entry:
             on_drain(*self._drain())
         with self.ctx.span("issue"):
             images = torch.cat(staged, dim=0)
-            packed, desc, kpts, valid = fused_rgbd_step_multi(
+            kf_scores = getattr(pl, "_kf_scores", None)
+            out = fused_rgbd_step_multi(
                 pl.sp_params, self.ctx.matcher.prepared(pl), images, pl._kf_kpts, pl._kf_desc,
-                pl._kf_valid, **pl.step_kw())
+                pl._kf_valid, **({} if kf_scores is None else {"kf_scores": kf_scores}),
+                **pl.step_kw())
+            packed, desc, kpts, valid = out[:4]
             fut = _AsyncHost(packed, self.pool, 1)
-        self.pending.append((i, t_disp, fut, desc, kpts, valid))
+        self.pending.append((i, t_disp, fut, desc, kpts, valid, out[4] if len(out) > 4 else None))
         self.i += 1
 
     def warm(self, n: int):

@@ -7,12 +7,21 @@ module (``matchers/<matcher>.py::work``) by the same conventions.
 Operations are 2 x multiply-adds of the convolutions, linear layers and
 attention products. Bytes are the least a device must move: each input
 and weight read once, each output written once. Peaks: one H100 SXM,
-dense bf16 and HBM3 (NVIDIA's data sheet).
+dense bf16, f32 outside the tensor cores and HBM3 (NVIDIA's data sheet).
+
+A matcher's work may come in parts. ``matchers/<matcher>.py::work`` is
+what its kernels in the ``matcher`` layer do; an optional
+``parts(cfg, n0, n1)`` gives ``{layer: (operations, bytes, peak
+operations/s)}`` for kernels that a layer file of their own
+(``layers/<layer>.json``) takes out of that layer, such as an iterative
+normalisation on the CUDA cores, priced at its own peak. Each operation is
+counted once, in ``work`` or in one part.
 """
 
 from __future__ import annotations
 
 PEAK_FLOPS = 989e12
+F32_PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # SuperPoint: (name, in channels, out channels, kernel, pools before it)
@@ -50,22 +59,38 @@ def superpoint_bytes(height: int, width: int, keypoints: int, dim: int = 256) ->
             + keypoints * (2 * 4 + 1 + dim * 4))
 
 
-def least_seconds(flops: float, nbytes: float) -> float:
-    return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
+def least_seconds(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> float:
+    return max(flops / peak_flops, nbytes / PEAK_BYTES)
+
+
+def matcher_parts(matcher, config: dict, n0: int, n1: int) -> dict:
+    """The matcher module's ``parts`` of one pair problem; none without."""
+    parts = getattr(matcher, "parts", None)
+    return parts(config, n0, n1) if parts is not None else {}
 
 
 def window_work(config: dict, matcher, dispatches: list) -> dict:
     """The operations and bytes the dispatches need: each is (images,
     [(n0, n1) of each pair problem]), the pairs counted at the keypoints
     each side has (what these inputs need, not the K a step pads to) by
-    ``matcher.work``, the configuration's matcher module's."""
+    ``matcher.work``, the configuration's matcher module's, and under
+    ``"parts"`` by its ``parts``: {layer: (operations, bytes, peak)}."""
     cam, sp = config["camera"], config["superpoint"]
     K, dim = sp["max_keypoints"], sp["descriptor_dim"]
     images = sum(n for n, _pairs in dispatches)
-    pairs = [matcher.work(config, a, b) for _n, ps in dispatches for a, b in ps]
+    problems = [(a, b) for _n, ps in dispatches for a, b in ps]
+    pairs = [matcher.work(config, a, b) for a, b in problems]
+    parts: dict = {}
+    for a, b in problems:
+        for layer, (f, nb, peak) in matcher_parts(matcher, config, a, b).items():
+            f0, b0, p0 = parts.get(layer, (0.0, 0.0, peak))
+            if p0 != peak:
+                raise ValueError(f"part {layer!r} names two peaks, {p0} and {peak}")
+            parts[layer] = (f0 + f, b0 + nb, peak)
     return {
         "detector_flops": images * superpoint_flops(cam["height"], cam["width"]),
         "detector_bytes": images * superpoint_bytes(cam["height"], cam["width"], K, dim),
         "matcher_flops": sum(f for f, _b in pairs),
         "matcher_bytes": sum(b for _f, b in pairs),
+        "parts": parts,
     }

@@ -60,7 +60,7 @@ class Run:
     latencies_ms: list  # each such dispatch's, from its images handed over to its block on the host
     setup_s: float  # process start to the first timed step
     spans: list  # (name, start ns, end ns) host spans of the harness inside the window
-    work: dict  # flops.window_work of the dispatches completed inside the window
+    work: dict  # flops.window_work of the dispatches completed inside the window, "parts" included
     counters: dict  # the program's kernel launches inside the window, by wrapper
     power_limit_w: float | None
     trace: object = None  # devtrace.Trace
@@ -131,6 +131,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device, t
     cell = man.workload(workload)
     cfg = man.config(cell["config"])
     matcher = man.matcher(cfg.get("matcher"))
+    unlayered = set(flops.matcher_parts(matcher, cfg, 1, 1)) - {ly["layer"] for ly in man.layers()}
+    if unlayered:
+        raise KeyError(f"the matcher's parts {sorted(unlayered)} have no layers/<part>.json")
     tr = man.traffic(cell["traffic"])
     limits = man.limits(workload)
     entry_mod = man.entry(tr["entry"])

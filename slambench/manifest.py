@@ -6,13 +6,17 @@ sits in a file of its own, so a later change adds files and edits none:
 - ``configs/<config>.json``: the configuration (the manifest's ``file``),
   whose ``"matcher"`` names its matcher;
 - ``matchers/<matcher>.py``: a matcher's settings block, its parameters and
-  keyword arguments for the port, its plain reference and its work;
+  keyword arguments for the port, its plain reference (its ``match`` gets
+  each side's ``(kpts, valid, desc, pix, scores)``) and its work, with
+  optional ``parts`` that layer files of their own take out of the
+  ``matcher`` layer (``flops.py``);
 - ``traffic/<traffic>.json``: the mix's parameters, naming its ``entry``;
 - ``entries/<entry>.py``: how the program is driven (``Entry``; a ``judge``
   there replaces ``compare.judge`` for its cells);
 - ``limits/<cell>.json``: the limit of each number ``compare.judge`` reads;
 - ``metrics/<metric>.py``: the reader of a metric (``read(run)``);
-- ``layers/<layer>.json``: the kernel-name patterns of a layer of the trace.
+- ``layers/<layer>.json``: the kernel-name patterns of a layer of the trace;
+  a part's layer is the part's name.
 """
 
 from __future__ import annotations
@@ -92,7 +96,10 @@ class Manifest:
 
     def layers(self) -> list[dict]:
         """Kernel layers: named ones first, then those that follow the
-        preceding kernel, each group in file-name order."""
+        preceding kernel, each group in file-name order. A kernel goes to
+        the first named layer whose patterns match its name, so a part's
+        kernel names match no pattern of a file that sorts before its own
+        (``matcher.json``'s ``softmax``, ``gemm``, ...)."""
         out = []
         for path in sorted(glob.glob(os.path.join(self.bench_dir, "layers", "*.json"))):
             with open(path) as f:

@@ -9,8 +9,12 @@ Its settings are the configuration's ``"lightglue"`` block: ``layers``,
 - ``prepared(pipeline)``: the parameters as the port's RGB-D pipeline
   prepared them, which its step is called with;
 - ``Reference(cfg, root, device, precision)``: the plain reference, whose
-  ``match(f0, f1, true_w, true_h)`` gives (log-assignment, matches);
-- ``work(cfg, n0, n1)``: (operations, bytes) of one pair problem.
+  ``match(f0, f1, true_w, true_h)`` gives (log-assignment, matches); each
+  side is ``reference.py``'s ``(kpts, valid, desc, pix, scores)``, of
+  which LightGlue reads the first three;
+- ``work(cfg, n0, n1)``: (operations, bytes) of one pair problem;
+- optionally ``parts(cfg, n0, n1)``: work that layer files of its own
+  take out of the ``matcher`` layer (``flops.py``). LightGlue has none.
 
 The reference is written from the model's definition (9 layers of rotary
 self-attention and cross-attention, dual-softmax assignment and mutual
@@ -117,8 +121,9 @@ class Reference:
 
     @torch.no_grad()
     def match(self, f0, f1, true_w: int, true_h: int, block: int = 8):
-        """Log-assignment and mutual matches of pairs (kpts, valid, desc)
-        f0 -> f1, each (B, K, ...), in blocks of pairs."""
+        """Log-assignment and mutual matches of pairs of features f0 -> f1,
+        each (B, K, ...), in blocks of pairs; of each side's tuple the
+        keypoints, validity and descriptors."""
         center = torch.tensor([true_w / 2.0, true_h / 2.0], device=self.device)
         scale = max(true_w, true_h) / 2.0
         la, mt = [], []

@@ -101,8 +101,8 @@ class Reference:
     def features(self, images_u8, sp_cfg: dict, true_w: int, true_h: int, block: int = 8):
         """Keypoints of frames (B, h, w) uint8 (numpy or tensor), in blocks.
         Returns kpts (B, K, 2) f32 pixels (sub-pixel), valid (B, K) bool,
-        unit descriptors (B, K, 256) f32 (zero where invalid) and each
-        keypoint's integer pixel (B, K, 2)."""
+        unit descriptors (B, K, 256) f32 (zero where invalid), each
+        keypoint's integer pixel (B, K, 2) and its score (B, K) f32."""
         imgs = torch.as_tensor(np.asarray(images_u8))
         out = [self._features(imgs[i : i + block], sp_cfg, true_w, true_h)
                for i in range(0, imgs.shape[0], block)]
@@ -119,8 +119,9 @@ class Reference:
                       sp_cfg["remove_borders"], true_w, true_h)
 
     def match(self, f0, f1, true_w: int, true_h: int, block: int = 8):
-        """The configuration's matcher on pairs of ``features`` f0 -> f1:
-        (log-assignment, mutual matches)."""
+        """The configuration's matcher on pairs of ``features`` f0 -> f1
+        (each side the whole tuple, scores included): (log-assignment,
+        mutual matches)."""
         return self.matcher.match(f0, f1, true_w, true_h, block)
 
 
@@ -129,7 +130,9 @@ def select(scores, pre, grid, K: int, threshold: float, borders: int, true_w: in
     flat index), valid above the threshold, away from the true border; the
     nearest cell's descriptor renormalized; a 3x3 parabolic sub-pixel
     offset (clamped to +-0.5 px) from the pre-NMS map. Returns (kpts,
-    valid, desc, integer pixel)."""
+    valid, desc, integer pixel, score): the score is the key of the sort,
+    the NMS'd map at the integer pixel (0 on the border), as the port's
+    ``select_keypoints`` gives it."""
     b, h, w = scores.shape
     gh, gw = grid.shape[1], grid.shape[2]
     ys = torch.arange(h, device=scores.device)[:, None]
@@ -159,7 +162,7 @@ def select(scores, pre, grid, K: int, threshold: float, borders: int, true_w: in
     s0 = at(0, 0)
     off = torch.stack([vertex(at(0, -1), s0, at(0, 1)), vertex(at(-1, 0), s0, at(1, 0))], dim=-1)
     pix = torch.stack([xx, yy], dim=-1)
-    return pix.float() + off * valid[..., None], valid, desc, pix
+    return pix.float() + off * valid[..., None], valid, desc, pix, top
 
 
 def extract_matches(p: torch.Tensor, mask0, mask1, threshold: float) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 On the CPU they check the manifest against the contract's characters, that
 every cell's files are found by name (and that a new configuration,
-traffic mix, metric, layer and matcher are found by adding files alone),
+traffic mix, metric, layer and matcher, one that reads keypoint scores and
+names a part of its work included, are found by adding files alone),
 the work arithmetic against hand counts, and whole runs of tiny cells
 through the port's CPU path: sound runs come out correct; the control (the
 reference at float8 in the program's place) and the program's faults do
@@ -26,7 +27,7 @@ import time
 import pytest
 import torch
 
-from slambench import compare, flops, harness, render
+from slambench import compare, flops, harness, reference, render
 from slambench.devtrace import attribute, gaps, idle_by_span, union
 from slambench.manifest import NAME, UNIT, Manifest
 
@@ -252,13 +253,18 @@ def test_a_new_matcher_is_files_alone(tmp_path, monkeypatch):
     monkeypatch.setattr(flops, "window_work", lambda *a: work.append(window_work(*a)) or work[-1])
     got = {}
     for cell in ["tiny.rgbd", "other.rgbd", "tiny.stereo", "other.stereo"]:
-        monkeypatch.setattr(time, "time_ns", _Clock(50_000_000))
-        r = _run(man, cell)
-        rates = {k: v for k, v in r["metrics"].items() if k != "setup_s"}
-        got[cell] = (r["correct"], r["attempted"], rates, r["checks"], work[-1])
+        cfg = man.config(man.workload(cell)["config"])
+        ref = harness.check_reference(cfg, man.matcher(cfg["matcher"]), root, "cpu", "fp8")
+        for control in (None, lambda units: compare.program_like(ref, units, cfg)):
+            monkeypatch.setattr(time, "time_ns", _Clock(50_000_000))
+            r = _run(man, cell, control=control)
+            rates = {k: v for k, v in r["metrics"].items() if k != "setup_s"}
+            got[cell, control is None] = (r["correct"], r["attempted"], rates, r["checks"], work[-1])
     for like in sorted(TINY):
-        assert got[like][0], got[like]
-        assert got[like.replace("tiny", "other")] == got[like]
+        assert got[like, True][0] and not got[like, False][0], got[like, True]
+        assert got[like, True][4]["parts"] == {}
+        for sound in (True, False):
+            assert got[like.replace("tiny", "other"), sound] == got[like, sound]
     after = digests()
     assert all(after[p] == d for p, d in before.items())
 
@@ -282,6 +288,186 @@ def test_a_configuration_must_name_a_matcher_file(tmp_path, monkeypatch, matcher
     monkeypatch.setattr(render, "frame_set", frame_set)
     with pytest.raises(KeyError, match="matcher"):
         _run(Manifest(root, os.path.join(root, "slambench")), "unmatched")
+
+
+STUB = '''
+
+# -- a matcher that reads keypoint scores and names a part of its work -------------
+
+from slambench.flops import F32_PEAK_FLOPS  # noqa: E402
+
+_LightGlueReference = Reference
+
+
+class Reference(_LightGlueReference):
+    def __init__(self, cfg, root, device, precision="f32"):
+        super().__init__(cfg, root, device, precision)
+        self.threshold = cfg["superpoint"]["keypoint_threshold"]
+
+    def match(self, f0, f1, true_w, true_h, block=8):
+        for kpts, valid, _desc, _pix, scores in (f0, f1):
+            assert scores.dtype == torch.float32 and scores.shape == valid.shape == kpts.shape[:2]
+            assert torch.equal(valid, scores > self.threshold)
+        return super().match(f0, f1, true_w, true_h, block)
+
+
+def parts(cfg, n0, n1):
+    """A stand-in for an iterative normalisation over the (n0 + 1) x (n1 + 1)
+    coupling, 3 iterations of 5 operations an entry on the CUDA cores."""
+    entries = (n0 + 1) * (n1 + 1)
+    return {"stub_part": (15.0 * entries, 8.0 * entries, F32_PEAK_FLOPS)}
+'''
+
+
+def _add_stub_matcher(root: str) -> str:
+    """The files a matcher that reads scores and names a part adds, and no
+    other: its module (LightGlue's under block ``stub``, its reference
+    asserting that each side carries scores, one part), a configuration
+    naming it and its cell on the tiny RGB-D traffic (``_add_cell``), the
+    part's layer and the part's roofline reader. Returns the cell."""
+    bench = os.path.join(root, "slambench")
+    src = open(os.path.join(bench, "matchers", "lightglue.py")).read()
+    with open(os.path.join(bench, "matchers", "stub.py"), "w") as f:
+        f.write(src.replace('BLOCK = "lightglue"', 'BLOCK = "stub"') + STUB)
+    with open(os.path.join(bench, "layers", "stub_part.json"), "w") as f:
+        json.dump({"layer": "stub_part", "why": "the stub's part", "patterns": ["stub_part_kernel"]}, f)
+    with open(os.path.join(bench, "metrics", "stub_part_roofline_pct.py"), "w") as f:
+        f.write("from slambench.flops import least_seconds\n\n\n"
+                "def read(run):\n"
+                "    t = run.trace.layer_s.get('stub_part', 0.0)\n"
+                "    part = run.work['parts'].get('stub_part')\n"
+                "    if t <= 0 or part is None:\n        return None\n"
+                "    return 100.0 * least_seconds(*part) / t\n")
+
+    def rename(cfg):
+        cfg["stub"] = cfg.pop("lightglue")
+        cfg["matcher"] = "stub"
+
+    _add_cell(root, "stub.rgbd", "tiny.rgbd", rename)
+    return "stub.rgbd"
+
+
+def test_a_matcher_that_reads_scores_and_names_a_part_is_files_alone(tmp_path, monkeypatch):
+    """The stub matcher runs a tiny cell through ``run_cell`` as new files
+    only: its reference gets every side's scores, the run is decided as the
+    LightGlue cell's is, the part's sums over the window's pairs reach
+    ``run.work`` beside the LightGlue cell's four unchanged floats, and
+    ``step_mfu_pct`` counts them once."""
+    from slambench.devtrace import Trace
+
+    root = _tiny_checkout(str(tmp_path))
+    bench = os.path.join(root, "slambench")
+    monkeypatch.setattr(render, "CACHE_DIR", os.path.join(root, "cache"))
+
+    def digests():
+        return {p: hashlib.sha1(open(p, "rb").read()).hexdigest()
+                for p in glob.glob(os.path.join(bench, "**", "*"), recursive=True) if os.path.isfile(p)}
+
+    before = digests()
+    cell = _add_stub_matcher(root)
+    man = Manifest(root, bench)
+    assert "stub_part" in [ly["layer"] for ly in man.layers()]
+    seen, calls = [], []
+    match = reference.Reference.match
+    monkeypatch.setattr(reference.Reference, "match",
+                        lambda self, f0, f1, *a: seen.append((len(f0), len(f1))) or match(self, f0, f1, *a))
+    window_work = flops.window_work
+    monkeypatch.setattr(flops, "window_work",
+                        lambda *a: calls.append((a, window_work(*a))) or calls[-1][1])
+    got = {}
+    for name in ("tiny.rgbd", cell):
+        monkeypatch.setattr(time, "time_ns", _Clock(50_000_000))
+        seen.clear()
+        r = _run(man, name)
+        assert seen and set(seen) == {(5, 5)}
+        got[name] = (r["correct"], r["attempted"], r["checks"], calls[-1])
+    assert got[cell][:3] == got["tiny.rgbd"][:3] and got[cell][0], got[cell]
+    (cfg, stub, dispatches), work = got[cell][3]
+    lg_work = got["tiny.rgbd"][3][1]
+    assert {k: v for k, v in work.items() if k != "parts"} == {k: v for k, v in lg_work.items()
+                                                                if k != "parts"}
+    entries = [(a + 1) * (b + 1) for _n, ps in dispatches for a, b in ps]
+    assert entries and lg_work["parts"] == {}
+    assert work["parts"] == {"stub_part": (sum(15.0 * e for e in entries), sum(8.0 * e for e in entries),
+                                           flops.F32_PEAK_FLOPS)}
+    run = harness.Run(cfg, {}, cell, 2.0, 10, 20, [1.0], 1.0, [], work, {}, None,
+                      Trace(window_s=2.0, busy_s=1.5, layer_s={"detector": 0.5, "matcher": 0.5,
+                                                               "stub_part": 1e-6}))
+    f, b, peak = work["parts"]["stub_part"]
+    assert man.reader("step_mfu_pct").read(run) == pytest.approx(
+        100 * (work["detector_flops"] + work["matcher_flops"] + f) / (2.0 * flops.PEAK_FLOPS), rel=1e-12)
+    assert man.reader("stub_part_roofline_pct").read(run) == pytest.approx(
+        100 * max(f / peak, b / flops.PEAK_BYTES) / 1e-6)
+    assert man.reader("matcher_roofline_pct").read(run) == pytest.approx(
+        100 * flops.least_seconds(work["matcher_flops"], work["matcher_bytes"]) / 0.5)
+    run.trace.layer_s.pop("stub_part")
+    assert man.reader("stub_part_roofline_pct").read(run) is None
+    after = digests()
+    assert all(after[p] == d for p, d in before.items())
+
+
+def test_a_part_without_a_layer_file_stops_the_run(tmp_path, monkeypatch):
+    root = _tiny_checkout(str(tmp_path))
+    cell = _add_stub_matcher(root)
+    os.remove(os.path.join(root, "slambench", "layers", "stub_part.json"))
+
+    def frame_set(*a):
+        raise AssertionError("set-up began")
+
+    monkeypatch.setattr(render, "frame_set", frame_set)
+    with pytest.raises(KeyError, match="stub_part"):
+        _run(Manifest(root, os.path.join(root, "slambench")), cell)
+
+
+def test_the_rgbd_entry_carries_scores_where_the_step_gives_them(tiny, monkeypatch):
+    """Where the port's step returns the frames' scores after its four
+    outputs and takes the keyframe's as ``kf_scores``, and the pipeline
+    keeps them, the entry hands each dispatch the scores of the last frame
+    of the dispatch ``depth`` before (zeros before the first keyframe), and
+    the run reads what it reads without them. The port's side is stood in
+    for here."""
+    from superslam_tpu_torch.frontend import features
+    from superslam_tpu_torch.frontend.fused_rgbd import FusedRgbdPipeline
+    from superslam_tpu_torch.ops import rgbd_step
+
+    def result():
+        monkeypatch.setattr(time, "time_ns", _Clock(50_000_000))
+        r = _run(tiny, "tiny.rgbd")
+        return r["correct"], r["attempted"], r["checks"]
+
+    plain = result()
+    step, given, returned = rgbd_step.fused_rgbd_step_multi, [], []
+
+    def scored_step(sp, lg, images, kf_kpts, kf_desc, kf_valid, kf_scores=None, **kw):
+        out = step(sp, lg, images, kf_kpts, kf_desc, kf_valid, **kw)
+        given.append(kf_scores.clone())
+        returned.append(torch.arange(out[3].numel()).reshape(out[3].shape) + 1000.0 * len(returned))
+        return (*out, returned[-1])
+
+    class ScoredSlot(features.LazySlotFeatures):
+        def __init__(self, *a, scores=None, **kw):
+            super().__init__(*a, **kw)
+            self.scores = scores[self.slot]
+
+    init, set_keyframe = FusedRgbdPipeline.__init__, FusedRgbdPipeline.set_keyframe
+
+    def scored_init(self, *a, **kw):
+        init(self, *a, **kw)
+        self._kf_scores = torch.zeros(self.K)
+
+    def scored_keyframe(self, feats):
+        set_keyframe(self, feats)
+        self._kf_scores = getattr(feats, "scores", torch.zeros(self.K))
+
+    monkeypatch.setattr(rgbd_step, "fused_rgbd_step_multi", scored_step)
+    monkeypatch.setattr(features, "LazySlotFeatures", ScoredSlot)
+    monkeypatch.setattr(FusedRgbdPipeline, "__init__", scored_init)
+    monkeypatch.setattr(FusedRgbdPipeline, "set_keyframe", scored_keyframe)
+    assert result() == plain
+    depth = tiny.traffic("tiny.rgbd-traffic")["depth"]
+    assert len(given) > depth + 2
+    for i, kf in enumerate(given):
+        assert torch.equal(kf, returned[i - depth][-1] if i >= depth else torch.zeros_like(kf)), i
 
 
 # -- the arithmetic ------------------------------------------------------------
@@ -331,6 +517,30 @@ def test_window_work_counts_images_and_pairs():
     # SuperPoint at 1248 x 376 is some 80 GFLOP, LightGlue at K 600 some 41.
     assert 79e9 < flops.superpoint_flops(376, 1241) < 82e9
     assert 40e9 < lg.lightglue_flops(600, 600, 256, 9, 4) < 42e9
+
+
+def test_select_scores_are_the_nms_map_at_the_integer_keypoint():
+    """``select``'s fifth element is the NMS'd map at each keypoint's integer
+    pixel (the sort's key), the port's ``select_keypoints`` scores to the
+    bit; its first four are what they were."""
+    from superslam_tpu_torch.models.superpoint import select_keypoints
+
+    gen = torch.Generator().manual_seed(7)
+    b, h, w, K, borders, tw, th = 2, 32, 48, 40, 4, 44, 30
+    pre = torch.rand((b, h, w), generator=gen) ** 4
+    pooled = torch.nn.functional.max_pool2d(pre[:, None], 9, 1, 4)[:, 0]
+    nms = torch.where(pre == pooled, pre, torch.zeros_like(pre))
+    grid = torch.randn((b, h // 8, w // 8, 16), generator=gen)
+    kpts, valid, desc, pix, scores = reference.select(nms, pre, grid, K, 0.005, borders, tw, th)
+    bi = torch.arange(b)[:, None]
+    inside = ((pix >= borders) & (pix < torch.tensor([tw, th]) - borders)).all(-1)
+    assert torch.equal(scores, torch.where(inside, nms[bi, pix[..., 1], pix[..., 0]], torch.zeros_like(scores)))
+    assert torch.equal(valid, scores > 0.005) and 0 < int(valid.sum()) < b * K
+    assert bool((scores[:, :-1] >= scores[:, 1:]).all())
+    p_kpts, p_scores, p_valid, _ = select_keypoints(nms, grid, K, 0.005, borders, tw, th, raw_scores=pre,
+                                                    use_kernel=False)
+    assert torch.equal(p_scores, scores) and torch.equal(p_valid, valid)
+    assert torch.equal(p_kpts, kpts) and desc.shape == (b, K, 16) and pix.dtype == torch.int64
 
 
 # -- the trace -------------------------------------------------------------------
@@ -405,18 +615,20 @@ def _step_fault(kind: str, rows: int):
             if kind == "state":  # the keyframe state never advances
                 kf_kpts, kf_desc, kf_valid = (torch.zeros_like(kf_kpts), torch.zeros_like(kf_desc),
                                               torch.zeros_like(kf_valid))
+                if "kf_scores" in kw:
+                    kw["kf_scores"] = torch.zeros_like(kw["kf_scores"])
             if kind == "half":  # half of the batch left out, filled from the rest
                 kf = (kf_kpts, kf_desc, kf_valid)
                 if kf_kpts.dim() == 3:  # per-stream keyframes
                     kf = tuple(t[: t.shape[0] // 2] for t in kf)
                 out = step(sp, lg, images[: images.shape[0] // 2], *kf, **kw)
                 return tuple(torch.cat([t, t]) for t in out)
-            p, d, k, v = step(sp, lg, images, kf_kpts, kf_desc, kf_valid, **kw)
+            p, *rest = step(sp, lg, images, kf_kpts, kf_desc, kf_valid, **kw)
             if kind == "answer":  # every track answer points at the next keypoint
                 p = p.clone()
                 tr = p.view(-1, rows, p.shape[-1])[:, rows - 1]
                 tr[tr >= 0] += 1
-            return p, d, k, v
+            return (p, *rest)
 
         return broken
 
